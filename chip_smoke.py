@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -7,24 +7,45 @@ Phases, one JSON line each; any failure exits non-zero before the last
 line is printed:
 
 1. device — torch/CUDA versions, the card's name and power limit.
-2. build — compile every kernel of the path with nvcc (sm_90a) from the
-   sources in the checkout.
-3. kernel vs plain — each kernel's wrapper against its plain PyTorch
-   version on the card, on the same key and inputs; all four KYResult
-   fields must be equal.
+2. build — compile every kernel of the port with nvcc (sm_90a) from the
+   sources in the checkout, one nvcc each, all at once.
+3. kernel vs plain — the fused kernel's wrapper against its plain
+   PyTorch version on the card, on the same key and inputs; all four
+   KYResult fields must be equal.
 4. serve — ``PosteriorEngine.answer_batch`` on hailfinder_scale (56
-   nodes, engine defaults) with ``sampler="cuda"``: 64 synthetic queries,
-   cold and warm pass, launch counters zeroed just before and read just
-   after (launches per (b, L) and per engine round included); both
-   passes must equal the same passes through ``sampler="torch"`` bit for
-   bit, and a sprinkler posterior must land within 0.03 of exact.
+   nodes, engine defaults) with ``sampler="cuda"``: 64 synthetic queries
+   over 4 evidence patterns, cold and warm pass, launch counters zeroed
+   just before and read just after (launches per (b, L) and per engine
+   round included); both passes must equal the same passes through
+   ``sampler="torch"`` bit for bit, and a sprinkler posterior must land
+   within 0.03 of exact.
 5. kernel at the main path's inputs — the first recorded call of each
    (b, L) launched again and held against the recorded result and the
    plain version, then timed; the bound counts every recorded launch.
 6. profile — torch.profiler over one warm group: device busy share.
+7. ky_sampler — the stand-alone kernel API's KY sampler,
+   ``ops.ky_sample_kernel``, at the sizes of
+   ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
+   Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
+   all-zero row and a (65536, 3) frequency check; all four fields
+   equal to the plain version on the card; bits per sample beside
+   ``cdf_sample``'s 32.
+8. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+   (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
+   the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
+   plain version.
+9. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+   S 4096, 24 heads, 8 kv heads, dh 128, causal) in bfloat16 and in
+   float32, and ``flash_attention`` at the float32 shapes of
+   ``tests/test_kernels.py``, all within the JAX tests' tolerances of the
+   plain ``mha_ref``; the full-width bfloat16 case also within 2e-2 of
+   each row's largest output, scaled to that width's small outputs;
+   SDPA's time at full width beside the kernel's.
 
-Then the per-kernel JSON line, the nvidia-smi name/power-limit line, and
-last ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
+Phases 7-9 each zero their kernel's launch count just before their main
+path and read it just after.  Then the per-kernel JSON line, the
+nvidia-smi name/power-limit line, and last ``{"ok": true, "device":
+{...}}``.  Imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -41,8 +62,33 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16/fp16 tensor cores, dense
 SERVE_NET = "hailfinder_scale"
+# 16 queries per evidence pattern, as one engine group
+SERVE_QUERIES, SERVE_PATTERNS = 64, 4
 KERNEL_SHAPES = ((7, 3), (300, 5), (4096, 16), (20000, 5), (65536, 2))
+# benchmarks/bench_ky_vs_cdf.py: 65536 rows, n in {4, 16, 64}, alpha 0.3
+KY_SHAPES = ((65536, 4), (65536, 16), (65536, 64))
+KY_RAGGED = (133, 7)
+# benchmarks/bench_interp.py's tile, and ragged shapes of tests/test_kernels.py
+IU_SHAPE = (4096, 1024)
+IU_RAGGED = ((37, 64), (1, 1000))
+# phi4-mini's attention (src/repro/configs/phi4_mini.py: n_heads 24, n_kv 8,
+# d_head 128; dtype bfloat16 from configs/base.py), one sequence of 4096
+PHI4_ATTN = dict(B=1, S=4096, H=24, KV=8, dh=128)
+# tests/test_kernels.py's flash shapes: (bh, s, dh, causal, block), float32
+FLASH_F32_SHAPES = ((4, 128, 64, True, 64), (2, 256, 128, True, 128),
+                    (2, 256, 64, False, 64), (8, 64, 32, True, 32),
+                    (1, 512, 64, True, 128))
+# the JAX tests' tolerances (tests/test_kernels.py): (atol, rtol)
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
+# The JAX tests' bf16 atol was set at S <= 512.  At S 4096 with unit-variance
+# scores, row n's outputs are about sqrt(e / n) in size (0.026 at the last
+# row), so that atol would pass a key tile skipped on long rows only.  The
+# full-width bf16 case is also held per row: max |diff| along dh within this
+# share of max |want| (one bf16 ulp of the row's largest output is up to
+# 2^-7 of it; PERF.md has the measured errors and planted faults).
+FLASH_FULL_BF16_ROW_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -84,17 +130,25 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def fused_bound_ms(b: int, L: int, words_read: int, bits_total: int,
-                   lut_nodes: int) -> tuple[float, float]:
-    """Least time the card could take for one fused launch, as (bytes
-    time, operations time).  Bytes: each input the function needs read
-    once — the L log-weights and the card of every lane, the bit words
-    its cursor reaches (``words_read``, from this launch's ``bits_used``)
-    and the LUT once — and the 13 output bytes of every lane written
-    once.  Ops: ~10 float32 per label for the weight tail, ~4 per label
-    per DDG level walked (this launch's bits)."""
+                   lut_nodes: int) -> tuple[float, str]:
+    """Least time the card could take for one fused launch, and what
+    bounds it (see :func:`roofline`).  Bytes: each input the function
+    needs read once — the L log-weights and the card of every lane, the
+    bit words its cursor reaches (``words_read``, from this launch's
+    ``bits_used``) and the LUT once — and the 13 output bytes of every
+    lane written once.  Ops: ~10 float32 per label for the weight tail,
+    ~4 per label per DDG level walked (this launch's bits)."""
     nbytes = b * (4 * L + 4 + 13) + 4 * words_read + 4 * lut_nodes
     ops = b * L * 10 + bits_total * L * 4
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return roofline(nbytes, ops, FP32_OPS_PER_S)
+
+
+def roofline(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of the bytes time at the
+    card's memory rate and the operations time at ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def kernel_inputs(b: int, L: int, seed: int, device):
@@ -224,9 +278,9 @@ def main_path_bound(rec) -> tuple[float, str]:
                                                        per_call):
         b, L = logw.shape
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
-        t_bytes, t_ops = fused_bound_ms(b, L, words_read, bits, lut)
-        bounds.append(max(t_bytes, t_ops))
-        bys["bytes" if t_bytes >= t_ops else "operations"] += 1
+        bound, by = fused_bound_ms(b, L, words_read, bits, lut)
+        bounds.append(bound)
+        bys[by] += 1
     return sum(bounds) / len(bounds), bys.most_common(1)[0][0]
 
 
@@ -290,14 +344,14 @@ def phase_main_path_kernel(rec) -> dict:
 
 def profile_group(engine, traffic) -> dict:
     """Where a warm group's time goes: torch.profiler over one group of
-    the serve phase (the 16 queries of its first evidence pattern) —
+    the serve phase (the queries of its first evidence pattern) —
     device busy share of the wall time, the fused kernel's share of the
     device time, and the kernels that take most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    group = traffic[::4]            # one evidence pattern, 16 queries
+    group = traffic[::SERVE_PATTERNS]    # one evidence pattern
     engine.answer_batch(group)      # warm the plan cache
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -367,7 +421,7 @@ def phase_serve(card_name: str) -> dict:
 
     bn = getattr(networks, SERVE_NET)()
     registry = {SERVE_NET: bn}
-    traffic = synthetic_traffic(bn, SERVE_NET, 64, 4,
+    traffic = synthetic_traffic(bn, SERVE_NET, SERVE_QUERIES, SERVE_PATTERNS,
                                 np.random.default_rng(0), 4096)
     engine = PosteriorEngine(registry, seed=0)           # cuda, sampler cuda
     assert engine.device.type == "cuda" and engine.sampler == "cuda"
@@ -422,6 +476,289 @@ def phase_serve(card_name: str) -> dict:
     return {"engine": engine, "traffic": traffic, "record": rec}
 
 
+def cold_device_ms(fn, reps: int, device) -> float:
+    """Mean device milliseconds of one call of ``fn`` with a cold L2, by
+    CUDA events just around each call.  Before each call 512 MB are
+    overwritten (ten times the card's 50 MB L2), so that the call reads
+    its inputs from device memory, as a caller with fresh data would; the
+    fill also keeps the card busy while the host enqueues the call, so
+    the events time the device and not the host.  (Events, not
+    torch.profiler's kernel records: after the serve phase's large
+    profile the profiler once saw no record of a later kernel at all.)"""
+    import torch
+
+    scratch = torch.empty(128 << 20, dtype=torch.float32, device=device)
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        scratch.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def ky_weights(b: int, n: int, seed: int, device):
+    """12-bit KY weights of Dirichlet(0.3) rows, made with numpy."""
+    import torch
+
+    from repro_torch.core.fixedpoint import quantize_probs
+
+    p = np.random.default_rng(seed).dirichlet(np.full(n, 0.3), size=b)
+    return quantize_probs(torch.tensor(p, dtype=torch.float32,
+                                       device=device), 12)
+
+
+def phase_ky_sampler(device) -> dict:
+    """The stand-alone KY sampler at the KY-vs-CDF benchmark's sizes, a
+    ragged case with an all-zero row, and a frequency check; every field
+    equal to the plain version on the card; then timed (the kernel with a
+    cold L2, the plain version and ``cdf_sample`` warm), with the bound
+    from each case's own ``bits_used``."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.core.cdf import cdf_sample
+    from repro_torch.core.fixedpoint import quantize_probs
+    from repro_torch.kernels import ky_sampler as kys
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    cases = [ky_weights(b, n, 1000 + n, device) for b, n in KY_SHAPES]
+    ragged = ky_weights(*KY_RAGGED, 7, device)
+    ragged[5] = 0
+    probs = torch.tensor([0.6, 0.3, 0.1], device=device)
+    tiled = quantize_probs(probs, 10).expand(65536, 3).contiguous()
+    cases += [ragged, tiled]
+    key = rng.PRNGKey(0)
+
+    kys.ky_sampler.launches = 0                      # the main path
+    got = [ops.ky_sample_kernel(key, w) for w in cases]
+    torch.cuda.synchronize()
+    launches = kys.ky_sampler.launches
+    if launches != len(cases):
+        raise AssertionError(f"{launches} KY launches for {len(cases)} calls")
+
+    rows, bad = [], []
+    for w, res in zip(cases, got):
+        b, n = w.shape
+        want = ops.ky_sample_kernel_ref(key, w)
+        equal, err = result_err(res, want)
+        bits = res.bits_used.to(torch.int64)
+        words_read = int(((bits + 31) // 32).sum())
+        bound, by = roofline(b * (4 * n + 8 + 9) + 4 * words_read,
+                             4 * n * int(bits.sum()), FP32_OPS_PER_S)
+        flat, words, klvl, rej, budget, _ = ops._ky_inputs(key, w, 32, device)
+
+        def launch():
+            return kys._launch(flat, words, klvl, rej, budget, 256)
+
+        cdf = cdf_sample(key, w)
+        row = dict(
+            b=b, n=n, equal=equal, max_abs_err=err, ok_all=bool(res.ok.all()),
+            bits_per_sample=float(bits.float().mean()),
+            cdf_bits_per_sample=float(cdf.bits_used.float().mean()),
+            ms=cold_device_ms(launch, 50, device),
+            plain_ms=time_ms(lambda: ref.ky_walk_global(
+                flat, words, klvl, rej, budget), 3, warmup=1),
+            cdf_ms=time_ms(lambda: cdf_sample(key, w), 10),
+            bound_ms=bound, bound_by=by)
+        row["bit_economy"] = row["cdf_bits_per_sample"] / row[
+            "bits_per_sample"]
+        if not (equal and row["ok_all"]) or bool((res.sample >= n).any()):
+            bad.append(row)
+        rows.append(row)
+    freq = torch.bincount(got[-1].sample.long(), minlength=3).float() / 65536
+    freq_err = float((freq - probs).abs().max())
+    emit({"phase": "ky_sampler", "launches": launches, "cases": rows,
+          "all_equal": not bad, "freq_err": freq_err})
+    if bad or not freq_err < 0.02:
+        raise AssertionError(f"KY kernel: {bad}, frequency error {freq_err}")
+    full = rows[len(KY_SHAPES) - 1]             # the widest, 65536 x 64
+    return dict(launches=launches, shape=[full["b"], full["n"]],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")})
+
+
+def iu_inputs(shape, table, seed: int, device):
+    """Uniform inputs over the table's range widened by a quarter at each
+    end, so that both clamps are exercised."""
+    import torch
+
+    span = table.hi - table.lo
+    x = np.random.default_rng(seed).uniform(
+        table.lo - span / 4, table.hi + span / 4, size=shape)
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def phase_interp_lut(device) -> dict:
+    """The stand-alone IU at the interp benchmark's tile for the exp and
+    sigmoid tables and at ragged shapes; bitwise equal to the plain
+    version on the card, and within 2e-3 of the exact function."""
+    import torch
+
+    from repro_torch.core import interp
+    from repro_torch.kernels import interp_lut as il
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+
+    exact = {"exp": np.exp, "sigmoid": lambda x: 1 / (1 + np.exp(-x))}
+    tables = {"exp": interp.exp_table(), "sigmoid": interp.sigmoid_table()}
+    cases = [("exp", IU_SHAPE), ("sigmoid", IU_SHAPE)]
+    cases += [("exp", shape) for shape in IU_RAGGED]
+    inputs = [iu_inputs(shape, tables[name], i, device)
+              for i, (name, shape) in enumerate(cases)]
+
+    il.interp_lut.launches = 0                       # the main path
+    got = [ops.interp_kernel(x, tables[name].table, lo=tables[name].lo,
+                             hi=tables[name].hi)
+           for (name, _), x in zip(cases, inputs)]
+    torch.cuda.synchronize()
+    launches = il.interp_lut.launches
+    if launches != len(cases):
+        raise AssertionError(f"{launches} IU launches for {len(cases)} calls")
+
+    rows, bad = [], []
+    for (name, shape), x, y in zip(cases, inputs, got):
+        t = tables[name]
+        tab = t.table.to(device)
+        want = ops.interp_kernel_ref(x, tab, lo=t.lo, hi=t.hi)
+        x64 = np.clip(x.double().cpu().numpy(), t.lo, t.hi)
+        fn_err = float(np.abs(exact[name](x64) - y.double().cpu().numpy()
+                              ).max())
+        bound, by = roofline(8 * x.numel() + 4 * tab.numel(), 8 * x.numel(),
+                             FP32_OPS_PER_S)
+        row = dict(table=name, shape=list(shape), equal=torch.equal(y, want),
+                   max_abs_err=float((y - want).abs().max()), fn_err=fn_err,
+                   ms=cold_device_ms(lambda: il._launch(x, tab, t.lo, t.hi),
+                                     100, device),
+                   plain_ms=time_ms(lambda: ref.interp_ref(x, tab, t.lo,
+                                                           t.hi), 20),
+                   bound_ms=bound, bound_by=by)
+        if not (row["equal"] and fn_err < 2e-3):
+            bad.append(row)
+        rows.append(row)
+    emit({"phase": "interp_lut", "launches": launches, "cases": rows,
+          "all_equal": not bad})
+    if bad:
+        raise AssertionError(f"IU kernel != plain version: {bad}")
+    full = rows[0]                               # exp at 4096 x 1024
+    return dict(launches=launches, shape=full["shape"],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")})
+
+
+def normal(shape, seed: int, dtype, device):
+    import torch
+
+    x = np.random.default_rng(seed).standard_normal(shape, np.float32)
+    return torch.tensor(x, device=device).to(dtype)
+
+
+def within(got, want, dtype_name: str, row_tol: float | None = None) -> dict:
+    """Whether every element is within the JAX tests' ``atol + rtol *
+    |want|`` and, given ``row_tol``, every row's max |diff| within
+    ``row_tol`` times its max |want| (rows along the head dim); the
+    largest absolute difference and the largest row-scaled one.
+    Compared in float32."""
+    atol, rtol = FLASH_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    row = float((diff.amax(-1) / w.abs().amax(-1).clamp_min(1e-30)).max())
+    ok_elem = bool((diff <= atol + rtol * w.abs()).all())
+    return dict(within_jax_tol=ok_elem, row_tol=row_tol,
+                within_tol=ok_elem and (row_tol is None or row <= row_tol),
+                max_abs_err=float(diff.max()), max_row_rel_err=row)
+
+
+def phase_flash_attention(device) -> dict:
+    """Flash attention at phi4-mini's full width (GQA, causal) in bf16 and
+    float32, and at the JAX tests' float32 shapes, within tolerance of the
+    plain version; then timed at full width in bf16 beside SDPA on the
+    same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, H, KV, dh = (PHI4_ATTN[k] for k in ("B", "S", "H", "KV", "dh"))
+    full = {dt: tuple(normal(shape, seed, dt, device) for shape, seed in (
+        ((B, S, H, dh), 1), ((B, S, KV, dh), 2), ((B, S, KV, dh), 3)))
+        for dt in (torch.bfloat16, torch.float32)}
+    q, k, v = full[torch.bfloat16]
+    small = [tuple(normal((bh, s, d), 10 * i + j, torch.float32, device)
+                   for j in range(3))
+             for i, (bh, s, d, _, _) in enumerate(FLASH_F32_SHAPES)]
+
+    fa.flash_attention.launches = 0                  # the main path
+    outs_full = {dt: fa.flash_mha(*qkv, causal=True)
+                 for dt, qkv in full.items()}
+    outs = [fa.flash_attention(*qkv, causal=causal, q_block=blk,
+                               kv_block=blk)
+            for qkv, (_, _, _, causal, blk) in zip(small, FLASH_F32_SHAPES)]
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    n_calls = len(outs_full) + len(small)
+    if launches != n_calls:
+        raise AssertionError(f"{launches} flash launches for {n_calls} calls")
+
+    rows = []
+    for dt, o in outs_full.items():
+        name = str(dt).removeprefix("torch.")
+        want = fa.mha_plain(*full[dt], causal=True)
+        row_tol = FLASH_FULL_BF16_ROW_TOL if dt == torch.bfloat16 else None
+        rows.append(dict(shape=[B, S, H, KV, dh], dtype=name, causal=True,
+                         finite=bool(torch.isfinite(o.float()).all()),
+                         **within(o, want, name, row_tol)))
+        del want
+    for (qs, ks, vs), o, (bh, s, d, causal, _) in zip(small, outs,
+                                                       FLASH_F32_SHAPES):
+        rows.append(dict(shape=[bh, s, d], dtype="float32", causal=causal,
+                         finite=bool(torch.isfinite(o).all()),
+                         **within(o, ref.mha_ref(qs, ks, vs, causal=causal),
+                                  "float32")))
+    bad = [r for r in rows if not (r["within_tol"] and r["finite"])]
+    emit({"phase": "flash_attention_check", "launches": launches,
+          "cases": rows, "all_within_tol": not bad})
+    if bad:
+        raise AssertionError(f"flash kernel outside tolerance: {bad}")
+    del full, outs_full, outs, small
+    torch.cuda.empty_cache()
+
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qt = q.transpose(1, 2).contiguous()              # SDPA's (B, H, S, dh)
+    kt, vt = (torch.repeat_interleave(t, H // KV, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    flops = 4 * B * H * S * S * dh / 2               # causal
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound, by = roofline(nbytes, flops, BF16_OPS_PER_S)
+    timing = dict(
+        ms=cold_device_ms(lambda: fa._launch(qc, kc, vc, True), 10, device),
+        plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=True), 3,
+                         warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20),
+        bound_ms=bound, bound_by=by, gflop=flops / 1e9)
+    emit({"phase": "flash_attention", "launches": launches,
+          "full_width": timing})
+    return dict(launches=launches, shape=[B, S, H, KV, dh],
+                max_abs_err=max(r["max_abs_err"] for r in rows), **timing)
+
+
+def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
+    """One kernel's entry of the per-kernel JSON line."""
+    entry = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/csrc/{source}",
+             "replaces": replaces, "library_ms": None}
+    entry.update(res)
+    return entry
+
+
 def main() -> int:
     setup_path()
     import torch
@@ -441,10 +778,11 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("fused_sweep")
-    emit({"phase": "build", "kernel": "fused_sweep",
-          "library": os.path.basename(_build.library_path("fused_sweep")),
-          "seconds": time.perf_counter() - t0})
+    seconds = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"library": os.path.basename(
+              _build.library_path(name)), "seconds": sec}
+              for name, sec in seconds.items()}})
 
     check = phase_kernel_vs_plain(device)
     serve = phase_serve(card_name)
@@ -452,6 +790,10 @@ def main() -> int:
     main_path = phase_main_path_kernel(rec)
     rec["calls"].clear()            # free the recorded tensors
     profile_group(serve["engine"], serve["traffic"])
+    del serve
+    ky = phase_ky_sampler(device)
+    iu = phase_interp_lut(device)
+    flash = phase_flash_attention(device)
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",
@@ -468,7 +810,12 @@ def main() -> int:
         "words_ms": main_path["words_ms"],
         "shapes": main_path["shapes"],
         "launches_per_round": sorted(rec["per_round"].items()),
-    }]})
+    }, kernel_entry("ky_sampler", "ky_sampler.cu",
+                    "src/repro/kernels/ky_sampler.py:45", ky),
+        kernel_entry("interp_lut", "interp_lut.cu",
+                     "src/repro/kernels/interp_lut.py:31", iu),
+        kernel_entry("flash_attention", "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:26", flash)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                  "count": torch.cuda.device_count()}})

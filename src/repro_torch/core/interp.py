@@ -26,6 +26,24 @@ import numpy as np
 import torch
 
 
+def interpolate(x: torch.Tensor, table: torch.Tensor, lo: float,
+                hi: float) -> torch.Tensor:
+    """Piecewise-linear interpolation of float32 ``x`` on the ``(T+1,)``
+    node table over [lo, hi], inputs clamped to the range — the IU, and
+    the plain version of the IU kernel (``kernels/csrc/interp_lut.cu``).
+    ``lo`` and ``T / (hi - lo)`` round to float32 where they meet the
+    data; every stage is one rounded float32 op."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    table = torch.as_tensor(table, dtype=torch.float32, device=x.device)
+    n_seg = int(table.shape[-1]) - 1
+    t = torch.clamp((x - lo) * (n_seg / (hi - lo)), 0.0, float(n_seg))
+    idx = torch.clamp_max(t.to(torch.int64), n_seg - 1)   # "IU.address"
+    frac = t - idx.to(torch.float32)                       # "offset"
+    y0 = table[idx]
+    y1 = table[idx + 1]
+    return y0 + frac * (y1 - y0)
+
+
 @dataclass(frozen=True)
 class InterpTable:
     """Piecewise-linear LUT over [lo, hi] with 2**m segments."""
@@ -53,15 +71,7 @@ class InterpTable:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """Interpolate fn(x); inputs are clamped to [lo, hi]."""
-        x = torch.as_tensor(x, dtype=torch.float32)
-        n = 1 << self.m
-        t = torch.clamp((x - self.lo) * self.scale, 0.0, float(n))
-        idx = torch.clamp_max(t.to(torch.int64), n - 1)   # "IU.address"
-        frac = t - idx.to(torch.float32)                   # "offset"
-        tab = self.table.to(x.device)
-        y0 = tab[idx]
-        y1 = tab[torch.clamp_max(idx + 1, n)]
-        return y0 + frac * (y1 - y0)
+        return interpolate(x, self.table, self.lo, self.hi)
 
     def max_abs_error(self, fn: Callable, probe: int = 65536) -> float:
         xs = np.linspace(self.lo, self.hi, probe).astype(np.float32)
@@ -74,6 +84,44 @@ class InterpTable:
 # to ~1e-7 — below quantization resolution for k<=24.
 def exp_table(m: int = 10) -> InterpTable:
     return InterpTable.build(np.exp, -16.0, 0.0, m)
+
+
+def log_table(m: int = 10) -> InterpTable:
+    """LUT over the mantissa range [1, 2) — see :func:`iu_log`."""
+    return InterpTable.build(np.log, 1.0, 2.0, m)
+
+
+def iu_log(x: torch.Tensor, table: InterpTable | None = None) -> torch.Tensor:
+    """log(x) via mantissa/exponent split + PWL LUT (the HW-idiomatic form).
+
+    ``x = mant * 2**e`` with ``mant in [0.5, 1)`` (``torch.frexp`` and
+    ``jnp.frexp`` agree on that convention); ``log x = LUT(2 * mant) +
+    (e - 1) * ln2``.  Inputs are clamped to at least 1e-30.
+    """
+    table = table or _LOG_DEFAULT
+    x = torch.as_tensor(x, dtype=torch.float32)
+    mant, e = torch.frexp(torch.clamp_min(x, 1e-30))
+    ln2 = float(np.float32(np.log(2.0)))
+    return table(mant * 2.0) + (e - 1).to(torch.float32) * ln2
+
+
+def sigmoid_table(m: int = 10) -> InterpTable:
+    return InterpTable.build(lambda x: 1.0 / (1.0 + np.exp(-x)), -8.0, 8.0, m)
+
+
+def softplus_table(m: int = 10) -> InterpTable:
+    return InterpTable.build(lambda x: np.log1p(np.exp(x)), -8.0, 8.0, m)
+
+
+def iu_exp_weights(energies: torch.Tensor, k: int,
+                   table: InterpTable | None = None) -> torch.Tensor:
+    """Energies -> non-normalized KY weights through the IU:
+    ``floor(iu_exp(e - max(e)) * (2**k - 1))`` — max-subtract (no
+    sum-normalization), LUT-exp, fixed-point floor.  Returns int32."""
+    table = table or _EXP_DEFAULT
+    e = torch.as_tensor(energies, dtype=torch.float32)
+    z = e - torch.amax(e, dim=-1, keepdim=True)
+    return torch.floor(table(z) * (2.0 ** k - 1.0)).to(torch.int32)
 
 
 # Labels at or beyond a lane's cardinality are masked to this log-weight
@@ -114,3 +162,4 @@ def masked_exp_weights(
 
 
 _EXP_DEFAULT = exp_table()
+_LOG_DEFAULT = log_table()

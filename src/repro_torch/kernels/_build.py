@@ -5,6 +5,7 @@ Each ``csrc/*.cu`` source has a plain C entry point and is compiled by
 with ``ctypes``.  Libraries are built at first use into ``build/kernels``
 at the root of the checkout, named by a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one is reused.
+:func:`build_all` builds several sources at once, one ``nvcc`` each.
 There is no fallback: without ``nvcc`` the build raises.
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,6 +48,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
+KERNELS = ("fused_sweep", "ky_sampler", "interp_lut", "flash_attention")
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists."""
     out = library_path(name)
@@ -65,6 +71,20 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def _timed_build(name: str) -> float:
+    t0 = time.perf_counter()
+    build(name)
+    return time.perf_counter() - t0
+
+
+def build_all(names=KERNELS) -> dict[str, float]:
+    """:func:`build` every named source, one thread (so one ``nvcc``)
+    each; returns each one's build seconds (about 0 for a library that
+    already existed) and raises the first failure."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(_timed_build, names)))
 
 
 @functools.cache

@@ -33,6 +33,7 @@ import torch
 from repro_torch.core import interp as interp_lib
 from repro_torch.core import rng as rng_lib
 from repro_torch.core.ky import KYResult, ky_walk
+from repro_torch.kernels import _common
 
 # masked-label log-weight floor — see core.interp.MASK_NEG
 MASK_NEG = interp_lib.MASK_NEG
@@ -91,11 +92,7 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, words: torch.Tensor,
     checks = ((logw, torch.float32, (b, L)), (card, torch.int32, (b,)),
               (words, torch.int32, (b, words.shape[-1])))
     for t, dtype, shape in checks:
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"fused kernel input: want {dtype} {shape} contiguous on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        _common.check_input(t, dtype, shape, dev, "fused kernel")
     if tab.numel() != (1 << table.m) + 1:
         raise ValueError("LUT must hold 2**m + 1 nodes")
     sample = torch.empty(b, dtype=torch.int32, device=dev)
@@ -107,10 +104,8 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, words: torch.Tensor,
         sample.data_ptr(), bits.data_ptr(), att.data_ptr(), ok.data_ptr(),
         b, L, int(words.shape[-1]), float(2 ** k - 1), int(bool(use_iu)),
         1 << table.m, float(table.lo), float(table.scale), float(mask_value),
-        int(block_b), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_gibbs_sample kernel launch failed: "
-                           f"CUDA error {err}")
+        int(block_b), _common.stream(dev))
+    _common.raise_on(err, "fused_gibbs_sample")
     fused_gibbs_sample.launches += 1
     fused_gibbs_sample.shapes[(b, L)] += 1
     return KYResult(sample=sample, bits_used=bits, attempts=att, ok=ok)
@@ -155,11 +150,10 @@ def fused_gibbs_sample(
     card = _lane_card(card, b, dev)
     table = table or interp_lib._EXP_DEFAULT
     words = _words(key, b, max_attempts, dev)
+    _common.check_device(dev, "fused_gibbs_sample")
     if dev.type == "cpu":
         return _plain(logw, card, words, table, k=k, use_iu=use_iu,
                       mask_value=mask_value)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_gibbs_sample runs on cpu or cuda, not {dev}")
     return _launch(logw.contiguous(), card, words, table, k=k, use_iu=use_iu,
                    mask_value=mask_value, block_b=block_b)
 

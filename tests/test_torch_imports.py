@@ -4,7 +4,9 @@ JAX package; and its entry points default to the card."""
 import os
 import subprocess
 import sys
+from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -31,7 +33,10 @@ def test_port_imports_no_jax_networkx_or_reference():
     assert rc == 0, out
     assert "BAD []" in out, out
     n = int(out.split("N ")[-1].split()[0])
-    assert n >= 20, out          # every module of the package was imported
+    # every module of the package was imported: one per file, less the
+    # package's own __init__
+    files = list(Path(REPO, "src", "repro_torch").rglob("*.py"))
+    assert n == len(files) - 1 >= 29, out
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -54,3 +59,35 @@ def test_engine_defaults_to_the_card():
     plain = PosteriorEngine({"sprinkler": networks.sprinkler()},
                             sampler="torch")
     assert plain.device.type == "cuda" and plain.sampler == "torch"
+
+
+def _kernel_api_calls():
+    from repro_torch.core import interp, rng
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    w = np.array([[3, 1, 0], [0, 0, 0]], np.int32)
+    t = interp.exp_table()
+    x = np.linspace(-20, 2, 64, dtype=np.float32).reshape(4, 16)
+    q = np.zeros((2, 64, 32), np.float32)
+    return {
+        "ky_sample_kernel": lambda: ops.ky_sample_kernel(
+            rng.PRNGKey(0), w).sample,
+        "interp_kernel": lambda: ops.interp_kernel(
+            x, t.table.numpy(), lo=t.lo, hi=t.hi),
+        "flash_attention": lambda: fa.flash_attention(q, q, q),
+        "flash_mha": lambda: fa.flash_mha(q[None], q[None], q[None]),
+    }
+
+
+@pytest.mark.parametrize("name", ["ky_sample_kernel", "interp_kernel",
+                                  "flash_attention", "flash_mha"])
+def test_kernel_api_sends_numpy_inputs_to_the_card(name):
+    """Numpy inputs and no ``device`` resolve to ``cuda``: without a card
+    the call raises, it never runs on the CPU."""
+    call = _kernel_api_calls()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
