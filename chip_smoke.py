@@ -16,13 +16,15 @@ line is printed:
    nodes, engine defaults) with ``sampler="cuda"``: 64 synthetic queries
    over 4 evidence patterns, cold and warm pass, launch counters zeroed
    just before and read just after (launches per (b, L) and per engine
-   round included); both passes must equal the same passes through
+   round included; no bit words made on the host: the kernel makes its
+   own); both passes must equal the same passes through
    ``sampler="torch"`` bit for bit, and a sprinkler posterior must land
    within 0.03 of exact.
 5. kernel at the main path's inputs — the first recorded call of each
-   (b, L) launched again and held against the recorded result and the
-   plain version, then timed; the bound counts every recorded launch.
-6. profile — torch.profiler over one warm group: device busy share.
+   (b, L) launched again, held against the recorded result and the plain
+   version, then timed; the bound counts every recorded launch.
+6. profile — torch.profiler over one warm group: device busy share and
+   device launches per colour update.
 7. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
@@ -35,12 +37,13 @@ line is printed:
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
 9. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
-   S 4096, 24 heads, 8 kv heads, dh 128, causal) in bfloat16 and in
-   float32, and ``flash_attention`` at the float32 shapes of
-   ``tests/test_kernels.py``, all within the JAX tests' tolerances of the
-   plain ``mha_ref``; the full-width bfloat16 case also within 2e-2 of
-   each row's largest output, scaled to that width's small outputs;
-   SDPA's time at full width beside the kernel's.
+   S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
+   at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
+   float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
+   all within the JAX tests' tolerances of the plain ``mha_ref`` on the
+   same inputs; the bfloat16 and float16 cases also per row, within 2e-2
+   (bfloat16) or 2e-3 (float16) of the row's largest output; each
+   route's launches counted; both routes timed at full width beside SDPA.
 
 Phases 7-9 each zero their kernel's launch count just before their main
 path and read it just after.  Then the per-kernel JSON line, the
@@ -76,19 +79,32 @@ IU_RAGGED = ((37, 64), (1, 1000))
 # phi4-mini's attention (src/repro/configs/phi4_mini.py: n_heads 24, n_kv 8,
 # d_head 128; dtype bfloat16 from configs/base.py), one sequence of 4096
 PHI4_ATTN = dict(B=1, S=4096, H=24, KV=8, dh=128)
-# tests/test_kernels.py's flash shapes: (bh, s, dh, causal, block), float32
+# tests/test_kernels.py's flash shapes: (bh, s, dh, causal, block), run in
+# float32 (the JAX tests' type) and in bfloat16 and float16
 FLASH_F32_SHAPES = ((4, 128, 64, True, 64), (2, 256, 128, True, 128),
                     (2, 256, 64, False, 64), (8, 64, 32, True, 32),
                     (1, 512, 64, True, 128))
-# the JAX tests' tolerances (tests/test_kernels.py): (atol, rtol)
-FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}
+# the JAX tests' tolerances (tests/test_kernels.py): (atol, rtol); they have
+# no float16 case, so float16 (3 more mantissa bits) is held to bfloat16's
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2),
+             "float16": (3e-2, 3e-2)}
 # The JAX tests' bf16 atol was set at S <= 512.  At S 4096 with unit-variance
 # scores, row n's outputs are about sqrt(e / n) in size (0.026 at the last
-# row), so that atol would pass a key tile skipped on long rows only.  The
-# full-width bf16 case is also held per row: max |diff| along dh within this
-# share of max |want| (one bf16 ulp of the row's largest output is up to
-# 2^-7 of it; PERF.md has the measured errors and planted faults).
+# row), so that atol would pass a key tile skipped on long rows only.  Every
+# bf16 and fp16 case is also held per row: max |diff| along dh within this
+# share of max |want|.  One ulp of the row's largest output is up to 2^-7 of
+# it in bf16 and 2^-10 in fp16 (measured about 0.0079 and 0.00098).  The
+# fp16 limit allows two fp16 ulps and sits below the 0.0038 that a kernel
+# rounding P or its output at bf16's precision reads (PERF.md has the
+# measured errors and planted faults).
 FLASH_FULL_BF16_ROW_TOL = 2e-2
+FLASH_FULL_FP16_ROW_TOL = 2e-3
+FLASH_ROW_TOL = {"bfloat16": FLASH_FULL_BF16_ROW_TOL,
+                 "float16": FLASH_FULL_FP16_ROW_TOL}
+FLASH_HALF_DTYPES = tuple(FLASH_ROW_TOL)        # the tensor-core route
+# integer ops of one 20-round threefry2x32 word: 20 x (add, rotate, xor),
+# 5 key injections of 3 adds, the final xor
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 1
 
 
 def emit(obj) -> None:
@@ -129,17 +145,18 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def fused_bound_ms(b: int, L: int, words_read: int, bits_total: int,
+def fused_bound_ms(b: int, L: int, words_made: int, bits_total: int,
                    lut_nodes: int) -> tuple[float, str]:
     """Least time the card could take for one fused launch, and what
     bounds it (see :func:`roofline`).  Bytes: each input the function
-    needs read once — the L log-weights and the card of every lane, the
-    bit words its cursor reaches (``words_read``, from this launch's
-    ``bits_used``) and the LUT once — and the 13 output bytes of every
-    lane written once.  Ops: ~10 float32 per label for the weight tail,
-    ~4 per label per DDG level walked (this launch's bits)."""
-    nbytes = b * (4 * L + 4 + 13) + 4 * words_read + 4 * lut_nodes
-    ops = b * L * 10 + bits_total * L * 4
+    needs read once — the L log-weights and the card of every lane and
+    the LUT once — and the 13 output bytes of every lane written once
+    (the kernel makes its bit words, so none are read).  Ops: ~10 float32
+    per label for the weight tail, ~4 per label per DDG level walked (this
+    launch's bits), and one threefry per word the cursors reached
+    (``words_made``, from this launch's ``bits_used``)."""
+    nbytes = b * (4 * L + 4 + 13) + 4 * lut_nodes
+    ops = b * L * 10 + bits_total * L * 4 + words_made * THREEFRY_OPS
     return roofline(nbytes, ops, FP32_OPS_PER_S)
 
 
@@ -207,14 +224,22 @@ def phase_kernel_vs_plain(device) -> dict:
 def record_main_path():
     """Zero the launch counts just before the main path and read them just
     after.  Meanwhile keep every fused call the color update makes (its
-    inputs and result, by reference: no device work is added) and the
-    launches of each ``GroupRun.step`` (one engine round)."""
+    inputs and result, by reference: no device work is added), the
+    launches of each ``GroupRun.step`` (one engine round), and the calls
+    of ``rng.random_bit_words`` (the kernel makes its own words, so the
+    CUDA route should make none)."""
+    from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
     from repro_torch.serve.engine import GroupRun
 
     fused, step = compile_mod.fused_gibbs_sample, GroupRun.step
-    rec = {"calls": [], "per_round": Counter()}
+    bit_words = rng.random_bit_words
+    rec = {"calls": [], "per_round": Counter(), "word_calls": 0}
+
+    def counting_bit_words(*args, **kw):
+        rec["word_calls"] += 1
+        return bit_words(*args, **kw)
 
     def recording_fused(key, logw, card, **kw):
         res = fused(key, logw, card, **kw)
@@ -229,6 +254,7 @@ def record_main_path():
 
     compile_mod.fused_gibbs_sample = recording_fused
     GroupRun.step = recording_step
+    rng.random_bit_words = counting_bit_words
     fs.fused_gibbs_sample.launches = 0
     fs.fused_gibbs_sample.shapes.clear()
     try:
@@ -238,6 +264,7 @@ def record_main_path():
         rec["shapes"] = Counter(fs.fused_gibbs_sample.shapes)
         compile_mod.fused_gibbs_sample = fused
         GroupRun.step = step
+        rng.random_bit_words = bit_words
 
 
 def kernel_device_ms(fn, reps: int, name: str) -> float:
@@ -274,11 +301,11 @@ def main_path_bound(rec) -> tuple[float, str]:
         res.bits_used.to(torch.int64).sum()]) for *_, res in rec["calls"]])
     per_call = per_call.cpu().tolist()
     bounds, bys = [], Counter()
-    for (_, logw, _, kw, _), (words_read, bits) in zip(rec["calls"],
+    for (_, logw, _, kw, _), (words_made, bits) in zip(rec["calls"],
                                                        per_call):
         b, L = logw.shape
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
-        bound, by = fused_bound_ms(b, L, words_read, bits, lut)
+        bound, by = fused_bound_ms(b, L, words_made, bits, lut)
         bounds.append(bound)
         bys[by] += 1
     return sum(bounds) / len(bounds), bys.most_common(1)[0][0]
@@ -290,8 +317,9 @@ def phase_main_path_kernel(rec) -> dict:
     the wrapper and must equal both the recorded result and the plain
     version; then timed.  ``ms`` is the kernel's device time per launch,
     ``call_ms`` one launch through the binding as the host sees it back
-    to back (CUDA events), ``plain_ms`` the plain version and ``words_ms``
-    the bit words, all on the same inputs; each averaged over the shapes
+    to back (CUDA events), ``plain_ms`` the plain version on words made
+    beforehand and ``words_ms`` those words (which the kernel makes
+    itself), all on the same inputs; each averaged over the shapes
     weighted by their launch counts."""
     from repro_torch.kernels import fused_sweep as fs
 
@@ -303,23 +331,24 @@ def phase_main_path_kernel(rec) -> dict:
         key, logw, card, kw, res = first[(b, L)]
         again = fs.fused_gibbs_sample(key, logw, card, **kw)
         plain = fs.fused_gibbs_sample_ref(key, logw, card, **kw)
-        eq_rec, err_rec = result_err(again, res)
-        eq_plain, err_plain = result_err(again, plain)
-        if not (eq_rec and eq_plain):
-            bad.append(dict(b=b, L=L, equals_recorded=eq_rec,
-                            equals_plain=eq_plain))
-        words = fs._words(key, b, 32, logw.device)
         lane_card = fs._lane_card(card, b, logw.device)
         logw_c = logw.contiguous()
         opts = dict(k=kw["k"], use_iu=kw.get("use_iu", True),
                     table=kw["table"], mask_value=fs.MASK_NEG)
 
         def launch():
-            return fs._launch(logw_c, lane_card, words, block_b=256, **opts)
+            return fs._launch(logw_c, lane_card, key, max_attempts=32,
+                              block_b=256, **opts)
 
+        eq_rec, err_rec = result_err(again, res)
+        eq_plain, err_plain = result_err(again, plain)
+        if not (eq_rec and eq_plain):
+            bad.append(dict(b=b, L=L, equals_recorded=eq_rec,
+                            equals_plain=eq_plain))
+        words = fs._words(key, b, 32, logw.device)
         rows.append(dict(
             n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
-            ms=kernel_device_ms(launch, 100, "fused_gibbs_kernel"),
+            ms=kernel_device_ms(launch, 100, "fused_gibbs_group_kernel"),
             call_ms=time_ms(launch, 200),
             plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
                                                **opts), 5, warmup=1),
@@ -335,18 +364,18 @@ def phase_main_path_kernel(rec) -> dict:
         return sum(r[key] * r["n"] for r in rows) / total
 
     bound, by = main_path_bound(rec)
-    return {"ms": mean("ms"), "call_ms": mean("call_ms"),
-            "plain_ms": mean("plain_ms"), "words_ms": mean("words_ms"),
-            "bound_ms": bound, "bound_by": by,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "shapes": [[r["b"], r["L"], r["n"]] for r in rows]}
+    out = {k: mean(k) for k in ("ms", "call_ms", "plain_ms", "words_ms")}
+    return dict(out, bound_ms=bound, bound_by=by,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                shapes=[[r["b"], r["L"], r["n"]] for r in rows])
 
 
 def profile_group(engine, traffic) -> dict:
     """Where a warm group's time goes: torch.profiler over one group of
     the serve phase (the queries of its first evidence pattern) —
-    device busy share of the wall time, the fused kernel's share of the
-    device time, and the kernels that take most device time."""
+    device busy share of the wall time, device launches per colour
+    update, the fused kernel's share of the device time, and the kernels
+    that take most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -363,7 +392,7 @@ def profile_group(engine, traffic) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    fused = [e for e in kernels if "fused_gibbs_kernel" in e.key]
+    fused = [e for e in kernels if "fused_gibbs_" in e.key]
     fused_us = sum(e.self_device_time_total for e in fused)
     fused_n = sum(e.count for e in fused)
     if not fused_n:
@@ -376,6 +405,8 @@ def profile_group(engine, traffic) -> dict:
            "device_busy_share": busy_us / 1e6 / wall,
            "kernel_launches": int(sum(e.count for e in kernels)),
            "fused_launches": int(fused_n),
+           # one fused launch per colour update
+           "launches_per_color_update": sum(e.count for e in kernels) / fused_n,
            "fused_device_ms_per_launch": fused_us / fused_n / 1e3,
            "fused_share_of_busy": fused_us / busy_us,
            "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
@@ -431,6 +462,9 @@ def phase_serve(card_name: str) -> dict:
         warm, warm_s = timed_pass(engine, traffic)
     if rec["launches"] <= 0:
         raise AssertionError("serve phase never launched the fused kernel")
+    if rec["word_calls"]:
+        raise AssertionError(f"the CUDA route made bit words on the host "
+                             f"{rec['word_calls']} times")
     if rec["launches"] != len(rec["calls"]) or rec["launches"] != sum(
             rec["shapes"].values()):
         raise AssertionError(f"{rec['launches']} launches counted, "
@@ -439,6 +473,7 @@ def phase_serve(card_name: str) -> dict:
     emit({"phase": "serve", "network": SERVE_NET, "queries": len(traffic),
           "card": card_name, "launches": rec["launches"],
           "launches_per_round": sorted(rec["per_round"].items()),
+          "host_word_calls": rec["word_calls"],
           "cold_s": cold_s, "warm_s": warm_s,
           "cold_qps": len(traffic) / cold_s, "warm_qps": len(traffic) / warm_s,
           "cold_msample_s": sum(r.n_node_samples for r in cold) / cold_s / 1e6,
@@ -675,79 +710,119 @@ def within(got, want, dtype_name: str, row_tol: float | None = None) -> dict:
                 max_abs_err=float(diff.max()), max_row_rel_err=row)
 
 
-def phase_flash_attention(device) -> dict:
-    """Flash attention at phi4-mini's full width (GQA, causal) in bf16 and
-    float32, and at the JAX tests' float32 shapes, within tolerance of the
-    plain version; then timed at full width in bf16 beside SDPA on the
-    same inputs."""
+def flash_check(device) -> dict:
+    """Flash attention's main path and its checks: ``flash_mha`` at
+    phi4-mini's full width, and ``flash_attention`` at the five test
+    shapes, each in bfloat16, float16 and float32; every case held to the
+    plain version on the same (rounded) inputs, compared in float32,
+    within the JAX tests' tolerance, and every bfloat16/float16 case per
+    row as well.  Each route's launch count is zeroed just before the main
+    path and read just after.  Returns the cases and the counts."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
     B, S, H, KV, dh = (PHI4_ATTN[k] for k in ("B", "S", "H", "KV", "dh"))
+    dtypes = [getattr(torch, n) for n in (*FLASH_HALF_DTYPES, "float32")]
     full = {dt: tuple(normal(shape, seed, dt, device) for shape, seed in (
         ((B, S, H, dh), 1), ((B, S, KV, dh), 2), ((B, S, KV, dh), 3)))
-        for dt in (torch.bfloat16, torch.float32)}
-    q, k, v = full[torch.bfloat16]
-    small = [tuple(normal((bh, s, d), 10 * i + j, torch.float32, device)
-                   for j in range(3))
-             for i, (bh, s, d, _, _) in enumerate(FLASH_F32_SHAPES)]
+        for dt in dtypes}
+    small = [(dt, shape, tuple(normal(shape[:3], 10 * i + j, dt, device)
+                               for j in range(3)))
+             for dt in dtypes for i, shape in enumerate(FLASH_F32_SHAPES)]
 
-    fa.flash_attention.launches = 0                  # the main path
+    counters = ("launches", "launches_tc", "launches_simt")
+    for name in counters:                            # the main path
+        setattr(fa.flash_attention, name, 0)
     outs_full = {dt: fa.flash_mha(*qkv, causal=True)
                  for dt, qkv in full.items()}
     outs = [fa.flash_attention(*qkv, causal=causal, q_block=blk,
                                kv_block=blk)
-            for qkv, (_, _, _, causal, blk) in zip(small, FLASH_F32_SHAPES)]
+            for _, (_, _, _, causal, blk), qkv in small]
     torch.cuda.synchronize()
-    launches = fa.flash_attention.launches
-    n_calls = len(outs_full) + len(small)
-    if launches != n_calls:
-        raise AssertionError(f"{launches} flash launches for {n_calls} calls")
+    counts = {name: getattr(fa.flash_attention, name) for name in counters}
+    n_half = sum(str(dt).removeprefix("torch.") in FLASH_HALF_DTYPES
+                 for dt in dtypes) * (1 + len(FLASH_F32_SHAPES))
+    want_counts = {"launches": len(outs_full) + len(outs),
+                   "launches_tc": n_half,
+                   "launches_simt": len(outs_full) + len(outs) - n_half}
+    if counts != want_counts:
+        raise AssertionError(f"flash launches {counts}, want {want_counts}")
 
     rows = []
     for dt, o in outs_full.items():
         name = str(dt).removeprefix("torch.")
         want = fa.mha_plain(*full[dt], causal=True)
-        row_tol = FLASH_FULL_BF16_ROW_TOL if dt == torch.bfloat16 else None
         rows.append(dict(shape=[B, S, H, KV, dh], dtype=name, causal=True,
                          finite=bool(torch.isfinite(o.float()).all()),
-                         **within(o, want, name, row_tol)))
+                         **within(o, want, name, FLASH_ROW_TOL.get(name))))
         del want
-    for (qs, ks, vs), o, (bh, s, d, causal, _) in zip(small, outs,
-                                                       FLASH_F32_SHAPES):
-        rows.append(dict(shape=[bh, s, d], dtype="float32", causal=causal,
-                         finite=bool(torch.isfinite(o).all()),
-                         **within(o, ref.mha_ref(qs, ks, vs, causal=causal),
-                                  "float32")))
+    for (dt, (bh, s, d, causal, _), qkv), o in zip(small, outs):
+        name = str(dt).removeprefix("torch.")
+        rows.append(dict(shape=[bh, s, d], dtype=name, causal=causal,
+                         finite=bool(torch.isfinite(o.float()).all()),
+                         **within(o, ref.mha_ref(*qkv, causal=causal), name,
+                                  FLASH_ROW_TOL.get(name))))
     bad = [r for r in rows if not (r["within_tol"] and r["finite"])]
-    emit({"phase": "flash_attention_check", "launches": launches,
-          "cases": rows, "all_within_tol": not bad})
-    if bad:
-        raise AssertionError(f"flash kernel outside tolerance: {bad}")
-    del full, outs_full, outs, small
+    return dict(rows=rows, bad=bad, **counts)
+
+
+def phase_flash_attention(device) -> dict:
+    """:func:`flash_check`, then both routes timed at full width with a
+    cold L2 (bf16 and fp16 on the tensor cores, float32 on the CUDA
+    cores), each beside SDPA (also with a cold L2) and the plain version
+    on the same inputs.  Returns the two routes' entries of the kernels
+    line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    check = flash_check(device)
+    emit({"phase": "flash_attention_check", "cases": check["rows"],
+          "all_within_tol": not check["bad"],
+          **{k: check[k] for k in ("launches", "launches_tc",
+                                   "launches_simt")}})
+    if check["bad"]:
+        raise AssertionError(f"flash kernel outside tolerance: {check['bad']}")
     torch.cuda.empty_cache()
 
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    qt = q.transpose(1, 2).contiguous()              # SDPA's (B, H, S, dh)
-    kt, vt = (torch.repeat_interleave(t, H // KV, dim=2).transpose(1, 2)
-              .contiguous() for t in (k, v))
+    B, S, H, KV, dh = (PHI4_ATTN[k] for k in ("B", "S", "H", "KV", "dh"))
     flops = 4 * B * H * S * S * dh / 2               # causal
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound, by = roofline(nbytes, flops, BF16_OPS_PER_S)
-    timing = dict(
-        ms=cold_device_ms(lambda: fa._launch(qc, kc, vc, True), 10, device),
-        plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=True), 3,
-                         warmup=1),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20),
-        bound_ms=bound, bound_by=by, gflop=flops / 1e9)
-    emit({"phase": "flash_attention", "launches": launches,
-          "full_width": timing})
-    return dict(launches=launches, shape=[B, S, H, KV, dh],
-                max_abs_err=max(r["max_abs_err"] for r in rows), **timing)
+    timing = {}
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        q, k, v = (normal(shape, seed, dt, device) for shape, seed in (
+            ((B, S, H, dh), 1), ((B, S, KV, dh), 2), ((B, S, KV, dh), 3)))
+        qt = q.transpose(1, 2).contiguous()          # SDPA's (B, H, S, dh)
+        kt, vt = (torch.repeat_interleave(t, H // KV, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        peak = FP32_OPS_PER_S if dt == torch.float32 else BF16_OPS_PER_S
+        bound, by = roofline(nbytes, flops, peak)
+        timing[dt] = dict(
+            ms=cold_device_ms(lambda: fa._launch(q, k, v, True), 10, device),
+            plain_ms=time_ms(lambda: fa.mha_plain(q, k, v, causal=True), 3,
+                             warmup=1),
+            library_ms=cold_device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 10, device),
+            bound_ms=bound, bound_by=by, gflop=flops / 1e9)
+        del q, k, v, qt, kt, vt
+    emit({"phase": "flash_attention", "full_width": {
+        str(dt).removeprefix("torch."): t for dt, t in timing.items()}})
+
+    def err(names):
+        return max(r["max_abs_err"] for r in check["rows"]
+                   if r["dtype"] in names)
+
+    shape = [B, S, H, KV, dh]
+    tc = dict(timing[torch.bfloat16], launches=check["launches_tc"],
+              shape=shape, dtype="bfloat16", max_abs_err=err(
+                  FLASH_HALF_DTYPES), ms_fp16=timing[torch.float16]["ms"],
+              library_ms_fp16=timing[torch.float16]["library_ms"])
+    simt = dict(timing[torch.float32], launches=check["launches_simt"],
+                shape=shape, dtype="float32", max_abs_err=err(("float32",)))
+    return {"tc": tc, "simt": simt}
 
 
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
@@ -801,21 +876,20 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_sweep.py:71",
         "launches": rec["launches"],
         "max_abs_err": max(check["max_abs_err"], main_path["max_abs_err"]),
-        "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"],
         "library_ms": None,
-        "call_ms": main_path["call_ms"],
-        "words_ms": main_path["words_ms"],
-        "shapes": main_path["shapes"],
+        **{k: main_path[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "call_ms", "words_ms",
+            "shapes")},
         "launches_per_round": sorted(rec["per_round"].items()),
     }, kernel_entry("ky_sampler", "ky_sampler.cu",
                     "src/repro/kernels/ky_sampler.py:45", ky),
         kernel_entry("interp_lut", "interp_lut.cu",
                      "src/repro/kernels/interp_lut.py:31", iu),
-        kernel_entry("flash_attention", "flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:26", flash)]})
+        kernel_entry("flash_attention_tc", "flash_attention_tc.cu",
+                     "src/repro/kernels/flash_attention.py:26", flash["tc"]),
+        kernel_entry("flash_attention_simt", "flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:26",
+                     flash["simt"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                  "count": torch.cuda.device_count()}})

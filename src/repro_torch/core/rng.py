@@ -107,6 +107,18 @@ def random_bit_words(key, shape: tuple, max_bits: int,
     return _as_int32_bits(bits(key, tuple(shape) + (words,), device))
 
 
+def lane_word(k0: int, k1: int, i: int, j: int, n_words: int) -> int:
+    """Word ``j`` of lane ``i`` of a ``(lanes, n_words)`` draw under key
+    ``(k0, k1)``, as a uint32 Python int: threefry2x32 of the 64-bit
+    counter ``i * n_words + j`` split into (hi, lo) words, ``x0 ^ x1``.
+    The scalar twin of the word the fused sweep kernel makes in place
+    (``kernels/csrc/fused_sweep.cu::lane_word``); it equals
+    ``random_bit_words(key, (lanes,), 32 * n_words)[i, j]``."""
+    idx = int(i) * int(n_words) + int(j)
+    x0, x1 = _threefry2x32(int(k0), int(k1), idx >> 32, idx & _MASK)
+    return x0 ^ x1
+
+
 def uniform(key, shape: tuple, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the
     mantissa trick ``bitcast(bits >> 9 | 0x3f800000) - 1.0``."""

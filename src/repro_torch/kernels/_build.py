@@ -48,7 +48,8 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
-KERNELS = ("fused_sweep", "ky_sampler", "interp_lut", "flash_attention")
+KERNELS = ("fused_sweep", "ky_sampler", "interp_lut", "flash_attention",
+           "flash_attention_tc")
 
 
 def build(name: str) -> Path:

@@ -9,13 +9,18 @@ and everything downstream runs in one launch with the row in registers:
 The kernel (``csrc/fused_sweep.cu``, CUDA C++ for ``sm_90a``) replaces
 the JAX package's Pallas kernel ``repro.kernels.fused_sweep._fused_kernel``.
 Its plain PyTorch version is :func:`fused_gibbs_sample_ref`: the two-stage
-``masked_exp_weights`` → ``ky_walk`` path on the same bit words.
+``masked_exp_weights`` → ``ky_walk`` path on bit words from
+``rng.random_bit_words``.
 
-Bitwise contract: the bit words are generated outside the kernel, at the
-true lane count, by the same ``random_bit_words(key, (b,), 992)`` call
-``core.ky.ky_sample`` makes — so ``sampler="cuda"`` returns the same
-samples, bits, attempts and ok flags as ``sampler="torch"`` and as the
-reference's ``sampler="pallas"``/``"xla"`` under the same key.
+Bitwise contract: the kernel takes the color's key, not words, and makes
+word ``j`` of lane ``i`` itself, when the lane's cursor first reaches it:
+threefry2x32 of the counter ``i * W + j`` at the true lane count, the
+word ``random_bit_words(key, (b,), 31 * max_attempts)`` holds there
+(:func:`repro_torch.core.rng.lane_word` is its scalar twin).  So
+``sampler="cuda"`` returns the same samples, bits, attempts and ok flags
+as ``sampler="torch"`` and as the reference's ``sampler="pallas"``/
+``"xla"`` under the same key.  A group of ``next_pow2(L)`` threads (at
+least 2) walks each lane.
 
 :func:`fused_gibbs_sample` takes the plain version only for tensors that
 lie on the CPU; on a CUDA tensor it launches the kernel or raises.
@@ -61,7 +66,7 @@ def _lane_card(card, b: int, device) -> torch.Tensor:
 def _words(key, b: int, max_attempts: int, device) -> torch.Tensor:
     """The exact stream ``ky_sample(key, ...)`` draws, at the true lane
     count (threefry pairs counters by total count, so padding first
-    would change every word)."""
+    would change every word): the plain version's input."""
     return rng_lib.random_bit_words(key, (b,), 31 * max_attempts,
                                     device=device)
 
@@ -73,38 +78,41 @@ def _entry():
     from repro_torch.kernels import _build
 
     fn = _build.load("fused_sweep").fused_gibbs_sample_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * 8 + [i, i, i, f, i, i, f, f, f, i, p]
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    fn.argtypes = [p, p, u, u] + [p] * 5 + [i, i, i, f, i, i, f, f, f, i, p]
     fn.restype = i
     return fn
 
 
-def _launch(logw: torch.Tensor, card: torch.Tensor, words: torch.Tensor,
+def _launch(logw: torch.Tensor, card: torch.Tensor, key,
             table: interp_lib.InterpTable, *, k: int, use_iu: bool,
-            mask_value: float, block_b: int) -> KYResult:
-    """One launch of the CUDA kernel on PyTorch's current stream."""
+            mask_value: float, max_attempts: int, block_b: int) -> KYResult:
+    """One launch of the CUDA kernel on PyTorch's current stream; the
+    kernel makes its bit words from ``key``."""
     b, L = logw.shape
     if not 1 <= L <= MAX_FUSED_L:
         raise ValueError(f"fused kernel takes 1 <= L <= {MAX_FUSED_L} labels "
                          f"(got L={L})")
+    if block_b < 32 or block_b > 1024 or block_b % 32:
+        raise ValueError(f"fused kernel takes a block of 32 to 1024 threads, "
+                         f"a multiple of 32 (got block_b={block_b})")
     dev = logw.device
     tab = table.table.to(device=dev, dtype=torch.float32).contiguous()
-    checks = ((logw, torch.float32, (b, L)), (card, torch.int32, (b,)),
-              (words, torch.int32, (b, words.shape[-1])))
-    for t, dtype, shape in checks:
-        _common.check_input(t, dtype, shape, dev, "fused kernel")
+    _common.check_input(logw, torch.float32, (b, L), dev, "fused kernel")
+    _common.check_input(card, torch.int32, (b,), dev, "fused kernel")
     if tab.numel() != (1 << table.m) + 1:
         raise ValueError("LUT must hold 2**m + 1 nodes")
+    k0, k1 = rng_lib._key_words(key)
     sample = torch.empty(b, dtype=torch.int32, device=dev)
     bits = torch.empty(b, dtype=torch.int32, device=dev)
     att = torch.empty(b, dtype=torch.int32, device=dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
     err = _entry()(
-        logw.data_ptr(), card.data_ptr(), words.data_ptr(), tab.data_ptr(),
+        logw.data_ptr(), card.data_ptr(), k0, k1, tab.data_ptr(),
         sample.data_ptr(), bits.data_ptr(), att.data_ptr(), ok.data_ptr(),
-        b, L, int(words.shape[-1]), float(2 ** k - 1), int(bool(use_iu)),
-        1 << table.m, float(table.lo), float(table.scale), float(mask_value),
-        int(block_b), _common.stream(dev))
+        b, L, rng_lib.bit_budget_words(31 * max_attempts), float(2 ** k - 1),
+        int(bool(use_iu)), 1 << table.m, float(table.lo), float(table.scale),
+        float(mask_value), int(block_b), _common.stream(dev))
     _common.raise_on(err, "fused_gibbs_sample")
     fused_gibbs_sample.launches += 1
     fused_gibbs_sample.shapes[(b, L)] += 1
@@ -139,23 +147,24 @@ def fused_gibbs_sample(
         ``ky_sample(key, masked_exp_weights(logw, card, k, ...))``
 
     with identical results bit for bit.  ``block_b`` is the CUDA block
-    size (threads, one lane each); results do not depend on it.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel.
-    Returns a :class:`KYResult` with (b,) fields.
+    size in threads (a multiple of 32); results do not depend on it.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel, which
+    makes its own bit words from ``key``.  Returns a :class:`KYResult`
+    with (b,) fields.
     """
     _check_k(k)
     logw = torch.as_tensor(logw, dtype=torch.float32)
     b = logw.shape[0]
     dev = logw.device
+    _common.check_device(dev, "fused_gibbs_sample")
     card = _lane_card(card, b, dev)
     table = table or interp_lib._EXP_DEFAULT
-    words = _words(key, b, max_attempts, dev)
-    _common.check_device(dev, "fused_gibbs_sample")
     if dev.type == "cpu":
-        return _plain(logw, card, words, table, k=k, use_iu=use_iu,
-                      mask_value=mask_value)
-    return _launch(logw.contiguous(), card, words, table, k=k, use_iu=use_iu,
-                   mask_value=mask_value, block_b=block_b)
+        return _plain(logw, card, _words(key, b, max_attempts, dev), table,
+                      k=k, use_iu=use_iu, mask_value=mask_value)
+    return _launch(logw.contiguous(), card, key, table, k=k, use_iu=use_iu,
+                   mask_value=mask_value, max_attempts=max_attempts,
+                   block_b=block_b)
 
 
 fused_gibbs_sample.launches = 0

@@ -60,6 +60,49 @@ def test_random_bit_words_and_get_bit():
         t_rng.get_bit(tw, torch.as_tensor(idx)).numpy())
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("b", [1, 9, 130])
+def test_lane_word_is_the_bit_words_layout(seed, b):
+    """The fused kernel's in-kernel word: word j of lane i is the hash of
+    counter i * W + j, at the true lane count — ``random_bit_words`` and
+    ``jax.random.bits(key, (b, W))`` in the partitionable layout."""
+    W = 31
+    tk = t_rng.PRNGKey(seed)
+    k0, k1 = t_rng._key_words(tk)
+    twin = np.array([[t_rng.lane_word(k0, k1, i, j, W) for j in range(W)]
+                     for i in range(b)], np.uint32)
+    np.testing.assert_array_equal(
+        twin, _u32(t_rng.random_bit_words(tk, (b,), 32 * W)))
+    np.testing.assert_array_equal(twin, np.asarray(jax.random.bits(
+        jax.random.PRNGKey(seed), (b, W), jnp.uint32)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_lane_word_high_counter_word(seed):
+    """Counters i * W + j at and past 2**32, where the high counter word is
+    not 0 (the kernel's 64-bit counter arithmetic): the twin against
+    ``_threefry2x32`` on numpy uint64 counters and JAX's own threefry
+    hash of the (hi, lo) pair."""
+    from jax.extend.random import threefry_2x32
+
+    W = 31
+    k0, k1 = t_rng._key_words(t_rng.PRNGKey(seed))
+    first = 2**32 // W                   # lanes about where i * W crosses
+    highs = []
+    for i in (first - 1, first, first + 1, 5 * first + 17, 2**40 // W):
+        for j in (0, 7, W - 1):
+            idx = np.uint64(i) * np.uint64(W) + np.uint64(j)
+            hi, lo = idx >> np.uint64(32), idx & np.uint64(0xFFFFFFFF)
+            x0, x1 = t_rng._threefry2x32(k0, k1, hi, lo)
+            y = np.asarray(threefry_2x32(
+                jnp.array([k0, k1], jnp.uint32),
+                jnp.array([int(hi), int(lo)], jnp.uint32)))
+            word = t_rng.lane_word(k0, k1, i, j, W)
+            assert word == int(x0 ^ x1) == int(y[0] ^ y[1])
+            highs.append(int(hi))
+    assert 0 in highs and min(h for h in highs if h) == 1 and max(highs) > 1
+
+
 def test_ceil_log2():
     x = np.array([0, 1, 2, 3, 4, 5, 8, 9, 2**20, 2**20 + 1, 2**30 + 7],
                  np.int32)

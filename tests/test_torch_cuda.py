@@ -1,8 +1,9 @@
 """The port's CUDA kernels and engine on the card: the fused sweep kernel
-against its plain PyTorch version, the served results of
-``sampler="cuda"`` against ``sampler="torch"`` and the CPU, bit for bit;
-and the stand-alone kernels (KY sampler and IU bitwise, flash attention
-within the JAX tests' tolerances) against their plain versions.
+(words made in the kernel) against its plain PyTorch
+version, the served results of ``sampler="cuda"`` against
+``sampler="torch"`` and the CPU, bit for bit; and the stand-alone kernels
+(KY sampler and IU bitwise, both flash attention routes within the JAX
+tests' tolerances) against their plain versions.
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -62,10 +63,48 @@ def test_kernel_matches_plain_version(cuda_device, k, use_iu):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("L", [1, 3, 5, 17, 32])
+def test_kernel_designs_match_plain_version(cuda_device, L):
+    """A group of next_pow2(L) threads per lane (2 to a whole warp)
+    gives the plain version's four fields, at block sizes that cut the
+    lanes differently."""
+    logw, card = _inputs(L, 777, L, cuda_device)
+    key = rng.PRNGKey(L)
+    want = fs.fused_gibbs_sample_ref(key, logw, card, k=14)
+    for block_b in (32, 96, 256):
+        got = fs._launch(logw, card, key, interp._EXP_DEFAULT, k=14,
+                         use_iu=True, mask_value=fs.MASK_NEG, max_attempts=32,
+                         block_b=block_b)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_cuda_route_makes_its_words_in_the_kernel(cuda_device, monkeypatch):
+    """The CUDA route never calls ``rng.random_bit_words``: the kernel
+    makes word j of lane i from the key, and still gives the plain
+    version's fields."""
+    logw, card = _inputs(5, 3000, 5, cuda_device)
+    key = rng.PRNGKey(5)
+    want = fs.fused_gibbs_sample_ref(key, logw, card, k=14)
+
+    def no_host_words(*args, **kw):
+        raise AssertionError("the CUDA route made bit words on the host")
+
+    monkeypatch.setattr(rng, "random_bit_words", no_host_words)
+    got = fs.fused_gibbs_sample(key, logw, card, k=14)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     logw, card = _inputs(0, 8, fs.MAX_FUSED_L + 1, cuda_device)
     with pytest.raises(ValueError, match="labels"):
         fs.fused_gibbs_sample(rng.PRNGKey(0), logw, card, k=14)
+    logw, card = _inputs(0, 8, 4, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fs.fused_gibbs_sample(rng.PRNGKey(0), logw, card, k=14, block_b=48)
 
 
 def test_engine_cuda_equals_torch_and_cpu(cuda_device):
@@ -206,3 +245,71 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     q = _normal((2, 96, 32), 0, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q, q, q, q_block=64, kv_block=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_routes_by_dtype(cuda_device, dtype):
+    """bf16/fp16 launch the tensor-core kernel and float32 the CUDA-core
+    kernel; ``launches`` counts both."""
+    q = _normal((2, 128, 64), 0, dtype, cuda_device)
+    before = {n: getattr(fa.flash_attention, n)
+              for n in ("launches", "launches_tc", "launches_simt")}
+    fa.flash_attention(q, q, q, q_block=64, kv_block=64)
+    torch.cuda.synchronize()
+    tc = fa.route(dtype) == "tc"
+    assert fa.flash_attention.launches == before["launches"] + 1
+    assert fa.flash_attention.launches_tc == before["launches_tc"] + tc
+    assert fa.flash_attention.launches_simt == before["launches_simt"] + (
+        not tc)
+
+
+# largest |kernel - plain| along a row, as a share of the row's largest
+# |plain|: two ulps of it in fp16, which keeps three more mantissa bits than
+# bf16 for P and the output
+_ROW_TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bh,s,dh,causal", [
+    (4, 128, 64, True), (2, 256, 128, True), (2, 256, 64, False),
+    (8, 64, 32, True), (1, 512, 64, True), (2, 96, 48, True),
+    (2, 200, 128, False), (2, 64, 20, True), (1, 130, 5, False),
+])
+def test_flash_tc_kernel_within_tolerance_of_plain(cuda_device, dtype, bh,
+                                                   s, dh, causal):
+    """The tensor-core kernel at the JAX tests' shapes, ragged sequences
+    and head dims that are not multiples of 16 (TMA zero fill) or of 8
+    (zero-padded before the launch): within the JAX bf16 tolerance, and
+    each row within its type's share of its largest output."""
+    q, k, v = (_normal((bh, s, dh), i, dtype, cuda_device) for i in range(3))
+    before = fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v, causal=causal, q_block=s, kv_block=s)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.mha_ref(q, k, v, causal=causal).float()
+    diff = (got.float() - want).abs()
+    torch.testing.assert_close(got.float(), want, atol=3e-2, rtol=3e-2)
+    assert float((diff.amax(-1) / want.abs().amax(-1)).max()) <= \
+        _ROW_TOL[dtype]
+
+
+def test_flash_mha_tc_gqa_within_tolerance_of_plain(cuda_device):
+    q = _normal((2, 256, 8, 128), 0, torch.bfloat16, cuda_device)
+    k = _normal((2, 256, 2, 128), 1, torch.bfloat16, cuda_device)
+    v = _normal((2, 256, 2, 128), 2, torch.bfloat16, cuda_device)
+    got = fa.flash_mha(q, k, v, q_block=64, kv_block=64)
+    torch.testing.assert_close(got.float(), fa.mha_plain(q, k, v).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+def test_flash_tc_takes_a_view_that_is_not_16_byte_aligned(cuda_device):
+    """A TMA map needs a 16-byte aligned base: a contiguous view starting
+    one element into its storage is copied first, not refused."""
+    base = _normal((1 + 2 * 128 * 64,), 0, torch.bfloat16, cuda_device)
+    q = base[1:].view(2, 128, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = fa.flash_attention(q, q, q, q_block=64, kv_block=64)
+    torch.testing.assert_close(got.float(), ref.mha_ref(q, q, q).float(),
+                               atol=3e-2, rtol=3e-2)

@@ -239,3 +239,62 @@ def test_flash_rejects_what_the_reference_rejects():
     with pytest.raises(ValueError, match="KV dividing H"):
         t_fa.flash_mha(torch.zeros(1, 64, 6, 32), torch.zeros(1, 64, 4, 32),
                        torch.zeros(1, 64, 4, 32))
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "tc"), (torch.float16, "tc"), (torch.float32, "simt")])
+def test_flash_route_is_chosen_by_dtype(dtype, route):
+    """bf16/fp16 go to the tensor-core kernel and float32 to the CUDA-core
+    kernel, by dtype alone; other types are refused."""
+    assert t_fa.route(dtype) == route
+
+
+def test_flash_refuses_other_dtypes_and_mixed_types():
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        t_fa.route(torch.float64)
+    q = torch.zeros(2, 64, 32)
+    with pytest.raises(ValueError, match="one type"):
+        t_fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="one type"):
+        t_fa.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="one type"):
+        t_fa.flash_mha(torch.zeros(1, 64, 4, 32, dtype=torch.float16),
+                       torch.zeros(1, 64, 2, 32), torch.zeros(1, 64, 2, 32))
+
+
+def test_flash_shape_checks():
+    q = torch.zeros(2, 64, 32)
+    with pytest.raises(ValueError, match="one shape"):
+        t_fa.flash_attention(q, torch.zeros(2, 64, 16), q)
+    with pytest.raises(ValueError, match="one shape"):
+        t_fa.flash_attention(q[None], q[None], q[None])
+    with pytest.raises(ValueError, match="head dims"):
+        t_fa.flash_attention(torch.zeros(2, 64, 0), torch.zeros(2, 64, 0),
+                             torch.zeros(2, 64, 0))
+    with pytest.raises(ValueError, match="KV dividing H"):
+        t_fa.flash_mha(torch.zeros(1, 64, 4, 32), torch.zeros(1, 32, 2, 32),
+                       torch.zeros(1, 32, 2, 32))
+    with pytest.raises(ValueError, match="KV dividing H"):
+        t_fa.flash_mha(torch.zeros(1, 64, 4, 32), torch.zeros(1, 64, 2, 16),
+                       torch.zeros(1, 64, 2, 16))
+    with pytest.raises(ValueError, match="multiple of kv_block"):
+        t_fa.flash_mha(torch.zeros(1, 96, 4, 32), torch.zeros(1, 96, 2, 32),
+                       torch.zeros(1, 96, 2, 32), q_block=32, kv_block=64)
+
+
+@pytest.mark.parametrize("dh,want", [(8, 8), (20, 24), (5, 8), (128, 128)])
+def test_pad_head_dim_zero_pads_to_the_tma_multiple(dh, want):
+    """What the tensor-core route launches on: the head dim zero-padded to
+    a multiple of 8; zero columns add nothing to the scores, so the
+    attention of the padded inputs, cut back to dh, is unchanged."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(
+        dh, [(1, 64, 2, dh)] * 3))
+    qp, kp, vp = (t_fa.pad_head_dim(t, t_fa.TC_HEAD_DIM_MULTIPLE)
+                  for t in (q, k, v))
+    assert qp.shape == (1, 64, 2, want)
+    if want == dh:
+        assert qp is q
+    assert torch.equal(qp[..., :dh], q) and not qp[..., dh:].any()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    torch.testing.assert_close(torch.einsum("bqhd,bkhd->bhqk", qp, kp),
+                               scores, atol=1e-5, rtol=0)
