@@ -31,7 +31,8 @@ line is printed:
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
    all-zero row and a (65536, 3) frequency check; all four fields
    equal to the plain version on the card; bits per sample beside
-   ``cdf_sample``'s 32.
+   ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
+   call (``call_ms``) and of its bit words alone (``words_ms``).
 8. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
@@ -267,30 +268,6 @@ def record_main_path():
         rng.random_bit_words = bit_words
 
 
-def kernel_device_ms(fn, reps: int, name: str) -> float:
-    """Mean device milliseconds per launch of the kernel whose name holds
-    ``name``, from torch.profiler's kernel records over ``reps`` calls
-    after a warm-up call (host dispatch between launches not counted).
-    The mean is over the launches recorded: the profiler can miss the
-    records of the first launches it sees."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and name in e.key]
-    if len(ev) != 1 or not 0 < ev[0].count <= reps:
-        raise AssertionError(f"profiler saw {[(e.key, e.count) for e in ev]}"
-                             f" for {reps} launches of {name}")
-    return ev[0].self_device_time_total / ev[0].count / 1e3
-
-
 def main_path_bound(rec) -> tuple[float, str]:
     """Mean bound per launch over every launch of the main path, each from
     its own shape and the bits its lanes used."""
@@ -316,6 +293,10 @@ def phase_main_path_kernel(rec) -> dict:
     passes launched, its first recorded call is launched again through
     the wrapper and must equal both the recorded result and the plain
     version; then timed.  ``ms`` is the kernel's device time per launch,
+    100 launches back to back on a held card (:func:`cold_device_ms`:
+    CUDA events, not torch.profiler, whose CUDA-only captures have come
+    back without a record of the kernel after the serve phase; the gaps
+    between launches on the card count),
     ``call_ms`` one launch through the binding as the host sees it back
     to back (CUDA events), ``plain_ms`` the plain version on words made
     beforehand and ``words_ms`` those words (which the kernel makes
@@ -348,7 +329,7 @@ def phase_main_path_kernel(rec) -> dict:
         words = fs._words(key, b, 32, logw.device)
         rows.append(dict(
             n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
-            ms=kernel_device_ms(launch, 100, "fused_gibbs_group_kernel"),
+            ms=cold_device_ms(launch, 3, logw.device, calls=100),
             call_ms=time_ms(launch, 200),
             plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
                                                **opts), 5, warmup=1),
@@ -511,28 +492,42 @@ def phase_serve(card_name: str) -> dict:
     return {"engine": engine, "traffic": traffic, "record": rec}
 
 
-def cold_device_ms(fn, reps: int, device) -> float:
-    """Mean device milliseconds of one call of ``fn`` with a cold L2, by
-    CUDA events just around each call.  Before each call 512 MB are
-    overwritten (ten times the card's 50 MB L2), so that the call reads
-    its inputs from device memory, as a caller with fresh data would; the
-    fill also keeps the card busy while the host enqueues the call, so
-    the events time the device and not the host.  (Events, not
-    torch.profiler's kernel records: after the serve phase's large
-    profile the profiler once saw no record of a later kernel at all.)"""
+def cold_device_ms(fn, reps: int, device, calls: int = 1) -> float:
+    """Mean device milliseconds of one call of ``fn`` (which may launch
+    several kernels), ``calls`` calls back to back between two CUDA
+    events, ``reps`` times, with a cold and clean L2: before each rep
+    512 MB are read (ten times the card's 50 MB L2), which leaves no line
+    of the call's inputs in L2 and none dirty (a write fill leaves 50 MB
+    of dirty lines draining to device memory while the call runs).  Then
+    a spin kernel (``torch.cuda._sleep``) holds the card for twice the
+    host's time to enqueue the calls (at an assumed 2 GHz, the most an
+    H100 clocks, so the spin is if anything longer): every kernel is
+    queued before the first one starts, and the events time the device
+    alone, not the host's dispatch between kernels."""
     import torch
 
-    scratch = torch.empty(128 << 20, dtype=torch.float32, device=device)
-    fn()
+    def batch():
+        for _ in range(calls):
+            fn()
+
+    scratch = torch.ones(128 << 20, dtype=torch.float32, device=device)
+    batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * host_s * 2e9)
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in pairs:
-        scratch.zero_()
+        scratch.sum()
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        batch()
         end.record()
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps / calls
 
 
 def ky_weights(b: int, n: int, seed: int, device):
@@ -551,7 +546,10 @@ def phase_ky_sampler(device) -> dict:
     ragged case with an all-zero row, and a frequency check; every field
     equal to the plain version on the card; then timed (the kernel with a
     cold L2, the plain version and ``cdf_sample`` warm), with the bound
-    from each case's own ``bits_used``."""
+    from each case's own ``bits_used``.  At the widest shape also the
+    whole ``ops.ky_sample_kernel`` call (zero-row fix, ``ky_prep``, bit
+    words, launch: ``call_ms``) and its ``rng.random_bit_words`` part
+    (``words_ms``), each on a held card by :func:`cold_device_ms`."""
     import torch
 
     from repro_torch.core import rng
@@ -612,8 +610,18 @@ def phase_ky_sampler(device) -> dict:
     if bad or not freq_err < 0.02:
         raise AssertionError(f"KY kernel: {bad}, frequency error {freq_err}")
     full = rows[len(KY_SHAPES) - 1]             # the widest, 65536 x 64
+    w = cases[len(KY_SHAPES) - 1]
+    b, budget = w.shape[0], 31 * 32             # max_attempts 32
+    call_ms = cold_device_ms(lambda: ops.ky_sample_kernel(key, w), 20,
+                             device)
+    words_ms = cold_device_ms(
+        lambda: rng.random_bit_words(key, (b,), budget, device=device), 20,
+        device)
+    emit({"phase": "ky_sampler_call", "shape": [b, full["n"]],
+          "ms": full["ms"], "call_ms": call_ms, "words_ms": words_ms})
     return dict(launches=launches, shape=[full["b"], full["n"]],
                 max_abs_err=max(r["max_abs_err"] for r in rows),
+                call_ms=call_ms, words_ms=words_ms,
                 **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")})
 

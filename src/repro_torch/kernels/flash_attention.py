@@ -7,7 +7,8 @@ Pallas kernel ``repro.kernels.flash_attention._flash_kernel`` (launched by
 
 - bfloat16 and float16: ``csrc/flash_attention_tc.cu``, ``wgmma`` on the
   tensor cores, K/V tiles through a TMA ring;
-- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores.
+- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores
+  from register tiles, K/V tiles through a ``cp.async`` ring.
 
 The route is chosen by dtype, never on failure: the tensor cores would run
 float32 as TF32, which keeps about three decimal digits, and the float32
@@ -21,10 +22,12 @@ The layouts are the reference's: :func:`flash_attention` on
 ``jnp.repeat(..., axis=2)`` expands them.  On the card ``flash_mha``
 reads the kv heads in place and writes ``(B, S, H, dh)`` directly; the
 kernels' tiles are their own, and ``q_block``/``kv_block`` only reject the
-shapes the reference rejects (``S`` not a multiple of the block).  The
-tensor-core kernel reads through TMA, which takes head dims that are
-multiples of 8: other head dims are zero-padded to one before the launch
-(the zeros add nothing to the scores, and their output columns are cut).
+shapes the reference rejects (``S`` not a multiple of the block).  Both
+kernels read whole 16-byte rows (TMA on the tensor cores, ``cp.async``
+on the CUDA cores): :func:`launch_inputs` zero-pads the head dim to a
+multiple of 8 (tensor cores) or 4 (CUDA cores) and copies data that is
+not 16-byte aligned before the launch (the zeros add nothing to the
+scores, and their output columns are cut).
 
 Both take the plain version only for tensors that lie on the CPU; on a
 CUDA tensor they launch a kernel or raise.  ``flash_attention.launches_tc``
@@ -47,8 +50,10 @@ MAX_HEAD_DIM = 128
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the tensor-core kernel's dtype codes; float32 takes the CUDA-core kernel
 _TC_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
-# the tensor-core kernel's TMA reads rows of 16-byte multiples
+# the kernels read rows of 16-byte multiples: TMA on the tensor cores
+# (bfloat16/float16, 8 elements), cp.async on the CUDA cores (float32, 4)
 TC_HEAD_DIM_MULTIPLE = 8
+SIMT_HEAD_DIM_MULTIPLE = 4
 
 
 def route(dtype: torch.dtype) -> str:
@@ -88,8 +93,18 @@ def pad_head_dim(t: torch.Tensor, multiple: int) -> torch.Tensor:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a fresh copy of it when its data is not 16-byte aligned
-    (a TMA map's base address must be)."""
+    (a TMA map's base address and a 16-byte ``cp.async`` source must be)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v as the dtype's kernel reads them: the head dim zero-padded
+    to a multiple of the route's 16-byte row (8 elements on the tensor
+    cores, 4 on the CUDA cores), the data 16-byte aligned.  Each tensor is
+    returned as it is when it already is so."""
+    multiple = (TC_HEAD_DIM_MULTIPLE if route(q.dtype) == "tc"
+                else SIMT_HEAD_DIM_MULTIPLE)
+    return tuple(_aligned(pad_head_dim(t, multiple)) for t in (q, k, v))
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,9 +114,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, dh)."""
     b, s, h, dh = q.shape
     tc = route(q.dtype) == "tc"
-    if tc:
-        q, k, v = (_aligned(pad_head_dim(t, TC_HEAD_DIM_MULTIPLE))
-                   for t in (q, k, v))
+    q, k, v = launch_inputs(q, k, v)
     o = torch.empty_like(q)
     strides = (ctypes.c_longlong * 12)(*(
         st for t in (q, k, v, o) for st in t.stride()[:3]))

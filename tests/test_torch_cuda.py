@@ -3,7 +3,9 @@
 version, the served results of ``sampler="cuda"`` against
 ``sampler="torch"`` and the CPU, bit for bit; and the stand-alone kernels
 (KY sampler and IU bitwise, both flash attention routes within the JAX
-tests' tolerances) against their plain versions.
+tests' tolerances) against their plain versions, the KY sampler at the
+group and round boundaries of its group walk and the float32 flash kernel
+at odd head dims, ragged sequences and unaligned views.
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -145,13 +147,23 @@ def _ky_inputs(seed, b, n, device):
     return w, words, klvl, rej
 
 
-@pytest.mark.parametrize("b,n", [(1000, 5), (4096, 64), (333, 130)])
+@pytest.mark.parametrize("b,n", [
+    (1000, 1), (1000, 2), (1000, 3), (1000, 5), (1000, 31), (1000, 32),
+    (1000, 33), (4096, 64), (1000, 65), (333, 130), (200, 300)])
 def test_ky_kernel_matches_plain_version(cuda_device, b, n):
-    """sample, bits and ok equal for two block sizes (the launch geometry
-    must not matter), and each call counts one launch."""
-    w, words, klvl, rej = _ky_inputs(b + n, b, n, cuda_device)
+    """sample, bits and ok equal at the group and round boundaries (n up
+    to 32 threads a row, then 2, 3, 5 and 10 rounds; past 8 rounds the
+    kernel reads the weights again from global memory), with a
+    deterministic row and an all-zero row, for three block sizes (the
+    launch geometry must not matter); each call counts one launch."""
+    w, words, _, _ = _ky_inputs(b + n, b, n, cuda_device)
+    w[7] = 0
+    w[7, n - 1] = 9                                  # deterministic row
+    w[8] = 0                                         # all-zero row
+    klvl, rej = ref.ky_prep(w)
     want = ref.ky_walk_global(w, words, klvl, rej, 31 * 32)
-    for block_b in (64, 256):
+    assert int(want[0][7]) == n - 1 and int(want[1][7]) == 0
+    for block_b in (5, 64, 256):
         before = kys.ky_sampler.launches
         got = kys.ky_sampler(w, words, klvl, rej, budget=31 * 32,
                              block_b=block_b)
@@ -159,6 +171,25 @@ def test_ky_kernel_matches_plain_version(cuda_device, b, n):
         assert kys.ky_sampler.launches == before + 1
         for g, x in zip(got, want):
             assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("n", [6, 40])
+def test_ky_kernel_budget_exhaustion_falls_back_to_argmax(cuda_device, n):
+    """budget=2: most rows run out of bits; they fall back to the first
+    argmax (ties included) with ok false, as the plain version does."""
+    w, words, _, _ = _ky_inputs(n, 512, n, cuda_device)
+    w[3] = 7                                         # every label ties
+    klvl, rej = ref.ky_prep(w)
+    want = ref.ky_walk_global(w, words, klvl, rej, 2)
+    got = kys.ky_sampler(w, words, klvl, rej, budget=2)
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    sample, bits, ok = got
+    assert not bool(ok.all()) and int(bits.max()) == 2
+    fell = ~ok[:, 0]
+    assert torch.equal(sample[fell, 0].long(), w.argmax(dim=1)[fell])
+    assert int(sample[3]) == 0 or bool(ok[3])
 
 
 def test_ky_sample_kernel_matches_plain_on_ragged_rows(cuda_device):
@@ -236,6 +267,74 @@ def test_flash_mha_gqa_within_tolerance_of_plain(cuda_device):
     assert fa.flash_attention.launches == before + 1
     torch.testing.assert_close(got, fa.mha_plain(q, k, v), atol=2e-5,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("bh,s,dh,causal", [
+    (2, 130, 4, True), (2, 200, 5, False), (2, 64, 20, True),
+    (2, 96, 48, True), (1, 200, 96, True), (2, 256, 128, True),
+    (1, 130, 128, False), (4, 128, 64, False), (1, 520, 128, True),
+])
+def test_flash_f32_kernel_within_tolerance_of_plain(cuda_device, bh, s, dh,
+                                                    causal):
+    """The float32 CUDA-core kernel at ragged sequences (130, 200, 520:
+    query and key tiles cut at the end) and head dims 4 to 128 (5 padded
+    to 8 before the launch, the rest read in 16-byte rows with zero fill
+    past dh), full and causal: within the JAX float32 tolerance."""
+    q, k, v = (_normal((bh, s, dh), 7 * i + dh, torch.float32, cuda_device)
+               for i in range(3))
+    before = fa.flash_attention.launches_simt
+    got = fa.flash_attention(q, k, v, causal=causal, q_block=s, kv_block=s)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_simt == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, ref.mha_ref(q, k, v, causal=causal),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s,dh,causal", [(200, 128, True), (130, 20, False)])
+def test_flash_mha_f32_gqa_ragged_within_tolerance_of_plain(cuda_device, s,
+                                                            dh, causal):
+    q = _normal((2, s, 8, dh), 0, torch.float32, cuda_device)
+    k = _normal((2, s, 2, dh), 1, torch.float32, cuda_device)
+    v = _normal((2, s, 2, dh), 2, torch.float32, cuda_device)
+    got = fa.flash_mha(q, k, v, causal=causal, q_block=s, kv_block=s)
+    torch.testing.assert_close(got, fa.mha_plain(q, k, v, causal=causal),
+                               atol=2e-5, rtol=1e-4)
+
+
+def test_flash_f32_takes_a_view_that_is_not_16_byte_aligned(cuda_device):
+    """The float32 kernel copies 16-byte rows: a contiguous view starting
+    one element into its storage is copied first, not refused."""
+    base = _normal((1 + 2 * 128 * 64,), 0, torch.float32, cuda_device)
+    q = base[1:].view(2, 128, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = fa.flash_attention(q, q, q, q_block=64, kv_block=64)
+    torch.testing.assert_close(got, ref.mha_ref(q, q, q), atol=2e-5,
+                               rtol=1e-4)
+
+
+def test_flash_f32_kernel_refuses_rows_that_are_not_16_bytes(cuda_device):
+    """Called directly, the float32 entry point refuses a head dim that is
+    not a multiple of 4 and data that is not 16-byte aligned (the wrapper
+    pads or copies those first)."""
+    import ctypes
+
+    from repro_torch.kernels import _common
+
+    def launch(q, dh):
+        o = torch.empty_like(q)
+        strides = (ctypes.c_longlong * 12)(*([q.stride(0), q.stride(1), 0]
+                                             * 4))
+        return fa._entry("flash_attention")(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 1, 1,
+            q.shape[1], dh, strides, dh ** -0.5, 1, _common.stream(q.device))
+
+    q = _normal((1, 64, 8), 0, torch.float32, cuda_device)
+    assert launch(q, 8) == 0
+    assert launch(q[..., :5].contiguous(), 5) != 0
+    base = _normal((1 + 64 * 8,), 0, torch.float32, cuda_device)
+    assert launch(base[1:].view(1, 64, 8), 8) != 0
+    torch.cuda.synchronize()
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):

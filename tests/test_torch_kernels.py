@@ -28,7 +28,7 @@ from repro_torch.core.fixedpoint import quantize_probs as t_quantize  # noqa: E4
 from repro_torch.kernels import flash_attention as t_fa  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import ref as t_ref  # noqa: E402
-from repro_torch.kernels.ky_sampler import ky_sampler  # noqa: E402
+from repro_torch.kernels.ky_sampler import group_geometry, ky_sampler  # noqa: E402
 
 CPU = torch.device("cpu")
 BUDGET = 31 * 32
@@ -81,6 +81,30 @@ def test_ky_sampler_budget_exhaustion_falls_back_to_argmax():
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(x))
     assert not got[2].all()
+
+
+@pytest.mark.parametrize("n,block_b,want", [
+    (1, 256, (1, 1, 256)), (2, 256, (2, 1, 128)), (3, 256, (4, 1, 64)),
+    (31, 256, (32, 1, 8)), (32, 256, (32, 1, 8)), (33, 256, (32, 2, 8)),
+    (64, 5, (32, 2, 5)), (65, 256, (32, 3, 8)), (130, 256, (32, 5, 8)),
+    (7, 1000, (8, 1, 32)), (300, 1, (32, 10, 1)), (5, 3, (8, 1, 3)),
+])
+def test_ky_group_geometry(n, block_b, want):
+    """The KY kernel's launch geometry: min(next_pow2(n), 32) threads a
+    row, ceil(n / threads) rounds, block_b rows a block up to 256
+    threads."""
+    assert group_geometry(n, block_b) == want
+    g, rounds, rows = want
+    assert (rounds - 1) * g < n <= rounds * g and rows * g <= 256
+
+
+@pytest.mark.parametrize("n,block_b", [(0, 256), (4, 0)])
+def test_ky_sampler_refuses_no_outcomes_or_no_rows_a_block(n, block_b):
+    w = torch.ones((8, max(n, 1)), dtype=torch.int32)[:, :n]
+    words = torch.zeros((8, 2), dtype=torch.int32)
+    col = torch.ones((8, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="n >= 1 and block_b >= 1"):
+        ky_sampler(w, words, col, col, block_b=block_b)
 
 
 @pytest.mark.parametrize("shape", [(133, 7), (3, 45, 5)])
@@ -298,3 +322,38 @@ def test_pad_head_dim_zero_pads_to_the_tma_multiple(dh, want):
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
     torch.testing.assert_close(torch.einsum("bqhd,bkhd->bhqk", qp, kp),
                                scores, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.float32, 4, 4), (torch.float32, 5, 8), (torch.float32, 20, 20),
+    (torch.float32, 126, 128), (torch.bfloat16, 20, 24),
+    (torch.float16, 5, 8), (torch.bfloat16, 128, 128),
+])
+def test_launch_inputs_pad_the_head_dim_to_the_routes_16_byte_rows(
+        dtype, dh, want):
+    """What each route's kernel reads: the head dim zero-padded to a
+    multiple of 4 (float32, cp.async) or 8 (bf16/fp16, TMA), a tensor that
+    needs nothing returned as it is; the zeros add nothing to the scores
+    (the kernel scales them by the true dh ** -0.5)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(
+        dh + 1, [(1, 64, 2, dh)] * 3))
+    got = t_fa.launch_inputs(q, k, v)
+    for t, g in zip((q, k, v), got):
+        assert g.shape == (1, 64, 2, want) and g.data_ptr() % 16 == 0
+        assert torch.equal(g[..., :dh], t) and not g[..., dh:].any()
+        if want == dh:
+            assert g is t
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    torch.testing.assert_close(torch.einsum("bqhd,bkhd->bhqk",
+                                            got[0].float(), got[1].float()),
+                               scores, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_inputs_copy_a_view_that_is_not_16_byte_aligned(dtype):
+    base = torch.from_numpy(_qkv(0, [(1 + 2 * 64 * 2 * 32,)])[0]).to(dtype)
+    q = base[1:].view(2, 64, 2, 32)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    for g in t_fa.launch_inputs(q, q, q):
+        assert g.data_ptr() % 16 == 0 and g.is_contiguous()
+        assert torch.equal(g, q) and g.data_ptr() != q.data_ptr()
