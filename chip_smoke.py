@@ -13,7 +13,8 @@ line is printed:
    PyTorch version on the card, on the same key and inputs; all four
    KYResult fields must be equal.
 4. serve — ``PosteriorEngine.answer_batch`` on hailfinder_scale (56
-   nodes, engine defaults) with ``sampler="cuda"``: 64 synthetic queries
+   nodes, engine defaults but a 32-sweep burn-in, budget 2048) with
+   ``sampler="cuda"``: 64 synthetic queries
    over 4 evidence patterns, cold and warm pass, launch counters zeroed
    just before and read just after (launches per (b, L) and per engine
    round included; no bit words made on the host: the kernel makes its
@@ -25,7 +26,27 @@ line is printed:
    version, then timed; the bound counts every recorded launch.
 6. profile — torch.profiler over one warm group: device busy share and
    device launches per colour update.
-7. ky_sampler — the stand-alone kernel API's KY sampler,
+7. mrf_gibbs — the paper's MRF configs through ``run_mcmc``'s MRF branch
+   at their published sizes (aia-mrf-penguin 500 x 333, L 2;
+   aia-mrf-art 288 x 384, L 16; 16 chains): 20 and 10 sweeps with
+   ``sampler="cuda"`` equal to ``"torch"`` bit for bit (labels, bits,
+   attempts); then aia-mrf-penguin's 1000 sweeps on the kernel, timed
+   (site samples per second, bits per sample, accuracy against the
+   task's truth), exactly 2 launches a sweep, and the kernel at
+   (2,664,000, 2) and (1,769,472, 16) held to the recorded result and
+   the plain version and timed with a cold L2 beside its bound; then
+   torch.profiler over 5 warm penguin sweeps (busy share, launches a
+   half-step, the fused kernel's share).
+8. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
+   2 scribble patterns, 8 chains a query, cold and warm, bitwise against
+   ``sampler="torch"``; launches counted, no host bit words.
+9. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
+   colouring): 16 ``IsingQuery`` over 2 clamp patterns, cold and warm,
+   bitwise against ``sampler="torch"``; ``run_fg_gibbs`` on a random
+   sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
+   and the torus at β 0.6 started all up within 0.03 of Onsager's
+   magnetization.
+10. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
@@ -33,11 +54,11 @@ line is printed:
    equal to the plain version on the card; bits per sample beside
    ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
    call (``call_ms``) and of its bit words alone (``words_ms``).
-8. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+11. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
-9. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+12. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
    S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
    at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
    float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
@@ -46,10 +67,11 @@ line is printed:
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
 
-Phases 7-9 each zero their kernel's launch count just before their main
-path and read it just after.  Then the per-kernel JSON line, the
-nvidia-smi name/power-limit line, and last ``{"ok": true, "device":
-{...}}``.  Imports torch and the port only.
+Phases 4 and 7-12 each zero their kernel's launch count just before
+their main path and read it just after; the fused kernel's entry of the
+per-kernel JSON line carries each path's launches, shapes and times
+under ``paths``.  Then the nvidia-smi name/power-limit line, and last
+``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -70,6 +92,10 @@ BF16_OPS_PER_S = 989e12     # H100 SXM bf16/fp16 tensor cores, dense
 SERVE_NET = "hailfinder_scale"
 # 16 queries per evidence pattern, as one engine group
 SERVE_QUERIES, SERVE_PATTERNS = 64, 4
+# depth cut so the script stays near its earlier run time with the MRF and
+# Ising phases added: a 2048-sample budget and 32 burn-in sweeps (engine
+# defaults 4096 and 64; 6 rounds a group instead of 12)
+SERVE_BUDGET, SERVE_BURN_IN = 2048, 32
 KERNEL_SHAPES = ((7, 3), (300, 5), (4096, 16), (20000, 5), (65536, 2))
 # benchmarks/bench_ky_vs_cdf.py: 65536 rows, n in {4, 16, 64}, alpha 0.3
 KY_SHAPES = ((65536, 4), (65536, 16), (65536, 64))
@@ -106,6 +132,22 @@ FLASH_HALF_DTYPES = tuple(FLASH_ROW_TOL)        # the tensor-core route
 # integer ops of one 20-round threefry2x32 word: 20 x (add, rotate, xor),
 # 5 key injections of 3 adds, the final xor
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 1
+# The paper's MRF configs (src/repro/configs/aia_paper.py: aia-mrf-penguin
+# 500 x 333 L 2, aia-mrf-art 288 x 384 L 16, 16 chains, 1000 sweeps) at
+# their published sizes; sampler="cuda" against "torch" on a cut depth, then
+# the penguin config's 1000 sweeps on the kernel alone
+MRF_IDENTITY_SWEEPS = {"aia-mrf-penguin": 20, "aia-mrf-art": 10}
+MIN_PENGUIN_ACCURACY = 0.95
+# served grids and tori at full width; depth cut to 4 + 1 burn-in rounds of
+# 4 sweeps a group, so that the sampler="torch" passes stay near a minute
+SERVE_DEPTH = dict(chains_per_query=8, burn_in=4, sweeps_per_round=4,
+                   max_rounds=4, seed=0)
+SERVE_MRF = dict(shape=(500, 333), queries=8, patterns=2, budget=256)
+SERVE_ISING = dict(side=256, queries=16, patterns=2, budget=256)
+# a random sparse spin glass of 65,536 spins (degree buckets up to 16)
+SPARSE_RUN = dict(n=65536, chains=8, sweeps=5, burn_in=1)
+# tests/test_sparse_compile.py::test_torus_matches_onsager
+ONSAGER = dict(side=16, beta=0.6, chains=48, sweeps=150, tol=0.03)
 
 
 def emit(obj) -> None:
@@ -222,21 +264,29 @@ def phase_kernel_vs_plain(device) -> dict:
 
 
 @contextlib.contextmanager
-def record_main_path():
-    """Zero the launch counts just before the main path and read them just
-    after.  Meanwhile keep every fused call the color update makes (its
-    inputs and result, by reference: no device work is added), the
-    launches of each ``GroupRun.step`` (one engine round), and the calls
-    of ``rng.random_bit_words`` (the kernel makes its own words, so the
-    CUDA route should make none)."""
+def record_main_path(keep_all: bool = True):
+    """Zero the launch counts just before a main path and read them just
+    after.  Meanwhile keep the fused calls the colour updates make (inputs
+    and result, by reference: no device work is added) — every call, or
+    with ``keep_all=False`` the first of each ``(b, L)`` only, for paths
+    whose calls would not fit in memory together — the launches of each
+    ``GroupRun.step`` (one engine round), and the calls of
+    ``rng.random_bit_words`` (the kernel makes its own words, so the CUDA
+    route should make none).  The fused sampler is read by name in the BN
+    compile chain, the MRF half-step and the sparse colour update; all
+    three are recorded."""
     from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
+    from repro_torch.pgm import gibbs as gibbs_mod
+    from repro_torch.pgm import sparse_compile as sparse_mod
     from repro_torch.serve.engine import GroupRun
 
-    fused, step = compile_mod.fused_gibbs_sample, GroupRun.step
+    mods = (compile_mod, gibbs_mod, sparse_mod)
+    fused, step = fs.fused_gibbs_sample, GroupRun.step
     bit_words = rng.random_bit_words
     rec = {"calls": [], "per_round": Counter(), "word_calls": 0}
+    seen = set()
 
     def counting_bit_words(*args, **kw):
         rec["word_calls"] += 1
@@ -244,7 +294,9 @@ def record_main_path():
 
     def recording_fused(key, logw, card, **kw):
         res = fused(key, logw, card, **kw)
-        rec["calls"].append((key, logw, card, kw, res))
+        if keep_all or tuple(logw.shape) not in seen:
+            seen.add(tuple(logw.shape))
+            rec["calls"].append((key, logw, card, kw, res))
         return res
 
     def recording_step(self):
@@ -253,7 +305,8 @@ def record_main_path():
         rec["per_round"][fs.fused_gibbs_sample.launches - n0] += 1
         return out
 
-    compile_mod.fused_gibbs_sample = recording_fused
+    for m in mods:
+        m.fused_gibbs_sample = recording_fused
     GroupRun.step = recording_step
     rng.random_bit_words = counting_bit_words
     fs.fused_gibbs_sample.launches = 0
@@ -263,29 +316,48 @@ def record_main_path():
     finally:
         rec["launches"] = fs.fused_gibbs_sample.launches
         rec["shapes"] = Counter(fs.fused_gibbs_sample.shapes)
-        compile_mod.fused_gibbs_sample = fused
+        for m in mods:
+            m.fused_gibbs_sample = fused
         GroupRun.step = step
         rng.random_bit_words = bit_words
 
 
+def check_recorded(rec, path: str) -> None:
+    """A main path launched the kernel, made no bit words on the host,
+    and every launch went through the recorded wrapper."""
+    if rec["launches"] <= 0:
+        raise AssertionError(f"{path} never launched the fused kernel")
+    if rec["word_calls"]:
+        raise AssertionError(f"{path}: the CUDA route made bit words on the "
+                             f"host {rec['word_calls']} times")
+    if rec["launches"] != sum(rec["shapes"].values()):
+        raise AssertionError(f"{path}: {rec['launches']} launches, shapes "
+                             f"{dict(rec['shapes'])}")
+
+
 def main_path_bound(rec) -> tuple[float, str]:
     """Mean bound per launch over every launch of the main path, each from
-    its own shape and the bits its lanes used."""
+    its own shape and the bits its lanes used; a recorded call stands for
+    the launches of its shape that were not kept."""
     import torch
 
     per_call = torch.stack([torch.stack([
         ((res.bits_used.to(torch.int64) + 31) // 32).sum(),
         res.bits_used.to(torch.int64).sum()]) for *_, res in rec["calls"]])
     per_call = per_call.cpu().tolist()
-    bounds, bys = [], Counter()
+    kept = Counter(tuple(c[1].shape) for c in rec["calls"])
+    total = weight = 0.0
+    bys = Counter()
     for (_, logw, _, kw, _), (words_made, bits) in zip(rec["calls"],
                                                        per_call):
         b, L = logw.shape
+        w = rec["shapes"][(b, L)] / kept[(b, L)]
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
         bound, by = fused_bound_ms(b, L, words_made, bits, lut)
-        bounds.append(bound)
-        bys[by] += 1
-    return sum(bounds) / len(bounds), bys.most_common(1)[0][0]
+        total += bound * w
+        weight += w
+        bys[by] += w
+    return total / weight, bys.most_common(1)[0][0]
 
 
 def phase_main_path_kernel(rec) -> dict:
@@ -434,20 +506,16 @@ def phase_serve(card_name: str) -> dict:
     bn = getattr(networks, SERVE_NET)()
     registry = {SERVE_NET: bn}
     traffic = synthetic_traffic(bn, SERVE_NET, SERVE_QUERIES, SERVE_PATTERNS,
-                                np.random.default_rng(0), 4096)
-    engine = PosteriorEngine(registry, seed=0)           # cuda, sampler cuda
+                                np.random.default_rng(0), SERVE_BUDGET)
+    engine = PosteriorEngine(registry, burn_in=SERVE_BURN_IN,
+                             seed=0)                     # cuda, sampler cuda
     assert engine.device.type == "cuda" and engine.sampler == "cuda"
 
     with record_main_path() as rec:        # the main path
         cold, cold_s = timed_pass(engine, traffic)
         warm, warm_s = timed_pass(engine, traffic)
-    if rec["launches"] <= 0:
-        raise AssertionError("serve phase never launched the fused kernel")
-    if rec["word_calls"]:
-        raise AssertionError(f"the CUDA route made bit words on the host "
-                             f"{rec['word_calls']} times")
-    if rec["launches"] != len(rec["calls"]) or rec["launches"] != sum(
-            rec["shapes"].values()):
+    check_recorded(rec, "serve phase")
+    if rec["launches"] != len(rec["calls"]):
         raise AssertionError(f"{rec['launches']} launches counted, "
                              f"{len(rec['calls'])} fused calls recorded")
     node_samples = sum(r.n_node_samples for r in warm)
@@ -462,7 +530,8 @@ def phase_serve(card_name: str) -> dict:
           "converged": sum(r.converged for r in warm)})
 
     # the same two passes through the plain path on the card
-    plain = PosteriorEngine(registry, seed=0, sampler="torch")
+    plain = PosteriorEngine(registry, burn_in=SERVE_BURN_IN, seed=0,
+                            sampler="torch")
     plain_cold, plain_cold_s = timed_pass(plain, traffic)
     plain_warm, plain_warm_s = timed_pass(plain, traffic)
     same = {"cold": same_results(cold, plain_cold),
@@ -490,6 +559,260 @@ def phase_serve(card_name: str) -> dict:
                 raise AssertionError(f"bad marginal {m}")
     torch.cuda.synchronize()
     return {"engine": engine, "traffic": traffic, "record": rec}
+
+
+def path_entry(rec, kern: dict) -> dict:
+    """A main path's part of the fused kernel's entry: its launches, its
+    ``(b, L, launches)`` shapes and the kernel's numbers at its shapes."""
+    return dict(launches=rec["launches"],
+                shapes=sorted([b, L, n] for (b, L), n in
+                              rec["shapes"].items()),
+                **{k: kern[k] for k in ("ms", "call_ms", "plain_ms",
+                                        "words_ms", "bound_ms", "bound_by",
+                                        "max_abs_err")})
+
+
+def phase_mrf_gibbs(card_name: str) -> dict:
+    """The paper's MRF configs through ``run_mcmc``'s MRF branch
+    (``launch.run_mcmc.run_mrf``): at the published sizes, a cut depth
+    with ``sampler="cuda"`` and ``"torch"`` from the same keys must give
+    the same labels, bits and attempts; then aia-mrf-penguin's 1000
+    sweeps on the kernel, timed, with exactly 2 launches a sweep, and
+    the kernel at each config's shape held to the recorded result and
+    the plain version and timed with a cold L2."""
+    import torch
+
+    from repro_torch.configs.aia_paper import MCMC_CONFIGS, PENGUIN
+    from repro_torch.launch.run_mcmc import run_mrf
+
+    out = {}
+    for name, sweeps in MRF_IDENTITY_SWEEPS.items():
+        cfg = MCMC_CONFIGS[name]
+        with record_main_path(keep_all=False) as rec:   # a main path
+            a = run_mrf(cfg, sweeps=sweeps, chains=cfg.n_chains,
+                        sampler="cuda")
+        check_recorded(rec, f"{name} identity run")
+        b = run_mrf(cfg, sweeps=sweeps, chains=cfg.n_chains, sampler="torch")
+        same = (torch.equal(a["labels"], b["labels"])
+                and (a["bits"], a["attempts"]) == (b["bits"], b["attempts"]))
+        emit({"phase": "mrf_identity", "config": name, "card": card_name,
+              "shape": list(a["shape"]), "chains": cfg.n_chains,
+              "sweeps": sweeps, "launches": rec["launches"],
+              "cuda_equals_torch": same, "cuda_s": a["seconds"],
+              "torch_s": b["seconds"],
+              "bits_per_sample": a["bits"] / a["n_samples"]})
+        if not same:
+            raise AssertionError(f"{name}: sampler='cuda' != 'torch'")
+        if rec["launches"] != 2 * sweeps:
+            raise AssertionError(f"{name}: {rec['launches']} launches for "
+                                 f"{sweeps} sweeps")
+        del a, b
+        if name != PENGUIN.name:
+            kern = phase_main_path_kernel(rec)
+            out[name] = path_entry(rec, kern)
+        rec["calls"].clear()
+        torch.cuda.empty_cache()
+
+    cfg = PENGUIN
+    with record_main_path(keep_all=False) as rec:       # the main path
+        run = run_mrf(cfg, sweeps=cfg.n_sweeps, chains=cfg.n_chains,
+                      sampler="cuda")
+    check_recorded(rec, "mrf_gibbs")
+    if rec["launches"] != 2 * cfg.n_sweeps:
+        raise AssertionError(f"mrf_gibbs: {rec['launches']} launches for "
+                             f"{cfg.n_sweeps} sweeps")
+    labels = run["labels"]
+    if not bool(((labels >= 0) & (labels < 2)).all()):
+        raise AssertionError("mrf_gibbs: labels outside [0, 2)")
+    if not run["accuracy"] >= MIN_PENGUIN_ACCURACY:
+        raise AssertionError(f"mrf_gibbs: accuracy {run['accuracy']} < "
+                             f"{MIN_PENGUIN_ACCURACY}")
+    kern = phase_main_path_kernel(rec)
+    h, w = run["shape"]
+    emit({"phase": "mrf_gibbs", "config": cfg.name, "card": card_name,
+          "shape": [h, w], "labels": 2, "chains": cfg.n_chains,
+          "sweeps": cfg.n_sweeps, "seconds": run["seconds"],
+          "msample_s": run["n_samples"] / run["seconds"] / 1e6,
+          "bits_per_sample": run["bits"] / run["n_samples"],
+          "accuracy": run["accuracy"], "launches": rec["launches"],
+          "fused_shapes": sorted([b, L, n] for (b, L), n in
+                                 rec["shapes"].items()),
+          "fused_ms": kern["ms"], "fused_bound_ms": kern["bound_ms"],
+          "fused_bound_by": kern["bound_by"],
+          "host_word_calls": rec["word_calls"]})
+    out[cfg.name] = dict(path_entry(rec, kern),
+                         msample_s=run["n_samples"] / run["seconds"] / 1e6)
+    rec["calls"].clear()
+    del run, labels
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_mrf(card_name: str, sweeps: int = 5) -> dict:
+    """Where a warm aia-mrf-penguin sweep's time goes: torch.profiler
+    over ``sweeps`` sweeps of ``run_mrf`` (wall = its synchronized sweep
+    time) — device busy share, device launches per half-step, the fused
+    kernel's share of the device time and the busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.aia_paper import PENGUIN
+    from repro_torch.launch.run_mcmc import run_mrf
+
+    run_mrf(PENGUIN, sweeps=2, chains=PENGUIN.n_chains)      # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = run_mrf(PENGUIN, sweeps=sweeps, chains=PENGUIN.n_chains)
+    torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    fused = [e for e in kernels if "fused_gibbs_" in e.key]
+    fused_n = sum(e.count for e in fused)
+    if fused_n != 2 * sweeps:
+        raise AssertionError(f"profiled {fused_n} fused launches for "
+                             f"{sweeps} sweeps")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    out = {"phase": "profile_mrf", "card": card_name, "config": PENGUIN.name,
+           "sweeps": sweeps, "wall_s": run["seconds"],
+           "device_busy_s": busy_us / 1e6,
+           "device_busy_share": busy_us / 1e6 / run["seconds"],
+           "launches_per_halfstep": sum(e.count for e in kernels) / fused_n,
+           "fused_device_ms_per_launch": sum(
+               e.self_device_time_total for e in fused) / fused_n / 1e3,
+           "fused_share_of_busy": sum(
+               e.self_device_time_total for e in fused) / busy_us,
+           "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
+                           e.count] for e in top]}
+    emit(out)
+    return out
+
+
+def serve_identity(registry, traffic, label: str, card_name: str,
+                   depth: dict) -> dict:
+    """Cold and warm passes of ``traffic`` with ``sampler="cuda"`` (the
+    main path: counts zeroed just before, read just after; first call of
+    each shape kept), then the same passes with ``sampler="torch"``, which
+    must be equal bit for bit; finite marginals that sum to one."""
+    import torch
+
+    from repro_torch.serve.engine import PosteriorEngine
+
+    engine = PosteriorEngine(registry, **depth)          # cuda, sampler cuda
+    assert engine.device.type == "cuda" and engine.sampler == "cuda"
+    with record_main_path(keep_all=False) as rec:
+        cold, cold_s = timed_pass(engine, traffic)
+        warm, warm_s = timed_pass(engine, traffic)
+    check_recorded(rec, label)
+    plain = PosteriorEngine(registry, sampler="torch", **depth)
+    plain_cold, plain_cold_s = timed_pass(plain, traffic)
+    plain_warm, plain_warm_s = timed_pass(plain, traffic)
+    same = {"cold": same_results(cold, plain_cold),
+            "warm": same_results(warm, plain_warm)}
+    samples = sum(r.n_node_samples for r in warm)
+    emit({"phase": label, "card": card_name, "queries": len(traffic),
+          "launches": rec["launches"],
+          "launches_per_round": sorted(rec["per_round"].items()),
+          "host_word_calls": rec["word_calls"],
+          "cold_s": cold_s, "warm_s": warm_s,
+          "cold_qps": len(traffic) / cold_s, "warm_qps": len(traffic) / warm_s,
+          "cold_msample_s": sum(r.n_node_samples for r in cold) / cold_s / 1e6,
+          "warm_msample_s": samples / warm_s / 1e6,
+          "converged": sum(r.converged for r in warm),
+          "sampler_torch_cold_s": plain_cold_s,
+          "sampler_torch_warm_s": plain_warm_s, "cuda_equals_torch": same})
+    if not all(same.values()):
+        raise AssertionError(f"{label}: sampler='cuda' != 'torch': {same}")
+    for r in cold + warm:
+        for m in r.marginals.values():
+            if not (np.isfinite(m).all() and abs(m.sum() - 1.0) < 1e-9):
+                raise AssertionError(f"{label}: bad marginal {m}")
+    kern = phase_main_path_kernel(rec)
+    rec["calls"].clear()
+    torch.cuda.empty_cache()
+    return dict(path_entry(rec, kern), warm_qps=len(traffic) / warm_s,
+                warm_msample_s=samples / warm_s / 1e6)
+
+
+def phase_serve_mrf(card_name: str) -> dict:
+    """``mrf_penguin`` served at the published 500 x 333: scribble-mask
+    traffic (``synthetic_mrf_traffic``), cold and warm, bitwise against
+    ``sampler="torch"``."""
+    from repro_torch.serve import cli
+
+    registry = cli.build_registry(("mrf_penguin",),
+                                  mrf_shape=SERVE_MRF["shape"])
+    traffic = cli.synthetic_mrf_traffic(
+        registry["mrf_penguin"], "mrf_penguin", SERVE_MRF["queries"],
+        SERVE_MRF["patterns"], np.random.default_rng(0), SERVE_MRF["budget"])
+    return serve_identity(registry, traffic, "serve_mrf", card_name,
+                          SERVE_DEPTH)
+
+
+def phase_serve_ising(card_name: str) -> dict:
+    """``ising_torus`` at side 256 (65,536 spins, coloured by iterated
+    MIS): spin-clamp traffic cold and warm, bitwise against
+    ``sampler="torch"``; then ``run_fg_gibbs`` on a random sparse spin
+    glass with a degree-16 bucket, bitwise against ``"torch"``; and the
+    correctness anchor, the torus at β 0.6 started all up, within 0.03
+    of Onsager's magnetization."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.pgm import coloring, networks
+    from repro_torch.pgm import sparse_compile as sc
+    from repro_torch.serve import cli
+
+    registry = cli.build_registry(("ising_torus",),
+                                  ising_side=SERVE_ISING["side"])
+    assert registry["ising_torus"].n_vars > coloring._PARALLEL_THRESHOLD
+    traffic = cli.synthetic_ising_traffic(
+        registry["ising_torus"], "ising_torus", SERVE_ISING["queries"],
+        SERVE_ISING["patterns"], np.random.default_rng(1),
+        SERVE_ISING["budget"])
+    served = serve_identity(registry, traffic, "serve_ising", card_name,
+                            SERVE_DEPTH)
+
+    prog = sc.compile_factor_graph(
+        networks.random_sparse_ising(SPARSE_RUN["n"]))
+    widths = sorted({b.nbr.shape[1] for p in prog.plans for b in p.buckets})
+    if widths[-1] < 16:
+        raise AssertionError(f"no degree-16 bucket: widths {widths}")
+    kw = {k: SPARSE_RUN[k] for k in ("sweeps", "burn_in")}
+    with record_main_path(keep_all=False) as rec:        # a main path
+        xc, cc, stc = sc.run_fg_gibbs(
+            rng.PRNGKey(3), prog, n_chains=SPARSE_RUN["chains"],
+            n_sweeps=kw["sweeps"], burn_in=kw["burn_in"], sampler="cuda")
+    check_recorded(rec, "run_fg_gibbs")
+    xt, ct, stt = sc.run_fg_gibbs(
+        rng.PRNGKey(3), prog, n_chains=SPARSE_RUN["chains"],
+        n_sweeps=kw["sweeps"], burn_in=kw["burn_in"], sampler="torch")
+    same = (torch.equal(xc, xt) and torch.equal(cc, ct)
+            and (int(stc.bits_used), int(stc.attempts))
+            == (int(stt.bits_used), int(stt.attempts)))
+    rec["calls"].clear()
+
+    o = ONSAGER
+    model = networks.ising_torus(o["side"], beta=o["beta"])
+    tprog = sc.compile_factor_graph(model)
+    x0 = np.ones((o["chains"], model.n), np.int32)       # all up
+    x, _, _ = sc.run_fg_gibbs(rng.PRNGKey(2), tprog, n_chains=o["chains"],
+                              n_sweeps=o["sweeps"], burn_in=0, x0=x0)
+    m = float((2.0 * x.double() - 1.0).mean())
+    exact = float((1.0 - np.sinh(2.0 * o["beta"]) ** -4) ** 0.125)
+    emit({"phase": "ising_sparse", "card": card_name, "spins":
+          SPARSE_RUN["n"], "colors": prog.n_colors, "bucket_widths": widths,
+          "launches": rec["launches"], "cuda_equals_torch": same,
+          "onsager": {"magnetization": m, "exact": exact,
+                      "err": abs(m - exact), "tol": o["tol"]}})
+    if not same:
+        raise AssertionError("run_fg_gibbs: sampler='cuda' != 'torch'")
+    if not abs(m - exact) < o["tol"]:
+        raise AssertionError(f"Onsager anchor: magnetization {m}, exact "
+                             f"{exact}")
+    return served
 
 
 def cold_device_ms(fn, reps: int, device, calls: int = 1) -> float:
@@ -874,6 +1197,14 @@ def main() -> int:
     rec["calls"].clear()            # free the recorded tensors
     profile_group(serve["engine"], serve["traffic"])
     del serve
+    torch.cuda.empty_cache()
+    paths = {"bn_serve": path_entry(rec, main_path)}
+    mrf = phase_mrf_gibbs(card_name)
+    profile_mrf(card_name)
+    paths["mrf_gibbs"] = mrf["aia-mrf-penguin"]
+    paths["mrf_gibbs_art"] = mrf["aia-mrf-art"]
+    paths["serve_mrf"] = phase_serve_mrf(card_name)
+    paths["serve_ising"] = phase_serve_ising(card_name)
     ky = phase_ky_sampler(device)
     iu = phase_interp_lut(device)
     flash = phase_flash_attention(device)
@@ -882,13 +1213,15 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_sweep.cu",
         "replaces": "src/repro/kernels/fused_sweep.py:71",
-        "launches": rec["launches"],
-        "max_abs_err": max(check["max_abs_err"], main_path["max_abs_err"]),
+        "launches": sum(p["launches"] for p in paths.values()),
+        "max_abs_err": max(check["max_abs_err"],
+                           *(p["max_abs_err"] for p in paths.values())),
         "library_ms": None,
         **{k: main_path[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "call_ms", "words_ms",
             "shapes")},
         "launches_per_round": sorted(rec["per_round"].items()),
+        "paths": paths,
     }, kernel_entry("ky_sampler", "ky_sampler.cu",
                     "src/repro/kernels/ky_sampler.py:45", ky),
         kernel_entry("interp_lut", "interp_lut.cu",

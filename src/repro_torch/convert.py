@@ -1,12 +1,16 @@
 """Carry the reference package's models and compiled plans across.
 
-Both packages describe a Bayesian network and a compiled plan with plain
-numpy arrays, so moving one across is a matter of handing the arrays
-over: :func:`bayesnet_from_numpy` rebuilds a
+Both packages describe their models and compiled plans with plain numpy
+arrays, so moving one across is a matter of handing the arrays over:
+:func:`bayesnet_from_numpy` rebuilds a
 :class:`repro_torch.pgm.graph.BayesNet`, :func:`compiled_from_numpy` a
-:class:`repro_torch.pgm.compile.CompiledBN`.  Nothing here imports the
-reference package; callers pass its arrays (tests feed both packages
-the same model and the same plan this way).
+:class:`repro_torch.pgm.compile.CompiledBN`; :func:`mrf_from_numpy`,
+:func:`factor_graph_from_numpy` and :func:`ising_from_numpy` the grid and
+sparse models, and :func:`compiled_fg_from_numpy` a
+:class:`repro_torch.pgm.sparse_compile.CompiledFactorGraph` (so a test
+can sweep the reference's own plan and tell a compile difference from a
+sweep difference).  Nothing here imports the reference package; callers
+pass its arrays.
 """
 from __future__ import annotations
 
@@ -15,7 +19,9 @@ from collections.abc import Mapping, Sequence
 import numpy as np
 
 from repro_torch.pgm.compile import ColorPlan, CompiledBN
-from repro_torch.pgm.graph import BayesNet
+from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
+from repro_torch.pgm.sparse_compile import (
+    CompiledFactorGraph, DegreeBucket, SparsePlan)
 from repro_torch.serve.plan_cache import _PLAN_FIELDS
 
 
@@ -45,5 +51,56 @@ def compiled_from_numpy(bn: BayesNet, log_cpt: np.ndarray,
         plans=tuple(
             ColorPlan(**{f: np.asarray(p[f], np.int32) for f in _PLAN_FIELDS})
             for p in plans),
+        max_card=int(max_card), k=int(k),
+        observed=tuple(int(v) for v in observed))
+
+
+def mrf_from_numpy(unary: np.ndarray, pairwise: np.ndarray) -> MRFGrid:
+    """A port MRFGrid from its (H, W, L) unary and (L, L) pairwise
+    energies."""
+    return MRFGrid(np.array(unary, np.float32, copy=True),
+                   np.array(pairwise, np.float32, copy=True))
+
+
+def factor_graph_from_numpy(card: np.ndarray, unary: np.ndarray,
+                            edges: np.ndarray,
+                            pair: np.ndarray) -> FactorGraph:
+    """A port FactorGraph from cardinalities, (n, L) unaries, (E, 2)
+    edges and (E, L, L) pair tables."""
+    return FactorGraph(card=np.array(card, copy=True),
+                       unary=np.array(unary, copy=True),
+                       edges=np.array(edges, copy=True),
+                       pair=np.array(pair, copy=True))
+
+
+def ising_from_numpy(n: int, edges: np.ndarray, j: np.ndarray,
+                     h: np.ndarray) -> IsingModel:
+    """A port IsingModel from its spin count, (E, 2) edges, couplings
+    and fields."""
+    return IsingModel(int(n), np.array(edges, copy=True),
+                      np.array(j, copy=True), np.array(h, copy=True))
+
+
+def compiled_fg_from_numpy(fg: FactorGraph, unary: np.ndarray,
+                           tables: np.ndarray,
+                           plans: Sequence[Sequence[Mapping[str, np.ndarray]]],
+                           max_card: int, k: int,
+                           observed: Sequence[int] = ()) -> CompiledFactorGraph:
+    """A port CompiledFactorGraph from a compiled sparse plan's arrays:
+    the (n, L) unaries, the (T + 1, L, L) table bank, and per color a
+    list of degree buckets, each a mapping with ``nodes``, ``nbr``,
+    ``tab`` and ``valid``."""
+    out = []
+    for buckets in plans:
+        bks = tuple(DegreeBucket(
+            nodes=np.asarray(b["nodes"], np.int32),
+            nbr=np.asarray(b["nbr"], np.int32),
+            tab=np.asarray(b["tab"], np.int32),
+            valid=np.asarray(b["valid"], bool)) for b in buckets)
+        out.append(SparsePlan(buckets=bks, nodes=np.concatenate(
+            [b.nodes for b in bks])))
+    return CompiledFactorGraph(
+        fg=fg, unary=np.asarray(unary, np.float32),
+        tables=np.asarray(tables, np.float32), plans=tuple(out),
         max_card=int(max_card), k=int(k),
         observed=tuple(int(v) for v in observed))

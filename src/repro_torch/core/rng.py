@@ -126,6 +126,25 @@ def uniform(key, shape: tuple, device=None) -> torch.Tensor:
     return torch.clamp_min(f.view(torch.float32) - 1.0, 0.0)
 
 
+def randint(key, shape: tuple, minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)``: two
+    32-bit draws per value (``hi`` under the first half of
+    ``split(key)``, ``lo`` under the second) reduced modulo the span in
+    uint32 arithmetic with wraparound, ``off = ((hi % span) * mult +
+    lo % span) % span`` with ``mult = (2**16 % span)**2 % span`` (the
+    square wraps too).  A span of ``maxval <= minval`` counts as 1
+    (every value is ``minval``).  Returns int32 on ``device``."""
+    k1, k2 = split(key)
+    hi = bits(k1, shape, device)
+    lo = bits(k2, shape, device)
+    span = (int(maxval) - int(minval)) & _MASK if maxval > minval else 1
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    # int64 products wrap mod 2**64, which keeps their low 32 bits exact
+    off = ((((hi % span) * mult) & _MASK) + lo % span) & _MASK
+    return (int(minval) + off % span).to(torch.int32)
+
+
 def get_bit(words: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Extract bit ``idx`` (0-based) from the per-lane word stream.
 

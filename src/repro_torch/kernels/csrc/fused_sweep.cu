@@ -112,7 +112,9 @@ __device__ __forceinline__ int levels(int total) {
 
 template <int G>
 __global__ void fused_gibbs_group_kernel(const Params p) {
-  const int lane = (int)((blockIdx.x * blockDim.x + threadIdx.x) / G);
+  // 64-bit: b * G threads pass 2^31 from b = 2^26 lanes at G = 32
+  const long long lane =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (lane >= p.b) return;  // the whole group leaves together
   const int wl = threadIdx.x & 31;          // position in the warp
   const int l = wl & (G - 1);               // this thread's label
@@ -199,10 +201,12 @@ __global__ void fused_gibbs_group_kernel(const Params p) {
 }
 
 template <int G>
-void launch_group(const Params& p, int block, cudaStream_t stream) {
+int launch_group(const Params& p, int block, cudaStream_t stream) {
   const long long threads = (long long)p.b * G;
-  const int grid = (int)((threads + block - 1) / block);
-  fused_gibbs_group_kernel<G><<<grid, block, 0, stream>>>(p);
+  const long long grid = (threads + block - 1) / block;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  fused_gibbs_group_kernel<G><<<(unsigned)grid, block, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 int next_pow2(int x) {
@@ -214,7 +218,9 @@ int next_pow2(int x) {
 }  // namespace
 
 // block: threads per block, a multiple of 32.  k0, k1: the colour's key
-// words; W: words of bit budget per lane.
+// words; W: words of bit budget per lane.  The grid is b * next_pow2(L)
+// threads (at least 2 a lane), sized and indexed in 64 bits
+// (kernels/fused_sweep.py::launch_geometry is its Python twin).
 extern "C" int fused_gibbs_sample_launch(
     const void* logw, const void* card, uint32_t k0, uint32_t k1,
     const void* table, void* sample, void* bits, void* att, void* ok, int b,
@@ -231,11 +237,10 @@ extern "C" int fused_gibbs_sample_launch(
                  n_seg, lo, scale, mask_value};
   auto s = static_cast<cudaStream_t>(stream);
   switch (g) {
-    case 2: launch_group<2>(p, block, s); break;
-    case 4: launch_group<4>(p, block, s); break;
-    case 8: launch_group<8>(p, block, s); break;
-    case 16: launch_group<16>(p, block, s); break;
-    default: launch_group<32>(p, block, s); break;
+    case 2: return launch_group<2>(p, block, s);
+    case 4: return launch_group<4>(p, block, s);
+    case 8: return launch_group<8>(p, block, s);
+    case 16: return launch_group<16>(p, block, s);
+    default: return launch_group<32>(p, block, s);
   }
-  return (int)cudaGetLastError();
 }

@@ -51,6 +51,31 @@ MAX_FUSED_K = 23
 MAX_FUSED_L = 32
 
 
+# the kernel takes the lane count as a C int
+MAX_FUSED_LANES = (1 << 31) - 1
+
+
+def launch_geometry(b: int, L: int, block_b: int) -> tuple[int, int]:
+    """``(G, grid)`` of one launch: ``G = next_pow2(L)`` threads (at
+    least 2) walk each of the ``b`` lanes, ``grid`` blocks of ``block_b``
+    threads cover ``b * G`` threads.  The kernel indexes threads in 64
+    bits, so ``b * G`` may pass 2**31 (from 2**26 lanes at L > 16); what
+    it refuses — more than ``MAX_FUSED_LANES`` lanes, L outside [1, 32],
+    a block that is not 32 to 1024 threads in whole warps — this refuses
+    first, with no card needed."""
+    if not 1 <= L <= MAX_FUSED_L:
+        raise ValueError(f"fused kernel takes 1 <= L <= {MAX_FUSED_L} labels "
+                         f"(got L={L})")
+    if block_b < 32 or block_b > 1024 or block_b % 32:
+        raise ValueError(f"fused kernel takes a block of 32 to 1024 threads, "
+                         f"a multiple of 32 (got block_b={block_b})")
+    if not 0 <= b <= MAX_FUSED_LANES:
+        raise ValueError(f"fused kernel takes at most {MAX_FUSED_LANES} "
+                         f"lanes (got b={b})")
+    g = max(2, 1 << (L - 1).bit_length())
+    return g, -(-b * g // block_b)    # under 2**31 blocks: b < 2**31, G <= 32
+
+
 def _check_k(k: int) -> None:
     if k > MAX_FUSED_K:
         raise ValueError(
@@ -59,6 +84,8 @@ def _check_k(k: int) -> None:
 
 
 def _lane_card(card, b: int, device) -> torch.Tensor:
+    if isinstance(card, int):   # a fill on the device, no host copy
+        return torch.full((b,), card, dtype=torch.int32, device=device)
     card = torch.as_tensor(card, dtype=torch.int32, device=device)
     return torch.broadcast_to(card, (b,)).contiguous()
 
@@ -90,12 +117,7 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, key,
     """One launch of the CUDA kernel on PyTorch's current stream; the
     kernel makes its bit words from ``key``."""
     b, L = logw.shape
-    if not 1 <= L <= MAX_FUSED_L:
-        raise ValueError(f"fused kernel takes 1 <= L <= {MAX_FUSED_L} labels "
-                         f"(got L={L})")
-    if block_b < 32 or block_b > 1024 or block_b % 32:
-        raise ValueError(f"fused kernel takes a block of 32 to 1024 threads, "
-                         f"a multiple of 32 (got block_b={block_b})")
+    launch_geometry(b, L, block_b)
     dev = logw.device
     tab = table.table.to(device=dev, dtype=torch.float32).contiguous()
     _common.check_input(logw, torch.float32, (b, L), dev, "fused kernel")

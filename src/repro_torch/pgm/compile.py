@@ -352,11 +352,9 @@ def init_states(
 
     ``evidence_values`` aligns with ``prog.observed``: either (O,) shared
     across chains or (B, O) per-lane.  The states live on ``device``
-    (default: the evidence tensor's device, else the CPU).
+    (default ``cuda``, as every entry point of the port).
     """
-    if device is None:
-        device = (evidence_values.device
-                  if isinstance(evidence_values, torch.Tensor) else "cpu")
+    device = torch.device(device or "cuda")
     n = prog.bn.n_nodes
     card = torch.as_tensor(prog.bn.card, dtype=torch.int32, device=device)
     u = rng_lib.uniform(key, (n_chains, n), device=device)

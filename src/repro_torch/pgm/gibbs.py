@@ -1,0 +1,202 @@
+"""Checkerboard Gibbs for MRF grids.
+
+Distribution generation follows the AIA pipeline end to end: per-site
+energies → max-subtracted ``exp`` through the IU LUT → fixed-point
+integer weights → non-normalized Knuth-Yao sample.  No per-site
+normalization sum is ever computed.
+
+All sites of all chains are drawn in one call per half-step and one
+checkerboard parity is kept — the reference's scheme, which fixes the
+bit words each site reads: word ``j`` of site ``i`` (flat over
+``(B, H, W)``) is threefry of counter ``i * 31 + j``.  With
+``sampler="cuda"`` the draw is one launch of the fused kernel
+(``kernels/csrc/fused_sweep.cu``) over all ``B * H * W`` lanes; with
+``sampler="torch"`` it is the plain :func:`site_weights` →
+:func:`repro_torch.core.ky.ky_sample` path.  Both return the JAX
+package's labels, bits and attempts bit for bit under the same key.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import rng as rng_lib
+from repro_torch.core.fixedpoint import DEFAULT_K
+from repro_torch.core.interp import InterpTable
+from repro_torch.core.ky import ky_sample
+from repro_torch.kernels.fused_sweep import fused_gibbs_sample
+from repro_torch.pgm.compile import _check_sampler, _exp_on
+from repro_torch.pgm.graph import MRFGrid
+
+
+class SweepStats(NamedTuple):
+    bits_used: torch.Tensor   # random bits consumed (kept, unclamped sites)
+    attempts: torch.Tensor
+
+
+def neighbor_pair_energy(labels: torch.Tensor,
+                         pairwise: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, L) energy of each candidate label against the 4
+    neighbours; edge sites see only their in-grid neighbours (free
+    boundary).  The four rolled, masked contributions are added to a zero
+    tensor left to right — up, down, left, right — the reference's float
+    association."""
+    L = pairwise.shape[0]
+    pwt = pairwise.T                     # pwt[m, l] = pw[l, m]
+    e = torch.zeros(labels.shape + (L,), dtype=torch.float32,
+                    device=labels.device)
+    lab = labels.to(torch.int64)
+
+    def nbr(shift: int, axis: int) -> torch.Tensor:
+        rolled = torch.roll(lab, shift, dims=axis)
+        contrib = pwt[rolled]            # (B, H, W, L): pw[l, rolled]
+        idx = torch.arange(labels.shape[axis], device=labels.device)
+        valid = idx > 0 if shift == 1 else idx < labels.shape[axis] - 1
+        shape = [1] * labels.ndim
+        shape[axis] = labels.shape[axis]
+        return contrib * valid.reshape(shape)[..., None]
+
+    return e + nbr(1, -2) + nbr(-1, -2) + nbr(1, -1) + nbr(-1, -1)
+
+
+def _weights_from_energies(energies: torch.Tensor, *, k: int = DEFAULT_K,
+                           table: InterpTable | None = None,
+                           use_iu: bool = True) -> torch.Tensor:
+    """(..., L) energies → int32 non-normalized KY weights."""
+    z = energies - torch.amin(energies, dim=-1, keepdim=True)  # best → 0
+    if use_iu:
+        y = (table or _exp_on(str(energies.device)))(-z)
+    else:
+        y = torch.exp(-z)
+    return torch.floor(y * (2.0 ** k - 1.0)).to(torch.int32)
+
+
+def site_weights(labels: torch.Tensor, unary: torch.Tensor,
+                 pairwise: torch.Tensor, *, k: int = DEFAULT_K,
+                 table: InterpTable | None = None,
+                 use_iu: bool = True) -> torch.Tensor:
+    """(B, H, W, L) int32 non-normalized KY weights for every site."""
+    energies = unary[None] + neighbor_pair_energy(labels, pairwise)
+    return _weights_from_energies(energies, k=k, table=table, use_iu=use_iu)
+
+
+def checkerboard_halfstep(
+    key,
+    labels: torch.Tensor,        # (B, H, W) int32
+    unary,                       # (H, W, L)
+    pairwise,                    # (L, L)
+    parity: int,
+    *,
+    clamp=None,                  # (H, W) or (B, H, W) bool, True = frozen
+    k: int = DEFAULT_K,
+    use_iu: bool = True,
+    sampler: str = "cuda",
+    beta=None,                   # inverse temperature, (B,) or scalar
+) -> tuple[torch.Tensor, SweepStats]:
+    """Resample all sites of one checkerboard color, all chains at once.
+
+    ``clamp`` marks evidence (observed-pixel) sites: they are skipped by
+    the update and by the bit accounting, but their fixed labels still
+    contribute pairwise energy to their neighbours.  ``beta`` scales the
+    site energies before the sampler branch (the MAP mode's annealing);
+    None is ordinary Gibbs.  ``sampler="cuda"`` hands the negated
+    energies to the fused kernel (negation is exact, so the kernel's
+    ``(-e) - max(-e)`` is the plain path's ``-(e - min e)``).
+    """
+    dev = labels.device
+    _check_sampler(sampler, dev)
+    b, h, w = labels.shape
+    unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
+    pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+    l = unary.shape[-1]
+    if beta is None:
+        energies = None
+    else:
+        energies = unary[None] + neighbor_pair_energy(labels, pairwise)
+        bb = torch.as_tensor(beta, dtype=energies.dtype, device=dev)
+        energies = energies * (bb[:, None, None, None] if bb.ndim == 1
+                               else bb)
+    if sampler == "cuda":
+        if energies is None:
+            energies = unary[None] + neighbor_pair_energy(labels, pairwise)
+        res = fused_gibbs_sample(
+            key, (-energies).reshape((-1, l)), l, k=k, use_iu=use_iu,
+            table=_exp_on(str(dev)))
+    else:
+        if energies is None:
+            wts = site_weights(labels, unary, pairwise, k=k, use_iu=use_iu)
+        else:
+            wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
+        res = ky_sample(key, wts.reshape((-1, l)))
+    new = res.sample.reshape((b, h, w)).to(labels.dtype)
+    ar_h = torch.arange(h, device=dev)
+    ar_w = torch.arange(w, device=dev)
+    mask = (((ar_h[:, None] + ar_w[None, :]) % 2) == int(parity))[None]
+    if clamp is not None:
+        clamp = torch.as_tensor(clamp, dtype=torch.bool, device=dev)
+        mask = mask & ~(clamp if clamp.ndim == 3 else clamp[None])
+    labels = torch.where(mask, new, labels)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = SweepStats(
+        bits_used=torch.where(mask, res.bits_used.reshape(labels.shape),
+                              zero).sum(),
+        attempts=torch.where(mask, res.attempts.reshape(labels.shape),
+                             zero).sum())
+    return labels, stats
+
+
+def mrf_gibbs(
+    key,
+    labels0: torch.Tensor,
+    unary,
+    pairwise,
+    *,
+    n_sweeps: int,
+    clamp=None,
+    k: int = DEFAULT_K,
+    use_iu: bool = True,
+    sampler: str = "cuda",
+) -> tuple[torch.Tensor, SweepStats]:
+    """``n_sweeps`` full checkerboard sweeps (2 half-steps each) on the
+    device of ``labels0``; stats are int64 totals on that device.
+
+    ``clamp`` ((H, W) or (B, H, W) bool) freezes evidence sites for the
+    whole run — pin their labels in ``labels0`` first (see
+    :func:`clamp_labels`).
+    """
+    dev = labels0.device
+    _check_sampler(sampler, dev)
+    unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
+    pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+    labels = labels0
+    bits = att = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(n_sweeps):
+        key, k0, k1 = rng_lib.split(key, 3)
+        for parity, sub in ((0, k0), (1, k1)):
+            labels, s = checkerboard_halfstep(
+                sub, labels, unary, pairwise, parity, clamp=clamp, k=k,
+                use_iu=use_iu, sampler=sampler)
+            bits, att = bits + s.bits_used, att + s.attempts
+    return labels, SweepStats(bits_used=bits, attempts=att)
+
+
+def clamp_labels(labels: torch.Tensor, clamp, values) -> torch.Tensor:
+    """Pin clamped sites of a (B, H, W) label field to their observed
+    values ((H, W) or (B, H, W)); the companion of ``mrf_gibbs(clamp=)``."""
+    clamp = torch.as_tensor(clamp, dtype=torch.bool, device=labels.device)
+    values = torch.as_tensor(values, dtype=labels.dtype, device=labels.device)
+    if clamp.ndim == 2:
+        clamp = clamp[None]
+    if values.ndim == 2:
+        values = values[None]
+    return torch.where(clamp, values, labels)
+
+
+def init_labels(key, mrf: MRFGrid, n_chains: int,
+                device=None) -> torch.Tensor:
+    """Uniform random (B, H, W) int32 labels on ``device`` (default
+    ``cuda``): ``jax.random.randint`` bit for bit."""
+    h, w = mrf.shape
+    return rng_lib.randint(key, (n_chains, h, w), 0, mrf.n_labels,
+                           device=torch.device(device or "cuda"))

@@ -7,9 +7,13 @@ along the chain (batch) axis of one sweep program, each query owning
 ``chains_per_query`` lanes initialized with *its* evidence values.  One
 round then advances every query in the group.
 
-The family-specific surface lives in :mod:`repro_torch.serve.families`
-(Bayesian networks in this slice: evidence *nodes*, pattern = observed
-node ids); the engine only ever sees flat variable ids.
+All three PGM families ride the same lifecycle: Bayesian networks clamp
+evidence *nodes* (pattern = observed node ids), MRF grids clamp evidence
+*pixels* (pattern = flat clamped-site indices of a scribble mask), and
+sparse Ising / factor-graph models clamp *spins* (pattern = clamped node
+ids).  The per-family surface lives in
+:mod:`repro_torch.serve.families`; the engine only ever sees flat
+variable ids.
 
 Sampling proceeds in rounds of ``sweeps_per_round`` sweeps.  After the
 burn-in rounds, each round accumulates thinned one-hot counts per lane
@@ -659,7 +663,7 @@ class PosteriorEngine:
         seed: int = 0,
     ):
         # "networks" kept for API continuity; values are models a family
-        # adapter exists for (BayesNet in this slice of the port)
+        # adapter exists for (BayesNet, MRFGrid, IsingModel, FactorGraph)
         self.networks: dict[str, object] = dict(networks or {})
         self.chains_per_query = int(chains_per_query)
         self.sweeps_per_round = int(sweeps_per_round)
@@ -748,7 +752,8 @@ class PosteriorEngine:
 
     # -- registry ----------------------------------------------------------
     def register(self, name: str, model) -> None:
-        """Register (or replace) a model (BayesNet or MRFGrid).
+        """Register (or replace) a model (BayesNet, MRFGrid, IsingModel
+        or FactorGraph).
         Replacing drops the name's cached plans — they were compiled
         from the old model's parameters."""
         if self.networks.get(name) is not model:

@@ -1,12 +1,18 @@
-"""Model-family adapters: the engine's family-specific surface.
+"""Model-family adapters: one serving engine, three PGM families.
 
 The serving engine sees a *flat variable space*: a state tensor with a
 leading chain-lane axis, per-round ``counts (B, M, L)`` / ``xmean (B, M)``
-over M flat variables, and an evidence pattern that is a sorted tuple of
-flat variable ids with per-lane evidence values packed ``(B, O)`` in
-pattern order.  This slice of the port serves the Bayesian-network
-family; :func:`family_of` raises ``NotImplementedError`` for MRF grids
-and sparse Ising / factor-graph models, which come in later slices.
+over M flat variables (BN: nodes; MRF: ``H*W`` sites; Ising/factor
+graph: graph nodes), and an evidence pattern that is a sorted tuple of
+flat variable ids (BN: observed nodes; MRF: clamped ``r * W + c`` pixel
+indices; Ising: clamped spin ids) with per-lane evidence values packed
+``(B, O)`` in pattern order.  ``family_of(model)`` dispatches on the
+registered model's type, or on a request's evidence payload.
+
+Every round runner runs on one torch device (default ``cuda``) and
+launches the fused CUDA kernel once per color update with
+``sampler="cuda"``, or runs the plain PyTorch path with
+``sampler="torch"``; both return the JAX package's results bit for bit.
 """
 from __future__ import annotations
 
@@ -17,12 +23,57 @@ from repro_torch.core import rng as rng_lib
 from repro_torch.pgm.compile import (
     BNSweepStats, _check_sampler, _color_update, compile_bayesnet,
     init_states, plans_on)
+from repro_torch.pgm.gibbs import SweepStats, checkerboard_halfstep
 from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
+from repro_torch.pgm.mrf_compile import (
+    CompiledMRF, compile_mrf, init_mrf_states, mask_of)
+from repro_torch.pgm.sparse_compile import (
+    CompiledFactorGraph, _Operands, _sparse_color_update,
+    compile_factor_graph, init_fg_states)
 from repro_torch.serve.plan_cache import (
-    load_compiled, persisted_plan_path, save_compiled)
+    graph_fingerprint, load_compiled, persisted_plan_path, save_compiled)
 
 
-# -- round runner ----------------------------------------------------------
+# -- round runners --------------------------------------------------------
+def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
+                  sweep, flat_of=lambda x: x):
+    """The round loop every family shares.  ``sweep(key, x, beta) ->
+    (key, x, stats)`` advances one sweep, splitting the carried key as its
+    family's reference does; ``flat_of(x)`` is the (B, M) flat view the
+    counts and moments read."""
+    labels = torch.arange(L, device=device)
+
+    def round_fn(key, x: torch.Tensor, offset, beta=None):
+        offset = torch.as_tensor(offset, device=device)
+        if beta is not None:
+            beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
+        shape = flat_of(x).shape
+        counts = torch.zeros(shape + (L,), dtype=torch.int32, device=device)
+        xsum = torch.zeros(shape, dtype=torch.float32, device=device)
+        xsqsum = torch.zeros_like(xsum)
+        per_sweep = []
+        for i in range(sweeps_per_round):
+            key, x, st = sweep(key, x, beta)
+            flat = flat_of(x)
+            onehot = (flat[..., None] == labels).to(torch.int32)
+            kept = ((offset + i) % thin) == 0
+            if kept.ndim:  # per-lane offsets: broadcast over (var, label)
+                kept = kept[:, None, None]
+            counts = counts + torch.where(kept, onehot, 0)
+            xf = flat.to(torch.float32)
+            xsum = xsum + xf
+            xsqsum = xsqsum + xf * xf
+            per_sweep.append(st)
+        stats = type(per_sweep[0])(*(torch.stack(f)
+                                     for f in zip(*per_sweep)))
+        # the reference's jitted ``xsum / sweeps_per_round`` is compiled to
+        # a multiply by the float32 reciprocal; do the same on any device
+        inv = 1.0 / sweeps_per_round
+        return x, counts, xsum * inv, xsqsum * inv, stats
+
+    return round_fn
+
+
 def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
                       use_iu: bool, sampler: str = "cuda", device=None):
     """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
@@ -48,41 +99,92 @@ def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
     log_cpt = torch.as_tensor(prog.log_cpt, device=device)
     plans = plans_on(prog.plans, device)
     L = prog.max_card
-    labels = torch.arange(L, device=device)
 
-    def round_fn(key, x: torch.Tensor, offset, beta=None):
-        offset = torch.as_tensor(offset, device=device)
-        if beta is not None:
-            beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
-        counts = torch.zeros(x.shape + (L,), dtype=torch.int32, device=device)
-        xsum = torch.zeros(x.shape, dtype=torch.float32, device=device)
-        xsqsum = torch.zeros_like(xsum)
-        bits_l, att_l = [], []
-        for i in range(sweeps_per_round):
-            key, sub = rng_lib.split(key)
-            bits = att = torch.zeros((), dtype=torch.int64, device=device)
-            for plan in plans:
-                sub, s2 = rng_lib.split(sub)
-                x, st = _color_update(
-                    s2, x, plan, log_cpt, L, prog.k, use_iu, sampler, beta)
-                bits, att = bits + st.bits_used, att + st.attempts
-            onehot = (x[..., None] == labels).to(torch.int32)
-            kept = ((offset + i) % thin) == 0
-            if kept.ndim:  # per-lane offsets: broadcast over (node, label)
-                kept = kept[:, None, None]
-            counts = counts + torch.where(kept, onehot, 0)
-            xf = x.to(torch.float32)
-            xsum = xsum + xf
-            xsqsum = xsqsum + xf * xf
-            bits_l.append(bits)
-            att_l.append(att)
-        stats = BNSweepStats(torch.stack(bits_l), torch.stack(att_l))
-        # the reference's jitted ``xsum / sweeps_per_round`` is compiled to
-        # a multiply by the float32 reciprocal; do the same on any device
-        inv = 1.0 / sweeps_per_round
-        return x, counts, xsum * inv, xsqsum * inv, stats
+    def sweep(key, x, beta):
+        key, sub = rng_lib.split(key)
+        bits = att = torch.zeros((), dtype=torch.int64, device=device)
+        for plan in plans:
+            sub, s2 = rng_lib.split(sub)
+            x, st = _color_update(
+                s2, x, plan, log_cpt, L, prog.k, use_iu, sampler, beta)
+            bits, att = bits + st.bits_used, att + st.attempts
+        return key, x, BNSweepStats(bits, att)
 
-    return round_fn
+    return _round_runner(device, L, sweeps_per_round, thin, sweep)
+
+
+def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
+                          thin: int, use_iu: bool, sampler: str = "cuda",
+                          device=None):
+    """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
+    round (MRF family) — the contract of :func:`make_round_runner` over
+    the flat site space.  ``x`` is the (B, H, W) label field; the clamp
+    mask of ``prog`` is placed on the device once.  ``counts`` come back
+    flattened (B, H*W, L) and ``xmean`` (B, H*W), so the engine's slot
+    bookkeeping is family-blind.  Each half-step is one fused launch over
+    all B·H·W sites with ``sampler="cuda"``."""
+    device = torch.device(device or "cuda")
+    _check_sampler(sampler, device)
+    unary = torch.as_tensor(prog.mrf.unary, dtype=torch.float32,
+                            device=device)
+    pairwise = torch.as_tensor(prog.mrf.pairwise, dtype=torch.float32,
+                               device=device)
+    clamp = (torch.as_tensor(mask_of(prog), device=device)
+             if prog.observed else None)
+    h, w = prog.shape
+
+    def sweep(key, x, beta):
+        key, k0, k1 = rng_lib.split(key, 3)
+        x, s0 = checkerboard_halfstep(
+            k0, x, unary, pairwise, 0, clamp=clamp, k=prog.k, use_iu=use_iu,
+            sampler=sampler, beta=beta)
+        x, s1 = checkerboard_halfstep(
+            k1, x, unary, pairwise, 1, clamp=clamp, k=prog.k, use_iu=use_iu,
+            sampler=sampler, beta=beta)
+        return key, x, SweepStats(s0.bits_used + s1.bits_used,
+                                  s0.attempts + s1.attempts)
+
+    return _round_runner(device, prog.n_labels, sweeps_per_round, thin,
+                         sweep, flat_of=lambda x: x.reshape(x.shape[0],
+                                                            h * w))
+
+
+def make_fg_round_runner(prog: CompiledFactorGraph, *,
+                         sweeps_per_round: int, thin: int, use_iu: bool,
+                         sampler: str = "cuda", device=None):
+    """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
+    round (sparse factor-graph / Ising family) — the contract of
+    :func:`make_round_runner` over the graph's flat node space.  ``x`` is
+    the (B, n) node-state tensor; the plans' index arrays and the
+    unary/table banks are placed on the device once per runner."""
+    device = torch.device(device or "cuda")
+    _check_sampler(sampler, device)
+    ops = _Operands(prog, device)
+    L = prog.max_card
+
+    def sweep(key, x, beta):
+        key, sub = rng_lib.split(key)
+        bits = att = torch.zeros((), dtype=torch.int64, device=device)
+        for plan in ops.plans:
+            sub, s2 = rng_lib.split(sub)
+            x, st = _sparse_color_update(
+                s2, x, plan, ops.unary, ops.tables_flat, ops.card, L,
+                prog.k, use_iu, sampler, beta)
+            bits, att = bits + st.bits_used, att + st.attempts
+        return key, x, BNSweepStats(bits, att)
+
+    return _round_runner(device, L, sweeps_per_round, thin, sweep)
+
+
+def _repin(x: torch.Tensor, observed, evidence_values) -> torch.Tensor:
+    """A copy of (B, n) states with the ``observed`` columns set to the
+    evidence values ((O,) shared or (B, O) per lane)."""
+    ev = torch.as_tensor(evidence_values, dtype=torch.int32, device=x.device)
+    if ev.ndim == 1:
+        ev = ev[None].expand(x.shape[0], len(observed))
+    x = x.clone()
+    x[:, torch.as_tensor(observed, device=x.device)] = ev
+    return x
 
 
 # -- family adapter --------------------------------------------------------
@@ -122,13 +224,7 @@ class BayesNetFamily:
         this slice's observations."""
         if not prog.observed:
             return x
-        ev = torch.as_tensor(evidence_values, dtype=torch.int32,
-                             device=x.device)
-        if ev.ndim == 1:
-            ev = ev[None].expand(x.shape[0], len(prog.observed))
-        x = x.clone()
-        x[:, torch.as_tensor(prog.observed, device=x.device)] = ev
-        return x
+        return _repin(x, prog.observed, evidence_values)
 
     def assignment_energy(self, model, assignment) -> float:
         """-log P(x) (nats) of a full assignment over every node — the
@@ -173,23 +269,280 @@ class BayesNetFamily:
         save_compiled(path, prog)
 
 
+class MrfFamily:
+    """Engine adapter for :class:`repro_torch.pgm.graph.MRFGrid` models.
+
+    Flat variable ids are ``r * W + c``; evidence is a pixel mask plus
+    observed labels (:class:`repro_torch.serve.query.MrfQuery`).
+    """
+
+    kind = "mrf"
+
+    def normalize(self, model: MRFGrid, query):
+        h, w = model.shape
+        ev: dict[int, int] = {}
+        if query.mask is not None:
+            mask = np.asarray(query.mask, bool)
+            if mask.shape != (h, w):
+                raise ValueError(
+                    f"mask shape {mask.shape} != grid shape {(h, w)}")
+            if mask.any():
+                if query.values is None:
+                    raise ValueError("mask given without values")
+                values = np.asarray(query.values)
+                if values.shape != (h, w):
+                    raise ValueError(
+                        f"values shape {values.shape} != grid shape {(h, w)}")
+                rs, cs = np.nonzero(mask)
+                for r, c in zip(rs.tolist(), cs.tolist()):
+                    ev[r * w + c] = int(values[r, c])
+        for site in getattr(query, "mask_sites", ()) or ():
+            r, c, val = (int(s) for s in site)
+            # per-coordinate check: a flat r*w+c range test would let an
+            # out-of-range column alias onto a different pixel's row
+            if not (0 <= r < h and 0 <= c < w):
+                raise ValueError(f"clamped site ({r}, {c}) outside the "
+                                 f"{(h, w)} lattice")
+            if ev.get(r * w + c, val) != val:
+                raise ValueError(f"conflicting evidence at site ({r}, {c})")
+            ev[r * w + c] = val
+        for v, val in ev.items():
+            if not 0 <= val < model.n_labels:
+                raise ValueError(
+                    f"observed label {val} at site {divmod(v, w)} outside "
+                    f"[0, {model.n_labels})")
+        if len(ev) == h * w:
+            raise ValueError("all sites clamped — nothing to infer")
+        if query.query_sites:
+            qvars = []
+            for r, c in query.query_sites:
+                r, c = int(r), int(c)
+                if not (0 <= r < h and 0 <= c < w):
+                    raise KeyError(f"query site ({r}, {c}) outside the "
+                                   f"{(h, w)} lattice")
+                qvars.append(r * w + c)
+            clash = [divmod(v, w) for v in qvars if v in ev]
+            if clash:
+                raise ValueError(f"query sites {clash} are observed")
+            qvars = tuple(qvars)
+        else:
+            qvars = tuple(v for v in range(h * w) if v not in ev)
+        return ev, qvars, tuple(sorted(ev))
+
+    def compile(self, model, pattern, *, k, quantize_cpt_bits):
+        # quantize_cpt_bits is a CPT-bank knob; grids carry energies, not
+        # CPTs, so it does not apply here (it still keys the plan cache)
+        return compile_mrf(model, k=k, observed=pattern)
+
+    def make_runner(self, prog, *, sweeps_per_round, thin, use_iu,
+                    sampler="cuda", device=None):
+        return make_mrf_round_runner(
+            prog, sweeps_per_round=sweeps_per_round, thin=thin,
+            use_iu=use_iu, sampler=sampler, device=device)
+
+    def init_states(self, key, prog, n_lanes, evidence_values, device=None):
+        return init_mrf_states(key, prog, n_lanes, evidence_values,
+                               device=device)
+
+    def clamp_states(self, prog, x, evidence_values):
+        """Re-pin the clamped pixels of existing (B, H, W) label fields
+        (temporal warm start)."""
+        if not prog.observed:
+            return x
+        b = x.shape[0]
+        flat = _repin(x.reshape(b, prog.n_sites), prog.observed,
+                      evidence_values)
+        return flat.reshape(x.shape)
+
+    def assignment_energy(self, model, assignment) -> float:
+        """Grid energy (unary + each lattice edge once) of a full
+        assignment over every site — the MAP objective."""
+        h, w = model.shape
+        x = np.array([[int(assignment[r * w + c]) for c in range(w)]
+                      for r in range(h)])
+        unary = np.asarray(model.unary)
+        pw = np.asarray(model.pairwise)
+        e = float(unary[np.arange(h)[:, None], np.arange(w)[None, :], x].sum())
+        e += float(pw[x[:, :-1], x[:, 1:]].sum())   # horizontal edges
+        e += float(pw[x[:-1, :], x[1:, :]].sum())   # vertical edges
+        return e
+
+    def n_vars(self, prog) -> int:
+        return prog.n_sites
+
+    def max_card(self, prog) -> int:
+        return prog.n_labels
+
+    def var_card(self, prog, v: int) -> int:
+        return prog.n_labels
+
+    def var_name(self, model, v: int) -> str:
+        r, c = divmod(v, model.shape[1])
+        return f"s{r},{c}"
+
+    def n_free(self, prog) -> int:
+        return prog.n_free
+
+    def plan_salt(self, model):
+        """MRF plans are fully determined by (name, pattern, knobs)."""
+        return None
+
+    # -- plan persistence: compiling an MRF plan is O(1), nothing to skip
+    def persisted_path(self, directory, name, pattern, model, *,
+                       k, quantize_cpt_bits):
+        return None
+
+    def load_persisted(self, path, model):
+        return None
+
+    def save_persisted(self, path, prog):
+        pass
+
+
+class IsingFamily:
+    """Engine adapter for sparse :class:`repro_torch.pgm.graph.IsingModel`
+    / :class:`repro_torch.pgm.graph.FactorGraph` models.
+
+    Flat variable ids are graph node ids; evidence is a clamp mask over
+    spins (:class:`repro_torch.serve.query.IsingQuery` ``clamp_sites``
+    pairs — ``±1`` spins or ``{0, 1}`` labels), or a plain
+    :class:`Query`-style evidence mapping for general factor graphs.
+    Queries sharing a clamp *pattern* share one compiled sparse sweep
+    program whatever their clamped values.
+    """
+
+    kind = "ising"
+
+    def normalize(self, model, query):
+        clamp = getattr(query, "clamp_sites", None)
+        if clamp is not None:
+            raw = {}
+            for site, spin in clamp:
+                v, spin = int(site), int(spin)
+                if raw.get(v, spin) != spin:
+                    raise ValueError(
+                        f"conflicting evidence for spin {v}")
+                raw[v] = spin
+            ev = model.normalize_evidence(raw)
+        else:
+            ev = model.normalize_evidence(query.evidence)
+        qvars = tuple(model.index(v) for v in query.query_vars) or tuple(
+            v for v in range(model.n_vars) if v not in ev)
+        clash = [model.var_name(v) for v in qvars if v in ev]
+        if clash:
+            raise ValueError(f"query vars {clash} are observed")
+        return ev, qvars, tuple(sorted(ev))
+
+    def compile(self, model, pattern, *, k, quantize_cpt_bits):
+        # quantize_cpt_bits is a CPT-bank knob; factor graphs carry
+        # energies, not CPTs (it still keys the plan cache)
+        return compile_factor_graph(model, k=k, observed=pattern)
+
+    def make_runner(self, prog, *, sweeps_per_round, thin, use_iu,
+                    sampler="cuda", device=None):
+        return make_fg_round_runner(
+            prog, sweeps_per_round=sweeps_per_round, thin=thin,
+            use_iu=use_iu, sampler=sampler, device=device)
+
+    def init_states(self, key, prog, n_lanes, evidence_values, device=None):
+        return init_fg_states(key, prog, n_lanes, evidence_values,
+                              device=device)
+
+    def clamp_states(self, prog, x, evidence_values):
+        """Re-pin the clamped spins of existing (B, n) states (temporal
+        warm start)."""
+        if not prog.observed:
+            return x
+        return _repin(x, prog.observed, evidence_values)
+
+    def assignment_energy(self, model, assignment) -> float:
+        """Factor-graph energy (unary + each edge's table once) of a full
+        assignment over every node — the MAP objective; for an Ising
+        model the Hamiltonian up to its constant."""
+        fg = (model.to_factor_graph()
+              if isinstance(model, IsingModel) else model)
+        x = np.array([int(assignment[v]) for v in range(fg.n_vars)])
+        e = float(np.asarray(fg.unary)[np.arange(fg.n_vars), x].sum())
+        if len(fg.edges):
+            a, b = fg.edges[:, 0], fg.edges[:, 1]
+            e += float(np.asarray(fg.pair)[
+                np.arange(len(fg.edges)), x[a], x[b]].sum())
+        return e
+
+    def n_vars(self, prog) -> int:
+        return prog.n_vars
+
+    def max_card(self, prog) -> int:
+        return prog.max_card
+
+    def var_card(self, prog, v: int) -> int:
+        return int(prog.fg.card[v])
+
+    def var_name(self, model, v: int) -> str:
+        return model.var_name(v)
+
+    def n_free(self, prog) -> int:
+        return prog.n_free
+
+    def plan_salt(self, model):
+        """Sparse plans are shaped by the graph itself (coloring, degree
+        buckets), so the cache key folds a content fingerprint — a
+        re-registered graph under the same name must miss.  Cached on the
+        model object: hashing a million-spin graph once is fine, once per
+        query is not."""
+        salt = getattr(model, "_plan_salt", None)
+        if salt is None:
+            salt = graph_fingerprint(model)
+            model._plan_salt = salt
+        return salt
+
+    # -- plan persistence: packing plans is cheap numpy, nothing to skip
+    def persisted_path(self, directory, name, pattern, model, *,
+                       k, quantize_cpt_bits):
+        return None
+
+    def load_persisted(self, path, model):
+        return None
+
+    def save_persisted(self, path, prog):
+        pass
+
+
 BAYESNET_FAMILY = BayesNetFamily()
+MRF_FAMILY = MrfFamily()
+ISING_FAMILY = IsingFamily()
 
 
 def family_of(model):
     """The adapter serving a registered model — or a request.
 
-    Dispatches on the model's type, or for a request on its evidence
-    payload.  Only the Bayesian-network family is ported so far.
+    Dispatches on the model's type, or, for a request, on its evidence
+    payload: a scribble mask (:class:`MrfQuery`) routes to the MRF
+    family, a spin clamp (:class:`IsingQuery`) to the sparse Ising
+    family, and a node-evidence mapping (:class:`Query`) to the
+    Bayesian-network family.
+
+    Example::
+
+        family_of(networks.asia()).kind                  # 'bayesnet'
+        family_of(networks.penguin_task(8, 8)[0]).kind   # 'mrf'
+        family_of(networks.ising_torus(8)).kind          # 'ising'
+        family_of(MrfQuery("penguin")).kind              # 'mrf'
     """
-    from repro_torch.serve.query import IsingQuery, MrfQuery, Query
-    if isinstance(model, (BayesNet, Query)):
+    if isinstance(model, BayesNet):
         return BAYESNET_FAMILY
-    if isinstance(model, (MRFGrid, IsingModel, FactorGraph, MrfQuery,
-                          IsingQuery)):
-        raise NotImplementedError(
-            f"{type(model).__name__}: the MRF and sparse Ising families are "
-            f"not ported to repro_torch yet")
+    if isinstance(model, MRFGrid):
+        return MRF_FAMILY
+    if isinstance(model, (IsingModel, FactorGraph)):
+        return ISING_FAMILY
+    from repro_torch.serve.query import IsingQuery, MrfQuery, Query
+    if isinstance(model, MrfQuery):
+        return MRF_FAMILY
+    if isinstance(model, IsingQuery):
+        return ISING_FAMILY
+    if isinstance(model, Query):
+        return BAYESNET_FAMILY
     raise TypeError(
         f"no serving family for {type(model).__name__!r} "
-        f"(expected BayesNet or a Query)")
+        f"(expected BayesNet, MRFGrid, IsingModel, FactorGraph, or a "
+        f"Query/MrfQuery/IsingQuery request)")

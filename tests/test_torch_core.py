@@ -161,7 +161,8 @@ def _same(a, b):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
 
 
-@pytest.mark.parametrize("b,n", [(7, 3), (64, 4), (300, 5), (33, 16)])
+@pytest.mark.parametrize("b,n", [(7, 3), (64, 4), (300, 5), (33, 16), (40_000, 2),
+                                 (40_000, 5)])
 def test_ky_walk_and_sample_match_jax(b, n):
     w = _weights(b * n, b, n)
     jk, tk = jax.random.PRNGKey(b + n), t_rng.PRNGKey(b + n)

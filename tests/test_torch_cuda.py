@@ -1,7 +1,8 @@
 """The port's CUDA kernels and engine on the card: the fused sweep kernel
-(words made in the kernel) against its plain PyTorch
-version, the served results of ``sampler="cuda"`` against
-``sampler="torch"`` and the CPU, bit for bit; and the stand-alone kernels
+(words made in the kernel, past 2**31 threads too) against its plain
+PyTorch version, MRF sweeps, sparse sweeps and the served results of all
+three families with ``sampler="cuda"`` against ``sampler="torch"`` (and
+the CPU), bit for bit; and the stand-alone kernels
 (KY sampler and IU bitwise, both flash attention routes within the JAX
 tests' tolerances) against their plain versions, the KY sampler at the
 group and round boundaries of its group walk and the float32 flash kernel
@@ -135,6 +136,121 @@ def test_engine_cuda_equals_torch_and_cpu(cuda_device):
                                     dataclasses.astuple(b.diagnostics))
             for v in a.marginals:
                 np.testing.assert_array_equal(a.marginals[v], b.marginals[v])
+
+
+def test_kernel_past_2_31_threads_matches_plain_version(cuda_device):
+    """b * G >= 2**31 threads (2**26 + 1000 lanes of 17 labels, G = 32):
+    the lanes past thread 2**31 (and the first lanes) equal the plain
+    version on words made for those lanes alone by ``rng.lane_word``."""
+    b, L = (1 << 26) + 1000, 17
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    logw = -8.0 * torch.rand((b, L), generator=g, device=cuda_device)
+    card = torch.full((b,), L, dtype=torch.int32, device=cuda_device)
+    key = rng.PRNGKey(11)
+    got = fs.fused_gibbs_sample(key, logw, card, k=14)
+    torch.cuda.synchronize()
+    lanes = list(range(16)) + list(range(b - 1016, b))
+    assert fs.launch_geometry(b, L, 256)[0] * (b - 1000) >= 1 << 31
+    k0, k1 = rng._key_words(key)
+    words = rng._as_int32_bits(torch.tensor(
+        [[rng.lane_word(k0, k1, i, j, 31) for j in range(31)]
+         for i in lanes], dtype=torch.int64, device=cuda_device))
+    idx = torch.tensor(lanes, device=cuda_device)
+    want = fs._plain(logw[idx], card[idx], words, interp._EXP_DEFAULT.to(
+        cuda_device), k=14, use_iu=True, mask_value=fs.MASK_NEG)
+    for gf, wf in zip(got, want):
+        assert torch.equal(gf[idx], wf)
+    del logw, got
+
+
+def _mrf_runs(task, n_chains, sweeps, clamp_rows=()):
+    from repro_torch.pgm import gibbs
+
+    mrf, _ = task
+    out = []
+    for sampler in ("cuda", "torch"):
+        lab = gibbs.init_labels(rng.PRNGKey(0), mrf, n_chains)
+        clamp = None
+        if clamp_rows:
+            clamp = np.zeros(mrf.shape, bool)
+            clamp[list(clamp_rows)] = True
+            lab = gibbs.clamp_labels(lab, clamp, np.ones(mrf.shape, np.int32))
+        out.append(gibbs.mrf_gibbs(rng.PRNGKey(1), lab, mrf.unary,
+                                   mrf.pairwise, n_sweeps=sweeps,
+                                   clamp=clamp, sampler=sampler))
+    return out
+
+
+@pytest.mark.parametrize("L", [2, 5, 16])
+def test_mrf_gibbs_cuda_equals_torch(cuda_device, L):
+    from repro_torch.pgm import networks
+
+    task = (networks.penguin_task(40, 33) if L == 2
+            else networks.art_task(36, 28, n_labels=L))
+    before = fs.fused_gibbs_sample.launches
+    (lc, sc), (lt, st) = _mrf_runs(task, 3, 4, clamp_rows=(5, 6))
+    assert fs.fused_gibbs_sample.launches == before + 8
+    assert torch.equal(lc, lt)
+    assert (int(sc.bits_used), int(sc.attempts)) == (int(st.bits_used),
+                                                     int(st.attempts))
+
+
+def test_halfstep_beta_cuda_equals_torch(cuda_device):
+    from repro_torch.pgm import gibbs, networks
+
+    mrf, _ = networks.art_task(20, 24, n_labels=8)
+    lab = gibbs.init_labels(rng.PRNGKey(3), mrf, 4)
+    beta = torch.tensor([0.5, 1.0, 2.0, 8.0], device=cuda_device)
+    outs = [gibbs.checkerboard_halfstep(
+        rng.PRNGKey(4), lab, mrf.unary, mrf.pairwise, 1, beta=beta,
+        sampler=s) for s in ("cuda", "torch")]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert int(outs[0][1].bits_used) == int(outs[1][1].bits_used)
+
+
+def test_run_fg_gibbs_cuda_equals_torch(cuda_device):
+    """A random sparse spin glass with a degree-16 bucket, and clamped
+    spins: states, counts and stats."""
+    from repro_torch.pgm import networks
+    from repro_torch.pgm import sparse_compile as sc
+
+    prog = sc.compile_factor_graph(networks.random_sparse_ising(20000),
+                                   observed=(3, 9))
+    assert any(b.nbr.shape[1] >= 16 for p in prog.plans for b in p.buckets)
+    runs = [sc.run_fg_gibbs(rng.PRNGKey(2), prog, n_chains=4, n_sweeps=3,
+                            burn_in=1, evidence=np.array([1, 0]),
+                            sampler=s) for s in ("cuda", "torch")]
+    (xc, cc, sc_), (xt, ct, st) = runs
+    assert torch.equal(xc, xt) and torch.equal(cc, ct)
+    assert (int(sc_.bits_used), int(sc_.attempts)) == (int(st.bits_used),
+                                                       int(st.attempts))
+
+
+def test_engine_mrf_and_ising_cuda_equals_torch(cuda_device):
+    from repro_torch.serve import cli
+    from repro_torch.serve.engine import PosteriorEngine
+
+    reg = cli.build_registry(("mrf_penguin", "ising_torus"),
+                             mrf_shape=(40, 30), ising_side=24)
+    traffic = cli.synthetic_mrf_traffic(
+        reg["mrf_penguin"], "mrf_penguin", 4, 2, np.random.default_rng(0),
+        256)
+    traffic += cli.synthetic_ising_traffic(
+        reg["ising_torus"], "ising_torus", 4, 2, np.random.default_rng(1),
+        256)
+    kw = dict(chains_per_query=8, burn_in=8, sweeps_per_round=6, seed=2,
+              max_rounds=8)
+    before = fs.fused_gibbs_sample.launches
+    cuda = PosteriorEngine(reg, **kw).answer_batch(traffic)
+    assert fs.fused_gibbs_sample.launches > before
+    plain = PosteriorEngine(reg, sampler="torch", **kw).answer_batch(traffic)
+    for a, b in zip(cuda, plain):
+        assert (a.n_sweeps, a.n_samples, a.bits_per_sample) == (
+            b.n_sweeps, b.n_samples, b.bits_per_sample)
+        np.testing.assert_equal(dataclasses.astuple(a.diagnostics),
+                                dataclasses.astuple(b.diagnostics))
+        for v in a.marginals:
+            np.testing.assert_array_equal(a.marginals[v], b.marginals[v])
 
 
 def _ky_inputs(seed, b, n, device):

@@ -94,3 +94,27 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     t_fs.fused_gibbs_sample(t_rng.PRNGKey(1), torch.as_tensor(_logw(1, 8, 3)),
                             3, k=DEFAULT_K)
     assert t_fs.fused_gibbs_sample.launches == before
+
+
+@pytest.mark.parametrize("L,g", [(1, 2), (2, 2), (3, 4), (16, 16),
+                                 (17, 32), (32, 32)])
+def test_launch_geometry_groups_and_grid(L, g):
+    """Threads a lane and blocks of a launch; past 2**31 threads (2**26
+    lanes at L > 16) the grid is still whole, since the kernel indexes
+    threads in 64 bits."""
+    assert t_fs.launch_geometry(1000, L, 256) == (g, -(-1000 * g // 256))
+    b = (1 << 26) + 3
+    got_g, grid = t_fs.launch_geometry(b, L, 256)
+    assert grid * 256 >= b * got_g > (grid - 1) * 256
+    if L > 16:
+        assert b * got_g >= 1 << 31
+
+
+def test_launch_geometry_refuses_what_the_kernel_cannot_take():
+    t_fs.launch_geometry(t_fs.MAX_FUSED_LANES, 32, 1024)
+    with pytest.raises(ValueError, match="at most"):
+        t_fs.launch_geometry(t_fs.MAX_FUSED_LANES + 1, 2, 256)
+    with pytest.raises(ValueError, match="labels"):
+        t_fs.launch_geometry(10, 33, 256)
+    with pytest.raises(ValueError, match="block"):
+        t_fs.launch_geometry(10, 4, 48)

@@ -61,6 +61,43 @@ def test_engine_defaults_to_the_card():
     assert plain.device.type == "cuda" and plain.sampler == "torch"
 
 
+def _state_entry_points():
+    """Every entry point that makes chain states, called without a
+    ``device``."""
+    from repro_torch.core import rng
+    from repro_torch.pgm import compile as comp
+    from repro_torch.pgm import gibbs, mrf_compile, networks
+    from repro_torch.pgm import sparse_compile as sc
+
+    key = rng.PRNGKey(0)
+    bn = comp.compile_bayesnet(networks.sprinkler())
+    fg = sc.compile_factor_graph(networks.ising_torus(4))
+    mrf = networks.penguin_task(6, 5)[0]
+    grid = mrf_compile.compile_mrf(mrf)
+    return {
+        "init_states": lambda: comp.init_states(key, bn, 2),
+        "init_fg_states": lambda: sc.init_fg_states(key, fg, 2),
+        "init_mrf_states": lambda: mrf_compile.init_mrf_states(key, grid, 2),
+        "init_labels": lambda: gibbs.init_labels(key, mrf, 2),
+        "run_fg_gibbs": lambda: sc.run_fg_gibbs(
+            key, fg, n_chains=2, n_sweeps=1, burn_in=0)[0],
+    }
+
+
+@pytest.mark.parametrize("name", ["init_states", "init_fg_states",
+                                  "init_mrf_states", "init_labels",
+                                  "run_fg_gibbs"])
+def test_state_entry_points_default_to_the_card(name):
+    """With no ``device`` the states go to ``cuda``: without a card the
+    call raises, it never makes them on the CPU."""
+    call = _state_entry_points()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
 def _kernel_api_calls():
     from repro_torch.core import interp, rng
     from repro_torch.kernels import flash_attention as fa

@@ -185,9 +185,9 @@ def test_cuda_sampler_on_cpu_device_raises():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        families.family_of(t_net.ising_torus(4))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        families.family_of(t_net.penguin_task(6, 5)[0])
-    with pytest.raises(TypeError):
+    """Every PGM family of the reference is ported now: grids and sparse
+    models get their adapters, and only a type no family serves raises."""
+    assert families.family_of(t_net.ising_torus(4)).kind == "ising"
+    assert families.family_of(t_net.penguin_task(6, 5)[0]).kind == "mrf"
+    with pytest.raises(TypeError, match="no serving family"):
         families.family_of(object())
