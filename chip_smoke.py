@@ -46,7 +46,25 @@ line is printed:
    sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
    and the torus at β 0.6 started all up within 0.03 of Onsager's
    magnetization.
-10. ky_sampler — the stand-alone kernel API's KY sampler,
+10. serve_queue — phase 4's 64 queries through ``AdmissionQueue`` on the
+   card (``submit_many`` + ``flush``, one group a pattern): its dispatcher
+   thread launches the kernel, and the results must equal phase 4's cold
+   ``answer_batch`` bit for bit; dispatch log, groups and backfills.
+11. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
+   streams x 4 slices (``synthetic_stream_traffic``), replayed open-loop
+   at 4x the measured one-at-a-time rate through the deadline scheduler:
+   queries/s, p50/p99 ms, speedup, every later slice warm-started, the
+   trace and metrics exports parsed; the card's busy share by
+   torch.profiler over a second replay; a sprinkler stream within 0.03
+   of exact slice by slice.
+12. serve_wire — a two-worker ``WorkerPool`` on the card behind
+   ``ServeFrontEnd`` (127.0.0.1, ephemeral port): one /v2/batch of 16
+   hailfinder_scale queries, a MAP query and a scribble-mask
+   ``MrfQuery`` at 500 x 333, each response bitwise equal to the
+   in-process ``answer_batch``; a WebSocket stream of 3 slices of one
+   stream (slices 1-2 warm-started); a 429 on a quota overrun;
+   ``/healthz``, ``/stats``, ``/metrics``.
+13. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
@@ -54,11 +72,11 @@ line is printed:
    equal to the plain version on the card; bits per sample beside
    ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
    call (``call_ms``) and of its bit words alone (``words_ms``).
-11. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+14. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
-12. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+15. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
    S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
    at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
    float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
@@ -67,7 +85,7 @@ line is printed:
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
 
-Phases 4 and 7-12 each zero their kernel's launch count just before
+Phases 4 and 7-15 each zero their kernel's launch count just before
 their main path and read it just after; the fused kernel's entry of the
 per-kernel JSON line carries each path's launches, shapes and times
 under ``paths``.  Then the nvidia-smi name/power-limit line, and last
@@ -148,6 +166,19 @@ SERVE_ISING = dict(side=256, queries=16, patterns=2, budget=256)
 SPARSE_RUN = dict(n=65536, chains=8, sweeps=5, burn_in=1)
 # tests/test_sparse_compile.py::test_torus_matches_onsager
 ONSAGER = dict(side=16, beta=0.6, chains=48, sweeps=150, tol=0.03)
+# the streaming-sensor scenario on hailfinder_scale: 4 sensor streams x 4
+# drifting slices, at the serve phase's depth, replayed open-loop at the
+# reference's default 4x the measured one-at-a-time rate
+STREAM = dict(streams=4, slices=4, rate_multiplier=4.0, max_wait_ms=20.0,
+              scheduler="deadline")
+# a sprinkler stream held to exact enumeration slice by slice
+STREAM_ANCHOR = dict(chains_per_query=128, ess_target=2000, max_rounds=256,
+                     n_samples=65536, tol=0.03)
+# the wire phase: two workers on the one card, 16 hailfinder_scale queries
+# over 2 patterns, one MAP query and one scribble-mask MrfQuery at
+# mrf_penguin's 500 x 333 in one /v2/batch, at the cut serve depth of the
+# MRF and Ising phases (8 chains, 1 burn-in round + 4 rounds of 4 sweeps)
+WIRE = dict(workers=2, queries=16, patterns=2, budget=256, slices=3)
 
 
 def emit(obj) -> None:
@@ -558,7 +589,8 @@ def phase_serve(card_name: str) -> dict:
             if not (np.isfinite(m).all() and abs(m.sum() - 1.0) < 1e-9):
                 raise AssertionError(f"bad marginal {m}")
     torch.cuda.synchronize()
-    return {"engine": engine, "traffic": traffic, "record": rec}
+    return {"engine": engine, "traffic": traffic, "record": rec,
+            "cold": cold}
 
 
 def path_entry(rec, kern: dict) -> dict:
@@ -813,6 +845,349 @@ def phase_serve_ising(card_name: str) -> dict:
         raise AssertionError(f"Onsager anchor: magnetization {m}, exact "
                              f"{exact}")
     return served
+
+
+def check_marginals(results, label: str) -> None:
+    for r in results:
+        for m in r.marginals.values():
+            if not (isinstance(m, np.ndarray) and m.dtype == np.float64
+                    and np.isfinite(m).all() and abs(m.sum() - 1.0) < 1e-9):
+                raise AssertionError(f"{label}: bad marginal {m!r}")
+
+
+def phase_serve_queue(card_name: str, traffic, want) -> dict:
+    """The serve phase's traffic through the port's ``AdmissionQueue`` on
+    the card, admitted with ``submit_many`` and flushed (one group a
+    pattern, as ``answer_batch`` forms them): its dispatcher thread
+    launches every colour update, and the results must equal the serve
+    phase's cold ``answer_batch`` (``want``, itself equal to
+    ``sampler="torch"``) bit for bit."""
+    import torch
+
+    from repro_torch.pgm import networks
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.queue import AdmissionQueue
+
+    registry = {SERVE_NET: getattr(networks, SERVE_NET)()}
+    engine = PosteriorEngine(registry, burn_in=SERVE_BURN_IN, seed=0)
+    assert engine.device.type == "cuda" and engine.sampler == "cuda"
+    queue = AdmissionQueue(
+        engine, max_wait_ms=3_600_000.0,
+        max_group_lanes=len(traffic) * engine.chains_per_query)
+    with record_main_path(keep_all=False) as rec:      # the main path
+        t0 = time.perf_counter()
+        try:
+            handles = queue.submit_many(traffic)
+            queue.flush()
+            got = [h.result(timeout=600) for h in handles]
+        finally:
+            queue.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_recorded(rec, "serve_queue")
+    same = same_results(got, want)
+    st = queue.stats
+    emit({"phase": "serve_queue", "card": card_name, "queries": len(traffic),
+          "wall_s": wall, "qps": len(traffic) / wall,
+          "dispatch_log": [[n, list(p), k] for n, p, k in st.dispatch_log],
+          "groups": st.dispatched_groups, "backfilled": st.backfilled,
+          "completed": st.completed, "failed": st.failed,
+          "launches": rec["launches"], "host_word_calls": rec["word_calls"],
+          "equals_answer_batch": same})
+    if not same or st.completed != len(traffic):
+        raise AssertionError("serve_queue: queued results differ from the "
+                             "cuda answer_batch")
+    check_marginals(got, "serve_queue")
+    kern = phase_main_path_kernel(rec)
+    rec["calls"].clear()
+    return dict(path_entry(rec, kern), qps=len(traffic) / wall)
+
+
+def device_busy_s(prof) -> float:
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def phase_serve_stream(card_name: str) -> dict:
+    """``cli.measure_stream`` on the streaming-sensor scenario
+    (``synthetic_stream_traffic`` of hailfinder_scale, 4 streams x 4
+    slices): plan caches warmed off the clock, the one-at-a-time sync
+    rate timed, then an open-loop replay at 4x that rate through the
+    deadline scheduler (the main path: counts zeroed just before the
+    replay, read just after), with the telemetry recorder off.  Every
+    slice after a stream's first must warm-start.  The same arrivals are
+    replayed twice more, streams reset: with the recorder on (its trace
+    and metrics written and parsed, the latency broken into wait, plan
+    and service), and under torch.profiler (the card's busy share).
+    Then a sprinkler stream through the queue, each slice within 0.03
+    of exact."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.pgm import networks
+    from repro_torch.serve import cli
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.query import Query
+    from repro_torch.serve.queue import AdmissionQueue
+    from repro_torch.serve.telemetry import NULL, Telemetry, \
+        lifecycle_breakdown
+
+    bn = getattr(networks, SERVE_NET)()
+    registry = {SERVE_NET: bn}
+    traffic = cli.synthetic_stream_traffic(
+        bn, SERVE_NET, STREAM["streams"], STREAM["slices"],
+        np.random.default_rng(0), SERVE_BUDGET)
+    kw = dict(burn_in=SERVE_BURN_IN, seed=0)
+    engine = PosteriorEngine(registry, **kw)
+    sync_engine = PosteriorEngine(registry, **kw)
+    assert engine.sampler == sync_engine.sampler == "cuda"
+
+    replay = cli.replay_stream
+    rec = {}
+
+    def recorded_replay(queue, *args, **kwargs):
+        with record_main_path(keep_all=False) as r:    # the main path
+            out = replay(queue, *args, **kwargs)
+        rec.update(r)
+        return out
+
+    cli.replay_stream = recorded_replay
+    try:
+        m, results = cli.measure_stream(
+            engine, sync_engine, traffic,
+            rate_multiplier=STREAM["rate_multiplier"],
+            max_wait_ms=STREAM["max_wait_ms"], scheduler=STREAM["scheduler"])
+    finally:
+        cli.replay_stream = replay
+    check_recorded(rec, "serve_stream")
+    want_warm = STREAM["streams"] * (STREAM["slices"] - 1)
+    arrivals = [i / m["rate_qps"] for i in range(len(traffic))]
+
+    def replay_again(tel, profiled: bool):
+        """The same arrivals on the same (warm) engine, streams reset."""
+        engine.reset_streams()
+        engine.telemetry = tel
+        queue = AdmissionQueue(engine, max_wait_ms=STREAM["max_wait_ms"],
+                               scheduler=STREAM["scheduler"])
+        torch.cuda.synchronize()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        try:
+            with ctx as prof:
+                res, lat, wall = replay(queue, traffic, arrivals)
+                torch.cuda.synchronize()
+        finally:
+            queue.close()
+        p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+        return res, dict(queries_per_s=len(traffic) / wall,
+                         p50_ms=float(p50), p99_ms=float(p99), wall_s=wall,
+                         warm_started=int(sum(r.warm_start for r in res))), \
+            prof
+
+    recorded, with_tel, _ = replay_again(Telemetry(), profiled=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, metrics = (os.path.join(tmp, n) for n in ("t.json", "m.json"))
+        engine.telemetry.write_trace(trace)
+        with open(metrics, "w") as f:
+            json.dump(engine.stats(), f)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        with open(metrics) as f:
+            snap = json.load(f)
+    if not events or snap["queue"]["submitted"] != len(traffic):
+        raise AssertionError(f"serve_stream: trace {len(events)} events, "
+                             f"metrics {snap['queue']}")
+    breakdown = lifecycle_breakdown(engine.telemetry.events())
+    again, profiled, prof = replay_again(NULL, profiled=True)
+    busy = device_busy_s(prof)
+    if not busy > 0:
+        raise AssertionError("serve_stream: the profiled replay shows no "
+                             "device time")
+
+    spr = networks.sprinkler()
+    a = STREAM_ANCHOR
+    eng = PosteriorEngine({"sprinkler": spr}, chains_per_query=a[
+        "chains_per_query"], ess_target=a["ess_target"],
+        max_rounds=a["max_rounds"], seed=0)
+    evidence = ({"wetgrass": 1}, {"wetgrass": 0}, {"wetgrass": 1})
+    q = AdmissionQueue(eng, max_wait_ms=3_600_000.0)
+    try:
+        hs = q.submit_many([Query("sprinkler", ev, ("rain",),
+                                  n_samples=a["n_samples"], stream_id="cam")
+                            for ev in evidence])
+        q.flush()
+        anchor = [h.result(timeout=600) for h in hs]
+    finally:
+        q.close()
+    errs = [float(np.abs(r.marginal("rain")
+                         - spr.marginals_exact(ev)[2]).max())
+            for r, ev in zip(anchor, evidence)]
+
+    out = {k: m[k] for k in ("n_queries", "rate_qps", "queries_per_s",
+                             "p50_ms", "p99_ms", "sync_queries_per_s",
+                             "speedup", "warm_started", "backfilled",
+                             "dispatched_groups", "converged",
+                             "msample_per_s", "ess_per_s")}
+    out.update(launches=rec["launches"], device_busy_s=busy,
+               device_busy_share=busy / profiled["wall_s"])
+    emit({"phase": "serve_stream", "card": card_name, **out,
+          "with_recorder": with_tel, "latency_breakdown": breakdown,
+          "profiled": profiled, "trace_events": len(events),
+          "host_word_calls": rec["word_calls"],
+          "sprinkler_stream": {"max_err": errs, "tol": a["tol"],
+                               "warm_start": [r.warm_start
+                                              for r in anchor]}})
+    warm = [m["warm_started"], with_tel["warm_started"],
+            profiled["warm_started"]]
+    if warm != [want_warm] * 3:
+        raise AssertionError(f"serve_stream: {warm} slices warm-started, "
+                             f"want {want_warm}")
+    if not (max(errs) < a["tol"]
+            and [r.warm_start for r in anchor] == [False, True, True]):
+        raise AssertionError(f"serve_stream: sprinkler stream off exact by "
+                             f"{errs} or not warm-started")
+    check_marginals(results + recorded + again + anchor, "serve_stream")
+    kern = phase_main_path_kernel(rec)
+    rec["calls"].clear()
+    return dict(path_entry(rec, kern), **{k: out[k] for k in (
+        "queries_per_s", "p50_ms", "p99_ms", "device_busy_share")})
+
+
+def wire_batch(registry):
+    """The wire phase's /v2/batch: 16 hailfinder_scale queries over 2
+    patterns, one MAP query, one scribble-mask MrfQuery at 500 x 333 (the
+    sparse ``mask_sites`` form), as wire objects."""
+    import dataclasses as dc
+
+    from repro_torch.serve import cli
+    from repro_torch.serve.protocol import request_to_wire
+    from repro_torch.serve.query import MrfQuery
+
+    rng = np.random.default_rng(0)
+    bn = registry[SERVE_NET]
+    qs = cli.synthetic_traffic(bn, SERVE_NET, WIRE["queries"],
+                               WIRE["patterns"], rng, WIRE["budget"])
+    qs.append(dc.replace(qs[0], mode="map"))
+    h, w = registry["mrf_penguin"].shape
+    mask = cli.scribble_mask(h, w, rng)
+    rows, cols = np.nonzero(mask)
+    labels = rng.integers(0, registry["mrf_penguin"].n_labels, rows.size)
+    qs.append(MrfQuery("mrf_penguin", mask_sites=tuple(
+        (int(r), int(c), int(v)) for r, c, v in zip(rows, cols, labels)),
+        query_sites=((h // 2, w // 2), (h // 3, w // 4), (10, 10)),
+        n_samples=WIRE["budget"]))
+    return [request_to_wire(q, id=f"q{i}") for i, q in enumerate(qs)]
+
+
+def phase_serve_wire(card_name: str) -> dict:
+    """A ``WorkerPool`` of two workers on the one card behind
+    ``ServeFrontEnd`` on 127.0.0.1 (ephemeral port): one /v2/batch of 18
+    requests (BN marginals, BN MAP, an MRF scribble mask at 500 x 333),
+    every response bitwise equal to an in-process ``answer_batch`` on the
+    card with the same seed; a WebSocket stream of 3 slices of one
+    ``stream_id`` (slices 1-2 warm-started); a quota overrun answered
+    429; ``/healthz``, ``/stats`` and ``/metrics``.  Any other error
+    response fails the phase.  Launch counts are zeroed before the pool
+    starts and read after it stops."""
+    import torch
+
+    from repro_torch.serve import cli
+    from repro_torch.serve.client import ServeClient, ServeHTTPError
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.protocol import parse_wire_request, wire_marginals
+    from repro_torch.serve.server import start_in_thread
+    from repro_torch.serve.worker import WorkerPool
+
+    registry = cli.build_registry((SERVE_NET, "mrf_penguin"),
+                                  mrf_shape=SERVE_MRF["shape"])
+    batch = wire_batch(registry)
+    stream = [{"v": 2, "id": f"s{t}", "network": SERVE_NET,
+               "evidence": {"0": t % 2}, "query_vars": [5],
+               "n_samples": WIRE["budget"], "stream_id": "sensor"}
+              for t in range(WIRE["slices"])]
+    with record_main_path(keep_all=False) as rec:      # the main path
+        pool = WorkerPool(lambda name: PosteriorEngine(registry,
+                                                       **SERVE_DEPTH),
+                          WIRE["workers"], queue_kwargs={"max_wait_ms": 5.0})
+        fe = start_in_thread(pool, port=0)
+        try:
+            client = ServeClient("127.0.0.1", fe.port)
+            health = client.wait_ready(60.0)
+            t0 = time.perf_counter()
+            served = client.query_batch(batch)
+            batch_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            slices = client.stream(stream)
+            stream_s = time.perf_counter() - t0
+            quota = start_in_thread(pool, port=0, quota_qps=0.001,
+                                    quota_burst=1)
+            try:
+                qc = ServeClient("127.0.0.1", quota.port)
+                first = qc.query(stream[0] | {"stream_id": None,
+                                              "tenant": "acme"})
+                try:
+                    qc.query(stream[0] | {"stream_id": None,
+                                          "tenant": "acme"})
+                    shed = None
+                except ServeHTTPError as exc:
+                    shed = exc.status, exc.retry_after
+            finally:
+                quota.stop_thread()
+            stats, metrics = client.stats(), client.metrics()
+        finally:
+            fe.stop_thread()
+            pool.close(drain=False, timeout=60.0)
+        torch.cuda.synchronize()
+    check_recorded(rec, "serve_wire")
+    for w in pool.workers.values():
+        if w.queue._thread.is_alive():
+            raise AssertionError(f"serve_wire: worker {w.name} still running")
+
+    errors = [r for r in served + slices + [first] if "error" in r]
+    want = PosteriorEngine(registry, **SERVE_DEPTH).answer_batch(
+        [parse_wire_request(r)[0] for r in batch])
+    mismatched = 0
+    for wire_r, r in zip(served, want):
+        if r.map_assignment is not None:
+            mismatched += wire_r["map_assignment"] != {
+                str(k): v for k, v in r.map_assignment.items()} or \
+                wire_r["map_energy"] != r.map_energy
+            continue
+        got = wire_marginals(wire_r)
+        mismatched += got.keys() != {str(k) for k in r.marginals} or any(
+            not np.array_equal(got[str(k)], m) for k, m in r.marginals.items())
+    check_marginals(want, "serve_wire")
+    warm = [r.get("warm_start") for r in slices]
+    served_by = {n: s["queue"]["completed"] if s.get("queue") else None
+                 for n, s in stats["workers"].items()}
+    emit({"phase": "serve_wire", "card": card_name,
+          "workers": WIRE["workers"], "batch": len(batch),
+          "batch_round_trip_s": batch_s, "stream_round_trip_s": stream_s,
+          "mismatched": mismatched, "errors": errors[:3],
+          "stream_warm_start": warm, "quota_shed": shed,
+          "completed_by_worker": served_by, "health": health,
+          "metrics_lines": len(metrics.splitlines()),
+          "launches": rec["launches"], "host_word_calls": rec["word_calls"]})
+    if errors or mismatched:
+        raise AssertionError(f"serve_wire: {len(errors)} error responses, "
+                             f"{mismatched} responses differ from the "
+                             f"in-process answer_batch")
+    if warm != [False, True, True]:
+        raise AssertionError(f"serve_wire: stream warm starts {warm}")
+    if shed is None or shed[0] != 429 or not shed[1] > 0:
+        raise AssertionError(f"serve_wire: quota overrun answered {shed}")
+    if not (health["ok"] and "serve_front_served_total" in metrics
+            and stats["served"] >= len(batch) + len(slices)):
+        raise AssertionError(f"serve_wire: health {health}, stats {stats}")
+    kern = phase_main_path_kernel(rec)
+    rec["calls"].clear()
+    torch.cuda.empty_cache()
+    return dict(path_entry(rec, kern), batch_round_trip_s=batch_s)
 
 
 def cold_device_ms(fn, reps: int, device, calls: int = 1) -> float:
@@ -1192,10 +1567,12 @@ def main() -> int:
 
     check = phase_kernel_vs_plain(device)
     serve = phase_serve(card_name)
+    serve_cold = serve.pop("cold")
     rec = serve.pop("record")
     main_path = phase_main_path_kernel(rec)
     rec["calls"].clear()            # free the recorded tensors
     profile_group(serve["engine"], serve["traffic"])
+    traffic = serve["traffic"]
     del serve
     torch.cuda.empty_cache()
     paths = {"bn_serve": path_entry(rec, main_path)}
@@ -1205,6 +1582,10 @@ def main() -> int:
     paths["mrf_gibbs_art"] = mrf["aia-mrf-art"]
     paths["serve_mrf"] = phase_serve_mrf(card_name)
     paths["serve_ising"] = phase_serve_ising(card_name)
+    paths["serve_queue"] = phase_serve_queue(card_name, traffic, serve_cold)
+    del serve_cold
+    paths["serve_stream"] = phase_serve_stream(card_name)
+    paths["serve_wire"] = phase_serve_wire(card_name)
     ky = phase_ky_sampler(device)
     iu = phase_interp_lut(device)
     flash = phase_flash_attention(device)

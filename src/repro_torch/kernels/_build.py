@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -88,7 +89,18 @@ def build_all(names=KERNELS) -> dict[str, float]:
         return dict(zip(names, pool.map(_timed_build, names)))
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library ``name``."""
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library ``name``.  Safe to
+    call from several threads at once (the serving workers' dispatcher
+    threads): one builds, the others wait for it, and none runs a second
+    ``nvcc`` on the same source."""
+    with _LOAD_LOCK:
+        return _load(name)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -53,6 +54,8 @@ MAX_FUSED_L = 32
 
 # the kernel takes the lane count as a C int
 MAX_FUSED_LANES = (1 << 31) - 1
+
+_COUNT_LOCK = threading.Lock()
 
 
 def launch_geometry(b: int, L: int, block_b: int) -> tuple[int, int]:
@@ -136,9 +139,16 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, key,
         int(bool(use_iu)), 1 << table.m, float(table.lo), float(table.scale),
         float(mask_value), int(block_b), _common.stream(dev))
     _common.raise_on(err, "fused_gibbs_sample")
-    fused_gibbs_sample.launches += 1
-    fused_gibbs_sample.shapes[(b, L)] += 1
+    _count_launch(b, L)
     return KYResult(sample=sample, bits_used=bits, attempts=att, ok=ok)
+
+
+def _count_launch(b: int, L: int) -> None:
+    """One launch more, and one more at ``(b, L)``: under a lock, since
+    the serving workers' dispatcher threads launch concurrently."""
+    with _COUNT_LOCK:
+        fused_gibbs_sample.launches += 1
+        fused_gibbs_sample.shapes[(b, L)] += 1
 
 
 def _plain(logw: torch.Tensor, card: torch.Tensor, words: torch.Tensor,

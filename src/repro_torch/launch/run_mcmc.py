@@ -106,7 +106,7 @@ def main(argv=None) -> None:
     if args.mesh:
         raise NotImplementedError(
             "--mesh: distributed halo-exchange Gibbs is not ported to "
-            "repro_torch (ROADMAP Queue 1 item 13, multi-GPU)")
+            "repro_torch (ROADMAP Queue 1, the multi-GPU item)")
 
     from repro_torch.configs.aia_paper import MCMC_CONFIGS
     from repro_torch.core import rng

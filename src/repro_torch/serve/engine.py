@@ -30,8 +30,8 @@ query's group mates: budget left over is simply not spent, which is
 where the paper's "approximate inference" throughput comes from, and a
 retired query's lane block is free real estate that
 :class:`GroupRun.admit` can hand to a waiting query of the same plan
-mid-flight (how the reference's admission queue,
-:mod:`repro.serve.queue`, backfills under streaming traffic).
+mid-flight (how the admission queue, :mod:`repro_torch.serve.queue`,
+backfills under streaming traffic).
 
 Two extensions ride the same lifecycle.  **MAP/MPE mode**
 (``Request.mode="map"``): the group's round runner receives a
@@ -76,6 +76,7 @@ from repro_torch.pgm.graph import BayesNet
 from repro_torch.serve.families import family_of
 from repro_torch.serve.plan_cache import PlanCache, plan_key
 from repro_torch.serve.query import Query, Request, Result
+from repro_torch.serve.sched import predict_remaining_rounds
 from repro_torch.serve.telemetry import (
     DEFAULT_COUNT_BINS, NULL, Telemetry, monotonic)
 
@@ -94,7 +95,7 @@ class GroupEntry:
 
     ``ev`` maps flat variable ids (BN nodes / MRF sites) to observed
     values; ``qvars`` are flat variable ids to report.  ``handle`` is
-    the admission queue's :class:`repro.serve.query.QueryHandle` when
+    the admission queue's :class:`repro_torch.serve.query.QueryHandle` when
     the entry arrived via streaming submission, None for the synchronous
     ``answer_batch`` path.  ``result`` is filled in at retirement.
     """
@@ -444,6 +445,37 @@ class GroupRun:
                 return True
         return False
 
+    def predicted_remaining_rounds(self) -> int:
+        """Worst-case rounds this group still needs, per-slot from the
+        ESS trajectory the retirement rule already computes (see
+        :func:`repro_torch.serve.sched.predict_remaining_rounds`).  Slots
+        with no usable trajectory — MAP mode, still burning in, or R̂
+        gate not yet passed so no cached ESS — fall back to their
+        remaining budget cap, which makes the estimate conservative (it
+        can only overestimate, so deadline preemption fires no later
+        than it should).  Multiply by ``sweeps_per_round`` for sweeps."""
+        worst = 0
+        for s in self.slots:
+            if s.done or s.entry is None:
+                continue
+            if s.mode != "marginals" or s.diags is None:
+                worst = max(worst, s.cap - s.rounds + s.burn_left)
+                continue
+            ds = [d.cached() for d in s.diags.values()]
+            ess = (min(d.min_ess for d in ds)
+                   if ds and all(d is not None for d in ds) else None)
+            worst = max(worst, s.burn_left + predict_remaining_rounds(
+                ess, s.rounds, s.ess_target, s.cap))
+        return worst
+
+    def release(self) -> None:
+        """Drop the group's device state (its lane states).  The
+        admission queue calls this when a run ends in any way — drained,
+        preempted, cancelled or failed — so a run that an exception's
+        traceback still references (a failed handle keeps its error)
+        holds no card memory.  The run cannot step afterwards."""
+        self.x = None
+
     def admit(self, entry: GroupEntry) -> None:
         """Backfill a waiting query of the same plan into a freed slot:
         re-initialize its lane block with the newcomer's evidence and
@@ -709,7 +741,7 @@ class PosteriorEngine:
         self.plan_cache_dir = plan_cache_dir
         self.pow2_group_shapes = bool(pow2_group_shapes)
         # telemetry is a no-op by default (the shared NULL recorder);
-        # pass Telemetry() to record traces/metrics — repro.serve.telemetry
+        # pass Telemetry() to record traces/metrics — repro_torch.serve.telemetry
         self.telemetry = telemetry if telemetry is not None else NULL
         self._group_seq = itertools.count()
         self._query_seq = itertools.count()
@@ -819,9 +851,10 @@ class PosteriorEngine:
     # -- observability -----------------------------------------------------
     def stats(self) -> dict:
         """One JSON-able snapshot of everything the engine already
-        counts: the plan cache's :class:`repro.serve.plan_cache.
-        CacheStats`, the attached admission queue's :class:`repro.serve.
-        queue.QueueStats` (``None`` when no queue owns this engine), and
+        counts: the plan cache's :class:`repro_torch.serve.
+        plan_cache.CacheStats`, the attached admission queue's
+        :class:`repro_torch.serve.queue.QueueStats` (``None`` when no
+        queue owns this engine), and
         — when a live recorder is installed — the telemetry metrics
         snapshot.  Safe to call at any time, including before any
         traffic (hit rate reads 0.0, not a division error)."""

@@ -14,8 +14,8 @@ serving stack's equivalent.  It has two halves:
   load it at https://ui.perfetto.dev);
 * a **metrics registry** of counters, gauges, and fixed log-spaced-bin
   histograms fed from :class:`repro_torch.serve.engine.PosteriorEngine`,
-  :class:`repro_torch.serve.engine.GroupRun`, :class:`repro.serve.queue.
-  AdmissionQueue` and the plan cache, exportable as Prometheus text
+  :class:`repro_torch.serve.engine.GroupRun`, :class:`repro_torch.serve.
+  queue.AdmissionQueue` and the plan cache, exportable as Prometheus text
   exposition (:meth:`Telemetry.prometheus`) and as a JSON snapshot
   (:meth:`Telemetry.metrics_snapshot`) that ``benchmarks.bench_serve``
   merges into its report.

@@ -2,7 +2,9 @@
 (words made in the kernel, past 2**31 threads too) against its plain
 PyTorch version, MRF sweeps, sparse sweeps and the served results of all
 three families with ``sampler="cuda"`` against ``sampler="torch"`` (and
-the CPU), bit for bit; and the stand-alone kernels
+the CPU), bit for bit; the admission queue and a two-worker wire service
+on the card (bitwise, and a kernel error failing its group loudly); and
+the stand-alone kernels
 (KY sampler and IU bitwise, both flash attention routes within the JAX
 tests' tolerances) against their plain versions, the KY sampler at the
 group and round boundaries of its group walk and the float32 flash kernel
@@ -251,6 +253,127 @@ def test_engine_mrf_and_ising_cuda_equals_torch(cuda_device):
                                 dataclasses.astuple(b.diagnostics))
         for v in a.marginals:
             np.testing.assert_array_equal(a.marginals[v], b.marginals[v])
+
+
+def _assert_same(a_res, b_res):
+    assert len(a_res) == len(b_res)
+    for a, b in zip(a_res, b_res):
+        assert (a.n_sweeps, a.n_samples, a.bits_per_sample, a.warm_start) \
+            == (b.n_sweeps, b.n_samples, b.bits_per_sample, b.warm_start)
+        np.testing.assert_equal(dataclasses.astuple(a.diagnostics),
+                                dataclasses.astuple(b.diagnostics))
+        for v in a.marginals:
+            np.testing.assert_array_equal(a.marginals[v], b.marginals[v])
+
+
+def _queue_traffic(n_patterns=2):
+    from repro_torch.pgm import networks
+    from repro_torch.serve.cli import synthetic_traffic
+
+    bn = networks.asia()
+    return {"asia": bn}, synthetic_traffic(
+        bn, "asia", 6, n_patterns, np.random.default_rng(0), 256)
+
+
+def test_queue_cuda_equals_torch(cuda_device):
+    """The admission queue's dispatcher thread drives the fused kernel on
+    the card: ``submit_many`` + ``flush`` traffic (backfills and a
+    warm-started stream slice included) gives the results of the same
+    queue over ``sampler="torch"`` and of the in-process
+    ``answer_batch``, bit for bit."""
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.query import Query
+    from repro_torch.serve.queue import AdmissionQueue
+
+    # one bucket of six (two dispatch, four backfill), then two slices
+    # of one stream
+    reg, first = _queue_traffic(n_patterns=1)
+    second = [Query("asia", {"smoke": v}, ("lung",), n_samples=64,
+                    stream_id="s") for v in (1, 0)]
+    kw = dict(chains_per_query=8, burn_in=16, sweeps_per_round=6, seed=2,
+              max_rounds=6)
+    out, logs = [], []
+    for sampler in ("cuda", "torch"):
+        eng = PosteriorEngine(reg, sampler=sampler, **kw)
+        before = fs.fused_gibbs_sample.launches
+        queue = AdmissionQueue(eng, max_wait_ms=3_600_000.0,
+                               max_group_lanes=2 * eng.chains_per_query)
+        res = []
+        try:
+            for batch in (first, second):
+                hs = queue.submit_many(batch)
+                queue.flush()
+                res += [h.result(timeout=300) for h in hs]
+        finally:
+            queue.close()
+        out.append(res)
+        logs.append((list(queue.stats.dispatch_log), queue.stats.backfilled))
+        launched = fs.fused_gibbs_sample.launches - before
+        assert launched > 0 if sampler == "cuda" else launched == 0
+    _assert_same(*out)
+    assert logs[0] == logs[1] and logs[0][1] > 0
+    assert out[0][-1].warm_start
+
+
+def test_two_workers_on_one_card_answer_batch_bitwise(cuda_device):
+    """A pool of two workers on the card behind the front end: a
+    ``/v2/batch`` equals the in-process ``answer_batch`` on the same seed
+    bit for bit, and a second batch routed to the other worker runs
+    while the first worker's threads share the card."""
+    from repro_torch.serve import protocol
+    from repro_torch.serve.client import ServeClient
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.server import start_in_thread
+    from repro_torch.serve.worker import WorkerPool
+
+    reg, traffic = _queue_traffic()
+    kw = dict(chains_per_query=8, burn_in=16, seed=4)
+    pool = WorkerPool(lambda name: PosteriorEngine(reg, **kw), 2,
+                      queue_kwargs={"max_wait_ms": 5.0})
+    fe = start_in_thread(pool, port=0)
+    try:
+        client = ServeClient("127.0.0.1", fe.port)
+        served = client.query_batch(traffic)
+        stats = client.stats()
+    finally:
+        fe.stop_thread()
+        pool.close(drain=False, timeout=30.0)
+    want = PosteriorEngine(reg, **kw).answer_batch(traffic)
+    assert all("error" not in r for r in served), served
+    assert sum(s["queue"]["completed"] for s in stats["workers"].values()
+               ) == len(traffic)
+    for wire_r, r in zip(served, want):
+        got = protocol.wire_marginals(wire_r)
+        for name, m in r.marginals.items():
+            assert np.array_equal(got[str(name)], m)
+
+
+def test_kernel_error_in_the_dispatcher_fails_its_handles(cuda_device,
+                                                          monkeypatch):
+    """A launch that returns a CUDA error inside the dispatcher thread
+    fails every query of the group with that error: no handle hangs,
+    nothing falls back to the plain path, and the queue goes on."""
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.queue import AdmissionQueue
+
+    reg, traffic = _queue_traffic()
+    eng = PosteriorEngine(reg, chains_per_query=8, burn_in=16, seed=2)
+    eng.answer_batch(traffic[:1])           # the kernel is built and loaded
+    monkeypatch.setattr(fs, "_entry", lambda: (lambda *a: 700))
+    queue = AdmissionQueue(eng, max_wait_ms=3_600_000.0)
+    try:
+        hs = queue.submit_many(traffic[:3])
+        queue.flush()
+        for h in hs:
+            with pytest.raises(RuntimeError, match="CUDA error 700"):
+                h.result(timeout=60)
+        monkeypatch.undo()
+        h = queue.submit(traffic[3])
+        queue.flush()
+        assert h.result(timeout=300).marginals
+    finally:
+        queue.close()
+    assert queue.stats.failed == 3 and queue.stats.completed == 1
 
 
 def _ky_inputs(seed, b, n, device):

@@ -118,3 +118,33 @@ def test_launch_geometry_refuses_what_the_kernel_cannot_take():
         t_fs.launch_geometry(10, 33, 256)
     with pytest.raises(ValueError, match="block"):
         t_fs.launch_geometry(10, 4, 48)
+
+
+def test_launch_count_holds_under_concurrent_launchers():
+    """The serving workers' dispatcher threads count launches at once:
+    with a short switch interval and more threads than cores, no count is
+    lost."""
+    import sys
+    import threading
+
+    n_threads, n_calls, shape = 32, 500, (7, 3)
+    before = (t_fs.fused_gibbs_sample.launches,
+              t_fs.fused_gibbs_sample.shapes[shape])
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            t_fs._count_launch(*shape) for _ in range(n_calls)])
+            for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    n = n_threads * n_calls
+    assert t_fs.fused_gibbs_sample.launches == before[0] + n
+    assert t_fs.fused_gibbs_sample.shapes[shape] == before[1] + n
+    t_fs.fused_gibbs_sample.launches -= n
+    t_fs.fused_gibbs_sample.shapes[shape] -= n

@@ -357,3 +357,36 @@ def test_launch_inputs_copy_a_view_that_is_not_16_byte_aligned(dtype):
     for g in t_fa.launch_inputs(q, q, q):
         assert g.data_ptr() % 16 == 0 and g.is_contiguous()
         assert torch.equal(g, q) and g.data_ptr() != q.data_ptr()
+
+
+def test_load_builds_once_when_threads_race(monkeypatch):
+    """Dispatcher threads that reach a kernel's first use together run
+    one build and share the loaded library."""
+    import threading
+
+    from repro_torch.kernels import _build
+
+    builds, gate = [], threading.Event()
+
+    def slow_build(name):
+        gate.wait(5)
+        builds.append(name)
+        return f"/nonexistent/lib{name}.so"
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    _build._load.cache_clear()
+    try:
+        out = []
+        threads = [threading.Thread(target=lambda: out.append(
+            _build.load("race_probe"))) for _ in range(8)]
+        for t in threads:
+            t.start()
+        gate.set()
+        for t in threads:
+            t.join(30)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        _build._load.cache_clear()
+    assert builds == ["race_probe"]
+    assert out == [("lib", "/nonexistent/librace_probe.so")] * 8
