@@ -11,7 +11,9 @@ line is printed:
    sources in the checkout, one nvcc each, all at once.
 3. kernel vs plain — the fused kernel's wrapper against its plain
    PyTorch version on the card, on the same key and inputs; all four
-   KYResult fields must be equal.
+   KYResult fields must be equal; lane shards (``lane0``) of one launch
+   equal its rows, and a ``lane0`` past 2**32 words equals the plain
+   version.
 4. serve — ``PosteriorEngine.answer_batch`` on hailfinder_scale (56
    nodes, engine defaults but a 32-sweep burn-in, budget 2048) with
    ``sampler="cuda"``: 64 synthetic queries
@@ -37,34 +39,52 @@ line is printed:
    the plain version and timed with a cold L2 beside its bound; then
    torch.profiler over 5 warm penguin sweeps (busy share, launches a
    half-step, the fused kernel's share).
-8. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
+8. mesh_gibbs — distributed halo-exchange Gibbs on a 2 x 2 tile mesh
+   (``cuda:0..3`` on a host with four cards, else ``cuda:0`` four times;
+   a line says which) at aia-mrf-penguin's 500 x 333 (pads to 500 x
+   334), 16 chains: 10 sweeps ``sampler="cuda"`` equal to ``"torch"``
+   and ``comm="halo"`` equal to ``"allgather"`` bit for bit, the bytes
+   each copies per half-step beside the per-tile formulas; 200 sweeps
+   timed (site samples per second, bits per sample, accuracy at least
+   0.95, 2 launches a tile a sweep); the clamped step once.
+9. metropolis — ``mrf_metropolis`` on aia-mrf-penguin (100 sweeps) and
+   ``fg_metropolis`` on the 65,536-spin sparse glass on the card
+   (acceptance rate, bits), and both on the card against the CPU at
+   50 x 34 / 4,096 spins, bit for bit.
+10. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
    2 scribble patterns, 8 chains a query, cold and warm, bitwise against
    ``sampler="torch"``; launches counted, no host bit words.
-9. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
+11. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
    colouring): 16 ``IsingQuery`` over 2 clamp patterns, cold and warm,
    bitwise against ``sampler="torch"``; ``run_fg_gibbs`` on a random
    sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
    and the torus at β 0.6 started all up within 0.03 of Onsager's
    magnetization.
-10. serve_queue — phase 4's 64 queries through ``AdmissionQueue`` on the
+12. serve_queue — phase 4's 64 queries through ``AdmissionQueue`` on the
    card (``submit_many`` + ``flush``, one group a pattern): its dispatcher
    thread launches the kernel, and the results must equal phase 4's cold
    ``answer_batch`` bit for bit; dispatch log, groups and backfills.
-11. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
+13. serve_sharded — phase 4's traffic through ``PosteriorEngine(mesh=
+   make_serve_mesh((4,), ...))`` (lanes split over four batch shards,
+   each launching at its ``lane0``): equal to phase 4's cold pass bit for
+   bit; one 500 x 333 ``MrfQuery`` and one side-256 ``IsingQuery``
+   sharded and unsharded, bitwise; a lane-padding case (6 chains a
+   query) within 0.05 of exact.
+14. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
    streams x 4 slices (``synthetic_stream_traffic``), replayed open-loop
    at 4x the measured one-at-a-time rate through the deadline scheduler:
    queries/s, p50/p99 ms, speedup, every later slice warm-started, the
    trace and metrics exports parsed; the card's busy share by
    torch.profiler over a second replay; a sprinkler stream within 0.03
    of exact slice by slice.
-12. serve_wire — a two-worker ``WorkerPool`` on the card behind
+15. serve_wire — a two-worker ``WorkerPool`` on the card behind
    ``ServeFrontEnd`` (127.0.0.1, ephemeral port): one /v2/batch of 16
    hailfinder_scale queries, a MAP query and a scribble-mask
    ``MrfQuery`` at 500 x 333, each response bitwise equal to the
    in-process ``answer_batch``; a WebSocket stream of 3 slices of one
    stream (slices 1-2 warm-started); a 429 on a quota overrun;
    ``/healthz``, ``/stats``, ``/metrics``.
-13. ky_sampler — the stand-alone kernel API's KY sampler,
+16. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
@@ -72,11 +92,11 @@ line is printed:
    equal to the plain version on the card; bits per sample beside
    ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
    call (``call_ms``) and of its bit words alone (``words_ms``).
-14. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+17. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
-15. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+18. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
    S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
    at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
    float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
@@ -85,7 +105,7 @@ line is printed:
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
 
-Phases 4 and 7-15 each zero their kernel's launch count just before
+Phases 4, 7, 8 and 10-18 each zero their kernel's launch count just before
 their main path and read it just after; the fused kernel's entry of the
 per-kernel JSON line carries each path's launches, shapes and times
 under ``paths``.  Then the nvidia-smi name/power-limit line, and last
@@ -115,6 +135,11 @@ SERVE_QUERIES, SERVE_PATTERNS = 64, 4
 # defaults 4096 and 64; 6 rounds a group instead of 12)
 SERVE_BUDGET, SERVE_BURN_IN = 2048, 32
 KERNEL_SHAPES = ((7, 3), (300, 5), (4096, 16), (20000, 5), (65536, 2))
+# lane-offset cases: blocks of one (20000, 5) launch run as lane shards,
+# and the whole launch at a lane0 whose counters pass 2**32
+LANE0_SHAPE = (20000, 5)
+LANE0_BLOCKS = ((0, 7000), (7000, 13000), (13000, 20000))
+LANE0_FAR = 1 << 40
 # benchmarks/bench_ky_vs_cdf.py: 65536 rows, n in {4, 16, 64}, alpha 0.3
 KY_SHAPES = ((65536, 4), (65536, 16), (65536, 64))
 KY_RAGGED = (133, 7)
@@ -179,6 +204,24 @@ STREAM_ANCHOR = dict(chains_per_query=128, ess_target=2000, max_rounds=256,
 # mrf_penguin's 500 x 333 in one /v2/batch, at the cut serve depth of the
 # MRF and Ising phases (8 chains, 1 burn-in round + 4 rounds of 4 sweeps)
 WIRE = dict(workers=2, queries=16, patterns=2, budget=256, slices=3)
+# the tile mesh (C3): aia-mrf-penguin at its published 500 x 333 (L 2,
+# 16 chains) on a 2 x 2 mesh (333 is odd, so the pad path runs); the
+# identities on a cut depth, 200 sweeps timed, the clamped step once
+MESH_GIBBS = dict(rows=2, cols=2, identity_sweeps=10, sweeps=200,
+                  clamped_sweeps=5)
+# lane sharding over a 4-way batch mesh: the serve phase's traffic, one
+# MrfQuery at 500 x 333 and one IsingQuery at side 256 (the cut serve
+# depth), and tests/test_distributed.py's lane-padding case (6 chains a
+# query on 4 shards, within 0.05 of exact)
+SHARD_WAYS = 4
+SHARDED_PAD = dict(chains_per_query=6, burn_in=64, max_rounds=48, seed=7,
+                   n_samples=16384, tol=0.05)
+# Metropolis at full size on the card (penguin 500 x 333, 16 chains; the
+# 65,536-spin sparse glass, 8 chains), and the card against the CPU at a
+# reduced size, bit for bit
+METROPOLIS = dict(sweeps=100, min_accuracy=0.9, fg_chains=8, fg_sweeps=5,
+                  small_shape=(50, 34), small_chains=2, small_sweeps=5,
+                  small_spins=4096)
 
 
 def emit(obj) -> None:
@@ -285,8 +328,28 @@ def phase_kernel_vs_plain(device) -> dict:
                 equal, err = result_err(got, want)
                 cases.append(dict(b=b, L=L, k=k, use_iu=use_iu, equal=equal,
                                   max_abs_err=err, ok_all=bool(got.ok.all())))
+    # lane shards: rows [a, a + n) launched with lane0=a equal those rows
+    # of the unsharded launch (and the plain version with the same
+    # lane0); lane0 past 2**32 / W runs the 64-bit counters
+    b, L = LANE0_SHAPE
+    key, logw, card = kernel_inputs(b, L, 17, device)
+    full = fs.fused_gibbs_sample(key, logw, card, k=14)
+    cuts = [(lo, hi, lo) for lo, hi in LANE0_BLOCKS] + [(0, b, LANE0_FAR)]
+    for lo, hi, lane0 in cuts:
+        got = fs.fused_gibbs_sample(key, logw[lo:hi], card[lo:hi], k=14,
+                                    lane0=lane0)
+        want = fs.fused_gibbs_sample_ref(key, logw[lo:hi], card[lo:hi],
+                                         k=14, lane0=lane0)
+        torch.cuda.synchronize()
+        eq_plain, err = result_err(got, want)
+        eq_rows = (lane0 != lo   # the far case has no unsharded twin
+                   or result_err(got, [f[lo:hi] for f in full])[0])
+        cases.append(dict(b=hi - lo, L=L, k=14, use_iu=True, lane0=lane0,
+                          equal=eq_plain and eq_rows, max_abs_err=err,
+                          ok_all=bool(got.ok.all())))
     bad = [c for c in cases if not c["equal"]]
     emit({"phase": "kernel_vs_plain", "cases": len(cases),
+          "lane0_cases": sum("lane0" in c for c in cases),
           "all_equal": not bad, "failures": bad})
     if bad:
         raise AssertionError(f"fused kernel != plain version: {bad}")
@@ -304,16 +367,17 @@ def record_main_path(keep_all: bool = True):
     ``GroupRun.step`` (one engine round), and the calls of
     ``rng.random_bit_words`` (the kernel makes its own words, so the CUDA
     route should make none).  The fused sampler is read by name in the BN
-    compile chain, the MRF half-step and the sparse colour update; all
-    three are recorded."""
+    compile chain, the MRF half-step, the sparse colour update and the
+    mesh step's tiles; all four are recorded."""
     from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
     from repro_torch.pgm import gibbs as gibbs_mod
+    from repro_torch.pgm import mesh_gibbs as mesh_mod
     from repro_torch.pgm import sparse_compile as sparse_mod
     from repro_torch.serve.engine import GroupRun
 
-    mods = (compile_mod, gibbs_mod, sparse_mod)
+    mods = (compile_mod, gibbs_mod, sparse_mod, mesh_mod)
     fused, step = fs.fused_gibbs_sample, GroupRun.step
     bit_words = rng.random_bit_words
     rec = {"calls": [], "per_round": Counter(), "word_calls": 0}
@@ -405,6 +469,8 @@ def phase_main_path_kernel(rec) -> dict:
     beforehand and ``words_ms`` those words (which the kernel makes
     itself), all on the same inputs; each averaged over the shapes
     weighted by their launch counts."""
+    import torch
+
     from repro_torch.kernels import fused_sweep as fs
 
     first = {}
@@ -417,27 +483,29 @@ def phase_main_path_kernel(rec) -> dict:
         plain = fs.fused_gibbs_sample_ref(key, logw, card, **kw)
         lane_card = fs._lane_card(card, b, logw.device)
         logw_c = logw.contiguous()
+        lane0 = kw.get("lane0", 0)     # a lane shard's first global row
         opts = dict(k=kw["k"], use_iu=kw.get("use_iu", True),
                     table=kw["table"], mask_value=fs.MASK_NEG)
 
         def launch():
             return fs._launch(logw_c, lane_card, key, max_attempts=32,
-                              block_b=256, **opts)
+                              block_b=256, lane0=lane0, **opts)
 
         eq_rec, err_rec = result_err(again, res)
         eq_plain, err_plain = result_err(again, plain)
         if not (eq_rec and eq_plain):
             bad.append(dict(b=b, L=L, equals_recorded=eq_rec,
                             equals_plain=eq_plain))
-        words = fs._words(key, b, 32, logw.device)
-        rows.append(dict(
-            n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
-            ms=cold_device_ms(launch, 3, logw.device, calls=100),
-            call_ms=time_ms(launch, 200),
-            plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
-                                               **opts), 5, warmup=1),
-            words_ms=time_ms(lambda: fs._words(key, b, 32, logw.device),
-                             20)))
+        words = fs._words(key, b, 32, logw.device, lane0)
+        with torch.cuda.device(logw.device):    # events on the call's card
+            rows.append(dict(
+                n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
+                ms=cold_device_ms(launch, 3, logw.device, calls=100),
+                call_ms=time_ms(launch, 200),
+                plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
+                                                   **opts), 5, warmup=1),
+                words_ms=time_ms(lambda: fs._words(key, b, 32, logw.device,
+                                                   lane0), 20)))
     emit({"phase": "kernel_vs_plain_main_path", "shapes": len(rows),
           "all_equal": not bad, "failures": bad})
     if bad:
@@ -1531,6 +1599,350 @@ def phase_flash_attention(device) -> dict:
     return {"tc": tc, "simt": simt}
 
 
+def mesh_devices(n: int):
+    """``n`` devices for a mesh: ``cuda:0..n-1`` when the host has that many
+    cards, else the one card repeated (the tile, halo and shard logic then
+    runs on it); and which of the two it is."""
+    import torch
+
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)], "distinct"
+    return [torch.device("cuda", 0)] * n, "repeated"
+
+
+def phase_mesh_gibbs(card_name: str, devices, kind: str) -> dict:
+    """Distributed halo-exchange Gibbs (``pgm/mesh_gibbs``) on a 2 x 2
+    tile mesh at aia-mrf-penguin's published size, through ``run_mcmc``'s
+    mesh branch: on a cut depth ``sampler="cuda"`` equals ``"torch"`` and
+    ``comm="halo"`` equals ``comm="allgather"`` bit for bit (labels,
+    bits); the bytes each exchange copied per half-step beside the
+    per-tile formulas; 200 sweeps timed (site samples per second, bits a
+    sample, accuracy against the task's truth), exactly 2 launches a tile
+    a sweep; the clamped step once, cuda against torch."""
+    import torch
+
+    from repro_torch.configs.aia_paper import PENGUIN
+    from repro_torch.core import rng
+    from repro_torch.launch.mesh import make_pgm_mesh
+    from repro_torch.launch.run_mcmc import run_mrf
+    from repro_torch.pgm import networks
+    from repro_torch.pgm.mesh_gibbs import (
+        make_mesh_gibbs_step, shard_clamp, shard_mrf)
+    from repro_torch.serve.cli import scribble_mask
+
+    m, cfg = MESH_GIBBS, PENGUIN
+    mesh = make_pgm_mesh(m["rows"], m["cols"], devices=devices)
+    tiles = m["rows"] * m["cols"]
+    n_id = m["identity_sweeps"]
+    with record_main_path(keep_all=False) as rec_id:     # a main path
+        halo = run_mrf(cfg, sweeps=n_id, chains=cfg.n_chains,
+                       sampler="cuda", mesh=mesh)
+    check_recorded(rec_id, "mesh_gibbs identity run")
+    plain = run_mrf(cfg, sweeps=n_id, chains=cfg.n_chains, sampler="torch",
+                    mesh=mesh)
+    gather = run_mrf(cfg, sweeps=n_id, chains=cfg.n_chains, sampler="cuda",
+                     mesh=mesh, comm="allgather")
+    same = {"cuda_equals_torch": torch.equal(halo["labels"], plain["labels"])
+            and halo["bits"] == plain["bits"],
+            "halo_equals_allgather": torch.equal(halo["labels"],
+                                                 gather["labels"])
+            and halo["bits"] == gather["bits"]}
+    b = cfg.n_chains
+    hp = -(-cfg.height // m["rows"]) * m["rows"]
+    wp = -(-cfg.width // m["cols"]) * m["cols"]
+    ht, wt = hp // m["rows"], wp // m["cols"]
+    comm = {"halo_bytes_per_halfstep":
+            halo["step"].comm_bytes / halo["step"].halfsteps,
+            "allgather_bytes_per_halfstep":
+            gather["step"].comm_bytes / gather["step"].halfsteps,
+            "halo_tile_formula": 2 * (ht + wt) * b * 4,
+            "allgather_tile_formula": (hp * wp - ht * wt) * b * 4}
+    emit({"phase": "mesh_gibbs_identity", "card": card_name,
+          "devices": kind, "shape": list(halo["shape"]),
+          "padded": [hp, wp], "tile": [ht, wt], "chains": b, "sweeps": n_id,
+          "launches": rec_id["launches"], **same, **comm,
+          "cuda_s": halo["seconds"], "torch_s": plain["seconds"],
+          "allgather_s": gather["seconds"]})
+    if not all(same.values()):
+        raise AssertionError(f"mesh_gibbs identities: {same}")
+    if comm["allgather_bytes_per_halfstep"] != (
+            tiles * comm["allgather_tile_formula"]) or not (
+            0 < comm["halo_bytes_per_halfstep"]
+            <= tiles * comm["halo_tile_formula"]):
+        raise AssertionError(f"mesh_gibbs bytes: {comm}")
+    if rec_id["launches"] != 2 * tiles * n_id:
+        raise AssertionError(f"mesh_gibbs: {rec_id['launches']} launches "
+                             f"for {n_id} sweeps")
+    del halo, plain, gather
+    rec_id["calls"].clear()
+
+    with record_main_path(keep_all=False) as rec:       # the main path
+        run = run_mrf(cfg, sweeps=m["sweeps"], chains=cfg.n_chains,
+                      sampler="cuda", mesh=mesh)
+    check_recorded(rec, "mesh_gibbs")
+    if rec["launches"] != 2 * tiles * m["sweeps"]:
+        raise AssertionError(f"mesh_gibbs: {rec['launches']} launches for "
+                             f"{m['sweeps']} sweeps")
+    labels = run["labels"]
+    if not bool(((labels >= 0) & (labels < 2)).all()):
+        raise AssertionError("mesh_gibbs: labels outside [0, 2)")
+    if not run["accuracy"] >= MIN_PENGUIN_ACCURACY:
+        raise AssertionError(f"mesh_gibbs: accuracy {run['accuracy']} < "
+                             f"{MIN_PENGUIN_ACCURACY}")
+    kern = phase_main_path_kernel(rec)
+    msample_s = run["n_samples"] / run["seconds"] / 1e6
+
+    # the clamped step once: a scribble of observed pixels, cuda vs torch
+    mrf, truth = networks.penguin_task(cfg.height, cfg.width, beta=cfg.beta)
+    clamp = scribble_mask(cfg.height, cfg.width, np.random.default_rng(0))
+    clamped = {}
+    for sampler in ("cuda", "torch"):
+        key = rng.PRNGKey(0)
+        lab, u, pw, valid, _ = shard_mrf(mesh, mrf, cfg.n_chains, key)
+        lab, cl = shard_clamp(mesh, clamp, truth, lab)
+        step = make_mesh_gibbs_step(mesh, k=cfg.k, sampler=sampler,
+                                    clamped=True)
+        bits = 0
+        for _ in range(m["clamped_sweeps"]):
+            key, sub = rng.split(key)
+            lab, bgrid = step(sub, lab, u, pw, valid, cl)
+            bits = bits + bgrid.sum()
+        full = lab.gather()[:, :cfg.height, :cfg.width]
+        clamped[sampler] = (full, int(bits))
+    got_clamped = clamped["cuda"][0][:, torch.as_tensor(clamp)]
+    held = bool((got_clamped == torch.as_tensor(
+        truth[clamp], device=got_clamped.device)).all())
+    clamped_same = (torch.equal(clamped["cuda"][0], clamped["torch"][0])
+                    and clamped["cuda"][1] == clamped["torch"][1])
+    emit({"phase": "mesh_gibbs", "card": card_name, "devices": kind,
+          "mesh": mesh.shape, "shape": list(run["shape"]),
+          "chains": cfg.n_chains, "sweeps": m["sweeps"],
+          "seconds": run["seconds"], "msample_s": msample_s,
+          "bits_per_sample": run["bits"] / run["n_samples"],
+          "accuracy": run["accuracy"], "launches": rec["launches"],
+          "fused_shapes": sorted([b, L, n] for (b, L), n in
+                                 rec["shapes"].items()),
+          "fused_ms": kern["ms"], "fused_bound_ms": kern["bound_ms"],
+          "halo_bytes_per_sweep": run["step"].comm_bytes / m["sweeps"],
+          "clamped_pixels": int(clamp.sum()),
+          "clamped_cuda_equals_torch": clamped_same,
+          "clamped_sites_held": held})
+    if not (clamped_same and held):
+        raise AssertionError(f"mesh_gibbs clamped: cuda==torch "
+                             f"{clamped_same}, clamps held {held}")
+    rec["calls"].clear()
+    del run, labels, clamped, lab
+    torch.cuda.empty_cache()
+    return dict(path_entry(rec, kern), msample_s=msample_s,
+                devices=kind)
+
+
+def phase_serve_sharded(card_name: str, devices, kind: str, traffic,
+                        want) -> dict:
+    """Lane sharding over a 4-way serve mesh: the serve phase's traffic
+    through ``PosteriorEngine(mesh=...)`` must equal the serve phase's
+    cold pass (``want``) bit for bit (marginals, so counts; diagnostics;
+    bits), within 1e-12 on marginals a fortiori; one scribble-mask
+    ``MrfQuery`` at 500 x 333 and one ``IsingQuery`` on the side-256
+    torus sharded and unsharded, bitwise; and a lane-padding case (6
+    chains a query, padded to 8 lanes) within 0.05 of exact."""
+    import torch
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.pgm import networks
+    from repro_torch.serve import cli
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.serve.query import Query
+
+    mesh = make_serve_mesh((SHARD_WAYS,), devices=devices)
+    registry = {SERVE_NET: getattr(networks, SERVE_NET)()}
+    engine = PosteriorEngine(registry, burn_in=SERVE_BURN_IN, seed=0,
+                             mesh=mesh)
+    assert engine.sampler == "cuda"
+    with record_main_path(keep_all=False) as rec:       # the main path
+        got, wall = timed_pass(engine, traffic)
+    check_recorded(rec, "serve_sharded")
+    same = same_results(got, want)
+    diff = max(float(np.abs(a.marginals[k] - b.marginals[k]).max())
+               for a, b in zip(got, want) for k in a.marginals)
+    emit({"phase": "serve_sharded", "card": card_name, "devices": kind,
+          "mesh": mesh.shape, "queries": len(traffic), "wall_s": wall,
+          "qps": len(traffic) / wall, "launches": rec["launches"],
+          "launches_per_round": sorted(rec["per_round"].items()),
+          "host_word_calls": rec["word_calls"],
+          "equals_unsharded": same, "max_marginal_diff": diff})
+    if not same or not diff <= 1e-12:
+        raise AssertionError(f"serve_sharded: sharded != unsharded "
+                             f"(bitwise {same}, max diff {diff})")
+    check_marginals(got, "serve_sharded")
+    kern = phase_main_path_kernel(rec)
+    rec["calls"].clear()
+    out = {"bn": dict(path_entry(rec, kern), qps=len(traffic) / wall)}
+
+    reg = cli.build_registry(("mrf_penguin", "ising_torus"),
+                             mrf_shape=SERVE_MRF["shape"],
+                             ising_side=SERVE_ISING["side"])
+    grids = [cli.synthetic_mrf_traffic(
+        reg["mrf_penguin"], "mrf_penguin", 1, 1, np.random.default_rng(0),
+        SERVE_MRF["budget"]), cli.synthetic_ising_traffic(
+        reg["ising_torus"], "ising_torus", 1, 1, np.random.default_rng(1),
+        SERVE_ISING["budget"])]
+    with record_main_path(keep_all=False) as rec_g:     # a main path
+        t0 = time.perf_counter()
+        sharded = [PosteriorEngine(reg, mesh=mesh, **SERVE_DEPTH)
+                   .answer_batch(q) for q in grids]
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+    check_recorded(rec_g, "serve_sharded grids")
+    t0 = time.perf_counter()
+    single = [PosteriorEngine(reg, **SERVE_DEPTH).answer_batch(q)
+              for q in grids]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    grid_same = [same_results(a, b) for a, b in zip(sharded, single)]
+
+    spr = networks.sprinkler()
+    p = SHARDED_PAD
+    pad_engine = PosteriorEngine(
+        {"sprinkler": spr}, mesh=mesh, **{k: p[k] for k in (
+            "chains_per_query", "burn_in", "max_rounds", "seed")})
+    lane_shapes = Counter()
+    with record_main_path(keep_all=False) as rec_p:
+        res = pad_engine.answer(Query("sprinkler", {"wetgrass": 1},
+                                      ("rain",), n_samples=p["n_samples"]))
+    lane_shapes.update(rec_p["shapes"])
+    exact = spr.marginals_exact({"wetgrass": 1})[2]
+    pad_err = float(np.abs(res.marginal("rain") - exact).max())
+    emit({"phase": "serve_sharded_grids", "card": card_name,
+          "mrf_equals_unsharded": grid_same[0],
+          "ising_equals_unsharded": grid_same[1],
+          "sharded_s": grid_s, "unsharded_s": single_s,
+          "launches": rec_g["launches"],
+          "lane_padding": {"chains": p["chains_per_query"],
+                           "shapes": sorted([b, L, n] for (b, L), n in
+                                            lane_shapes.items()),
+                           "p_rain": res.marginal("rain").tolist(),
+                           "exact": exact.tolist(), "err": pad_err}})
+    if not all(grid_same):
+        raise AssertionError(f"serve_sharded grids: sharded != unsharded "
+                             f"{grid_same}")
+    if not pad_err < p["tol"]:
+        raise AssertionError(f"serve_sharded lane padding: off by {pad_err}")
+    kern_g = phase_main_path_kernel(rec_g)
+    rec_g["calls"].clear()
+    out["grids"] = dict(path_entry(rec_g, kern_g))
+    torch.cuda.empty_cache()
+    return out
+
+
+def first_difference(a, b):
+    """The first index where two tensors differ, or None."""
+    import torch
+
+    diff = torch.nonzero(a.cpu() != b.cpu())
+    return None if not len(diff) else diff[0].tolist()
+
+
+def phase_metropolis(card_name: str) -> dict:
+    """Metropolis-Hastings (``pgm/metropolis``) at full size on the card:
+    ``mrf_metropolis`` on aia-mrf-penguin (500 x 333, 16 chains) and
+    ``fg_metropolis`` on the 65,536-spin random sparse glass — acceptance
+    rate, bits, accuracy; then both on the card against the CPU at a
+    reduced size, bit for bit (labels, acceptance rate, bits); on a
+    difference the first differing site is printed and the phase
+    fails."""
+    import torch
+
+    from repro_torch.configs.aia_paper import PENGUIN
+    from repro_torch.core import rng
+    from repro_torch.pgm import networks
+    from repro_torch.pgm import sparse_compile as sc
+    from repro_torch.pgm.gibbs import init_labels
+    from repro_torch.pgm.metropolis import fg_metropolis, mrf_metropolis
+
+    m, cfg = METROPOLIS, PENGUIN
+    mrf, truth = networks.penguin_task(cfg.height, cfg.width, beta=cfg.beta)
+    lab = init_labels(rng.PRNGKey(0), mrf, cfg.n_chains, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, st = mrf_metropolis(rng.PRNGKey(1), lab, mrf.unary, mrf.pairwise,
+                             n_sweeps=m["sweeps"])
+    torch.cuda.synchronize()
+    mrf_s = time.perf_counter() - t0
+    acc = float((out[0].cpu().numpy() == truth).mean())
+    proposals = cfg.n_chains * cfg.height * cfg.width * m["sweeps"]
+
+    prog = sc.compile_factor_graph(networks.random_sparse_ising(
+        SPARSE_RUN["n"]))
+    x0 = sc.init_fg_states(rng.PRNGKey(0), prog, m["fg_chains"],
+                           device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, fst = fg_metropolis(rng.PRNGKey(1), x0, prog, n_sweeps=m["fg_sweeps"])
+    torch.cuda.synchronize()
+    fg_s = time.perf_counter() - t0
+
+    # the card against the CPU at a reduced size
+    h, w = m["small_shape"]
+    small, _ = networks.penguin_task(h, w, beta=cfg.beta)
+    sprog = sc.compile_factor_graph(networks.random_sparse_ising(
+        m["small_spins"]))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        lab_s = init_labels(rng.PRNGKey(0), small, m["small_chains"],
+                            device=dev)
+        g = mrf_metropolis(rng.PRNGKey(1), lab_s, small.unary,
+                           small.pairwise, n_sweeps=m["small_sweeps"])
+        xs = sc.init_fg_states(rng.PRNGKey(0), sprog, m["small_chains"],
+                               device=dev)
+        f = fg_metropolis(rng.PRNGKey(1), xs, sprog,
+                          n_sweeps=m["small_sweeps"])
+        runs[dev] = (g, f)
+    checks = {}
+    for name, i in (("mrf", 0), ("fg", 1)):
+        (a, sa), (b, sb) = runs["cuda"][i], runs["cpu"][i]
+        checks[name] = dict(
+            first_difference=first_difference(a, b),
+            accept_rate=[float(sa.accept_rate), float(sb.accept_rate)],
+            bits=[int(sa.bits_used), int(sb.bits_used)])
+        checks[name]["equal"] = (
+            checks[name]["first_difference"] is None
+            and checks[name]["accept_rate"][0] == checks[name][
+                "accept_rate"][1]
+            and checks[name]["bits"][0] == checks[name]["bits"][1])
+    emit({"phase": "metropolis", "card": card_name,
+          "mrf": {"config": cfg.name, "shape": [cfg.height, cfg.width],
+                  "chains": cfg.n_chains, "sweeps": m["sweeps"],
+                  "seconds": mrf_s,
+                  "mproposals_s": proposals / mrf_s / 1e6,
+                  "accept_rate": float(st.accept_rate),
+                  "bits_used": int(st.bits_used),
+                  "bits_per_proposal": int(st.bits_used) / proposals,
+                  "accuracy": acc},
+          "fg": {"spins": SPARSE_RUN["n"], "chains": m["fg_chains"],
+                 "sweeps": m["fg_sweeps"], "seconds": fg_s,
+                 "accept_rate": float(fst.accept_rate),
+                 "bits_used": int(fst.bits_used)},
+          "card_vs_cpu": {"shape": [h, w], "spins": m["small_spins"],
+                          "chains": m["small_chains"],
+                          "sweeps": m["small_sweeps"], **checks}})
+    bad = [k for k, c in checks.items() if not c["equal"]]
+    if bad:
+        raise AssertionError(f"metropolis: the card differs from the CPU "
+                             f"on {bad}: {checks}")
+    for name, rate in (("mrf", st.accept_rate), ("fg", fst.accept_rate)):
+        if not 0.0 < float(rate) <= 1.0:
+            raise AssertionError(f"metropolis {name}: accept rate {rate}")
+    if not bool(((out >= 0) & (out < 2)).all()) or not bool(
+            ((x >= 0) & (x < 2)).all()):
+        raise AssertionError("metropolis: states outside [0, 2)")
+    if not acc >= m["min_accuracy"]:
+        raise AssertionError(f"metropolis: penguin accuracy {acc} < "
+                             f"{m['min_accuracy']}")
+    return {"mrf_accept_rate": float(st.accept_rate),
+            "fg_accept_rate": float(fst.accept_rate)}
+
+
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
     """One kernel's entry of the per-kernel JSON line."""
     entry = {"name": name, "route": "cuda",
@@ -1580,9 +1992,19 @@ def main() -> int:
     profile_mrf(card_name)
     paths["mrf_gibbs"] = mrf["aia-mrf-penguin"]
     paths["mrf_gibbs_art"] = mrf["aia-mrf-art"]
+    paths["mesh_gibbs"] = phase_mesh_gibbs(card_name, *mesh_devices(
+        MESH_GIBBS["rows"] * MESH_GIBBS["cols"]))
+    phase_metropolis(card_name)
     paths["serve_mrf"] = phase_serve_mrf(card_name)
     paths["serve_ising"] = phase_serve_ising(card_name)
     paths["serve_queue"] = phase_serve_queue(card_name, traffic, serve_cold)
+    devices, kind = mesh_devices(SHARD_WAYS)
+    emit({"phase": "mesh_devices", "devices": [str(d) for d in devices],
+          "kind": kind, "cards": torch.cuda.device_count()})
+    sharded = phase_serve_sharded(card_name, devices, kind, traffic,
+                                  serve_cold)
+    paths["serve_sharded"] = sharded["bn"]
+    paths["serve_sharded_grids"] = sharded["grids"]
     del serve_cold
     paths["serve_stream"] = phase_serve_stream(card_name)
     paths["serve_wire"] = phase_serve_wire(card_name)

@@ -135,6 +135,7 @@ def ky_sample(
     *,
     max_attempts: int = 32,
     bit_words: torch.Tensor | None = None,
+    lane0: int = 0,
 ) -> KYResult:
     """Draw one exact sample per lane from non-normalized int32 weights.
 
@@ -144,6 +145,8 @@ def ky_sample(
       max_attempts: restart budget; non-terminating lanes fall back to
         argmax and are flagged ``ok=False``.
       bit_words: optional pre-generated (..., W) int32 bit stream.
+      lane0: global index of the first lane: lane ``i`` reads the words
+        of lane ``lane0 + i`` of the key's draw (a lane shard's rows).
 
     Returns KYResult with ``sample`` shaped like ``weights[..., 0]``.
     """
@@ -156,7 +159,7 @@ def ky_sample(
     k_static = 31  # static per-attempt level cap (int32 weights)
     if bit_words is None:
         bit_words = rng_lib.random_bit_words(
-            key, (b,), k_static * max_attempts, device=w.device)
+            key, (b,), k_static * max_attempts, device=w.device, lane0=lane0)
     else:
         bit_words = bit_words.reshape((b, -1))
 

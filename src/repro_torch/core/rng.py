@@ -82,14 +82,17 @@ def bit_budget_words(max_bits: int) -> int:
     return (max_bits + 31) // 32
 
 
-def bits(key, shape: tuple, device=None) -> torch.Tensor:
+def bits(key, shape: tuple, device=None, offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in
-    ``[0, 2**32)``, generated on ``device``."""
+    ``[0, 2**32)``, generated on ``device``.  ``offset`` starts the
+    counters there: element ``i`` hashes counter ``offset + i``, so a
+    slice of a larger draw is made without the rest of it."""
     k0, k1 = _key_words(key)
     n = 1
     for s in shape:
         n *= int(s)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(int(offset), int(offset) + n, dtype=torch.int64,
+                       device=device)
     a, b = _threefry2x32(k0, k1, idx >> 32, idx & _MASK)
     return (a ^ b).reshape(tuple(shape))
 
@@ -99,22 +102,28 @@ def _as_int32_bits(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-def random_bit_words(key, shape: tuple, max_bits: int,
-                     device=None) -> torch.Tensor:
+def random_bit_words(key, shape: tuple, max_bits: int, device=None,
+                     lane0: int = 0) -> torch.Tensor:
     """(*shape, words) random words supplying ``max_bits`` bits per lane,
-    as int32 tensors holding the uint32 bit patterns."""
+    as int32 tensors holding the uint32 bit patterns.  ``lane0`` is the
+    global index of the first lane: the words are rows ``[lane0,
+    lane0 + lanes)`` of the draw over the global lane axis (a lane shard
+    reads the counters the unsharded draw gives its lanes)."""
     words = bit_budget_words(max_bits)
-    return _as_int32_bits(bits(key, tuple(shape) + (words,), device))
+    return _as_int32_bits(bits(key, tuple(shape) + (words,), device,
+                               offset=int(lane0) * words))
 
 
-def lane_word(k0: int, k1: int, i: int, j: int, n_words: int) -> int:
+def lane_word(k0: int, k1: int, i: int, j: int, n_words: int,
+              lane0: int = 0) -> int:
     """Word ``j`` of lane ``i`` of a ``(lanes, n_words)`` draw under key
-    ``(k0, k1)``, as a uint32 Python int: threefry2x32 of the 64-bit
-    counter ``i * n_words + j`` split into (hi, lo) words, ``x0 ^ x1``.
-    The scalar twin of the word the fused sweep kernel makes in place
+    ``(k0, k1)`` whose first lane is global lane ``lane0``, as a uint32
+    Python int: threefry2x32 of the 64-bit counter ``(lane0 + i) *
+    n_words + j`` split into (hi, lo) words, ``x0 ^ x1``.  The scalar twin
+    of the word the fused sweep kernel makes in place
     (``kernels/csrc/fused_sweep.cu::lane_word``); it equals
-    ``random_bit_words(key, (lanes,), 32 * n_words)[i, j]``."""
-    idx = int(i) * int(n_words) + int(j)
+    ``random_bit_words(key, (lanes,), 32 * n_words, lane0=lane0)[i, j]``."""
+    idx = (int(lane0) + int(i)) * int(n_words) + int(j)
     x0, x1 = _threefry2x32(int(k0), int(k1), idx >> 32, idx & _MASK)
     return x0 ^ x1
 

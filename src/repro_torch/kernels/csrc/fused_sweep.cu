@@ -7,12 +7,14 @@
 // kernel launched by fused_gibbs_sample (pallas_call at fused_sweep.py:165).
 //
 // Random bits.  Word j of lane i is JAX's threefry2x32 (20 rounds) of the
-// 64-bit counter i * W + j under the colour's key, x0 ^ x1 -- word (i, j) of
-// jax.random.bits(key, (b, W)) in the partitionable layout, at the true
-// lane count b, which is what the plain version reads
+// 64-bit counter (lane0 + i) * W + j under the colour's key, x0 ^ x1 --
+// word (lane0 + i, j) of jax.random.bits(key, (B, W)) in the partitionable
+// layout over the global lane axis, which is what the plain version reads
 // (core/rng.py::random_bit_words; core/rng.py::lane_word is its scalar
-// twin).  A lane computes word j only when its cursor first reaches it, so
-// no word is written to or read from memory.
+// twin).  lane0 is 0 for an unsharded launch; a lane shard whose first row
+// is global row lane0 passes it, so the shards together draw the unsharded
+// launch's bits.  A lane computes word j only when its cursor first reaches
+// it, so no word is written to or read from memory.
 //
 // Bound on an H100: bytes.  Per lane the function reads the L float32
 // log-weights and the int32 card and writes sample, bits and attempts
@@ -78,6 +80,7 @@ struct Params {
   int* att;
   bool* ok;
   uint32_t k0, k1;  // the colour's key
+  unsigned long long lane0;  // global row of this launch's first lane
   int b, L, W;      // lanes, labels, words of budget per lane
   float wscale;     // 2^k - 1
   int use_iu, n_seg;
@@ -157,7 +160,8 @@ __global__ void fused_gibbs_group_kernel(const Params p) {
   if (!done) {
     const int K = levels(total);
     const long long rej = (1LL << K) - total;
-    const unsigned long long base = (unsigned long long)lane * p.W;
+    const unsigned long long base =
+        (p.lane0 + (unsigned long long)lane) * (unsigned long long)p.W;
     const unsigned le = (2u << wl) - 1;  // lanemask_le (all ones at 31)
     long long d = 0;
     int c = 0, wj = -1;
@@ -218,12 +222,14 @@ int next_pow2(int x) {
 }  // namespace
 
 // block: threads per block, a multiple of 32.  k0, k1: the colour's key
-// words; W: words of bit budget per lane.  The grid is b * next_pow2(L)
+// words; lane0: the global row of lane 0 (0 unless the launch is a lane
+// shard); W: words of bit budget per lane.  The grid is b * next_pow2(L)
 // threads (at least 2 a lane), sized and indexed in 64 bits
 // (kernels/fused_sweep.py::launch_geometry is its Python twin).
 extern "C" int fused_gibbs_sample_launch(
     const void* logw, const void* card, uint32_t k0, uint32_t k1,
-    const void* table, void* sample, void* bits, void* att, void* ok, int b,
+    unsigned long long lane0, const void* table, void* sample, void* bits,
+    void* att, void* ok, int b,
     int L, int W, float wscale, int use_iu, int n_seg, float lo, float scale,
     float mask_value, int block, void* stream) {
   if (b <= 0) return 0;
@@ -233,8 +239,8 @@ extern "C" int fused_gibbs_sample_launch(
   const Params p{static_cast<const float*>(logw), static_cast<const int*>(card),
                  static_cast<const float*>(table), static_cast<int*>(sample),
                  static_cast<int*>(bits), static_cast<int*>(att),
-                 static_cast<bool*>(ok), k0, k1, b, L, W, wscale, use_iu,
-                 n_seg, lo, scale, mask_value};
+                 static_cast<bool*>(ok), k0, k1, lane0, b, L, W, wscale,
+                 use_iu, n_seg, lo, scale, mask_value};
   auto s = static_cast<cudaStream_t>(stream);
   switch (g) {
     case 2: return launch_group<2>(p, block, s);

@@ -14,9 +14,12 @@ Its plain PyTorch version is :func:`fused_gibbs_sample_ref`: the two-stage
 
 Bitwise contract: the kernel takes the color's key, not words, and makes
 word ``j`` of lane ``i`` itself, when the lane's cursor first reaches it:
-threefry2x32 of the counter ``i * W + j`` at the true lane count, the
-word ``random_bit_words(key, (b,), 31 * max_attempts)`` holds there
-(:func:`repro_torch.core.rng.lane_word` is its scalar twin).  So
+threefry2x32 of the counter ``(lane0 + i) * W + j`` over the global lane
+axis, the word ``random_bit_words(key, (b,), 31 * max_attempts,
+lane0=lane0)`` holds there (:func:`repro_torch.core.rng.lane_word` is its
+scalar twin).  ``lane0`` is 0 for an unsharded call; a lane shard whose
+first row is global row ``lane0`` passes it, and its rows then equal rows
+``[lane0, lane0 + b)`` of the unsharded call.  So
 ``sampler="cuda"`` returns the same samples, bits, attempts and ok flags
 as ``sampler="torch"`` and as the reference's ``sampler="pallas"``/
 ``"xla"`` under the same key.  A group of ``next_pow2(L)`` threads (at
@@ -86,6 +89,12 @@ def _check_k(k: int) -> None:
             f"quantize to weight 0 (got k={k})")
 
 
+def _check_lane0(lane0: int) -> None:
+    # the counter (lane0 + i) * W + j is a 64-bit integer
+    if not 0 <= int(lane0) < 1 << 58:
+        raise ValueError(f"lane0 must lie in [0, 2**58) (got {lane0})")
+
+
 def _lane_card(card, b: int, device) -> torch.Tensor:
     if isinstance(card, int):   # a fill on the device, no host copy
         return torch.full((b,), card, dtype=torch.int32, device=device)
@@ -93,12 +102,13 @@ def _lane_card(card, b: int, device) -> torch.Tensor:
     return torch.broadcast_to(card, (b,)).contiguous()
 
 
-def _words(key, b: int, max_attempts: int, device) -> torch.Tensor:
-    """The exact stream ``ky_sample(key, ...)`` draws, at the true lane
-    count (threefry pairs counters by total count, so padding first
-    would change every word): the plain version's input."""
+def _words(key, b: int, max_attempts: int, device,
+           lane0: int = 0) -> torch.Tensor:
+    """The exact stream ``ky_sample(key, ..., lane0=lane0)`` draws for
+    rows ``[lane0, lane0 + b)`` of the global lane axis: the plain
+    version's input."""
     return rng_lib.random_bit_words(key, (b,), 31 * max_attempts,
-                                    device=device)
+                                    device=device, lane0=lane0)
 
 
 @functools.cache
@@ -109,16 +119,19 @@ def _entry():
 
     fn = _build.load("fused_sweep").fused_gibbs_sample_launch
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    fn.argtypes = [p, p, u, u] + [p] * 5 + [i, i, i, f, i, i, f, f, f, i, p]
+    fn.argtypes = ([p, p, u, u, ctypes.c_uint64] + [p] * 5
+                   + [i, i, i, f, i, i, f, f, f, i, p])
     fn.restype = i
     return fn
 
 
 def _launch(logw: torch.Tensor, card: torch.Tensor, key,
             table: interp_lib.InterpTable, *, k: int, use_iu: bool,
-            mask_value: float, max_attempts: int, block_b: int) -> KYResult:
+            mask_value: float, max_attempts: int, block_b: int,
+            lane0: int = 0) -> KYResult:
     """One launch of the CUDA kernel on PyTorch's current stream; the
-    kernel makes its bit words from ``key``."""
+    kernel makes its bit words from ``key``, lane ``i`` those of global
+    row ``lane0 + i``."""
     b, L = logw.shape
     launch_geometry(b, L, block_b)
     dev = logw.device
@@ -132,12 +145,17 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, key,
     bits = torch.empty(b, dtype=torch.int32, device=dev)
     att = torch.empty(b, dtype=torch.int32, device=dev)
     ok = torch.empty(b, dtype=torch.bool, device=dev)
-    err = _entry()(
-        logw.data_ptr(), card.data_ptr(), k0, k1, tab.data_ptr(),
-        sample.data_ptr(), bits.data_ptr(), att.data_ptr(), ok.data_ptr(),
-        b, L, rng_lib.bit_budget_words(31 * max_attempts), float(2 ** k - 1),
-        int(bool(use_iu)), 1 << table.m, float(table.lo), float(table.scale),
-        float(mask_value), int(block_b), _common.stream(dev))
+    # the launch goes to the tensors' card (a mesh's lane shards and tiles
+    # may sit on several cards of one process)
+    with torch.cuda.device(dev):
+        err = _entry()(
+            logw.data_ptr(), card.data_ptr(), k0, k1, int(lane0),
+            tab.data_ptr(), sample.data_ptr(), bits.data_ptr(),
+            att.data_ptr(), ok.data_ptr(), b, L,
+            rng_lib.bit_budget_words(31 * max_attempts), float(2 ** k - 1),
+            int(bool(use_iu)), 1 << table.m, float(table.lo),
+            float(table.scale), float(mask_value), int(block_b),
+            _common.stream(dev))
     _common.raise_on(err, "fused_gibbs_sample")
     _count_launch(b, L)
     return KYResult(sample=sample, bits_used=bits, attempts=att, ok=ok)
@@ -171,6 +189,7 @@ def fused_gibbs_sample(
     mask_value: float = MASK_NEG,
     max_attempts: int = 32,
     block_b: int = 256,
+    lane0: int = 0,
 ) -> KYResult:
     """Fused distribution-generation + KY sampling, one lane per row.
 
@@ -179,12 +198,14 @@ def fused_gibbs_sample(
         ``ky_sample(key, masked_exp_weights(logw, card, k, ...))``
 
     with identical results bit for bit.  ``block_b`` is the CUDA block
-    size in threads (a multiple of 32); results do not depend on it.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel, which
-    makes its own bit words from ``key``.  Returns a :class:`KYResult`
-    with (b,) fields.
+    size in threads (a multiple of 32); results do not depend on it.
+    ``lane0`` is the global row of this call's first lane (0 unless the
+    call is a lane shard; see the module docstring).  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, which makes its own bit
+    words from ``key``.  Returns a :class:`KYResult` with (b,) fields.
     """
     _check_k(k)
+    _check_lane0(lane0)
     logw = torch.as_tensor(logw, dtype=torch.float32)
     b = logw.shape[0]
     dev = logw.device
@@ -192,11 +213,11 @@ def fused_gibbs_sample(
     card = _lane_card(card, b, dev)
     table = table or interp_lib._EXP_DEFAULT
     if dev.type == "cpu":
-        return _plain(logw, card, _words(key, b, max_attempts, dev), table,
-                      k=k, use_iu=use_iu, mask_value=mask_value)
+        return _plain(logw, card, _words(key, b, max_attempts, dev, lane0),
+                      table, k=k, use_iu=use_iu, mask_value=mask_value)
     return _launch(logw.contiguous(), card, key, table, k=k, use_iu=use_iu,
                    mask_value=mask_value, max_attempts=max_attempts,
-                   block_b=block_b)
+                   block_b=block_b, lane0=lane0)
 
 
 fused_gibbs_sample.launches = 0
@@ -213,12 +234,14 @@ def fused_gibbs_sample_ref(
     table: interp_lib.InterpTable | None = None,
     mask_value: float = MASK_NEG,
     max_attempts: int = 32,
+    lane0: int = 0,
 ) -> KYResult:
     """Plain PyTorch twin of :func:`fused_gibbs_sample` on any device:
     the shared helpers on the same bit words."""
+    _check_lane0(lane0)
     logw = torch.as_tensor(logw, dtype=torch.float32)
     b = logw.shape[0]
     card = _lane_card(card, b, logw.device)
-    words = _words(key, b, max_attempts, logw.device)
+    words = _words(key, b, max_attempts, logw.device, lane0)
     return _plain(logw, card, words, table or interp_lib._EXP_DEFAULT, k=k,
                   use_iu=use_iu, mask_value=mask_value)

@@ -1,4 +1,4 @@
-"""MCMC driver — the paper's own workloads on the port, on one device.
+"""MCMC driver — the paper's own workloads on the port.
 
   python -m repro_torch.launch.run_mcmc --config aia-mrf-penguin
   python -m repro_torch.launch.run_mcmc --config aia-bn-asia
@@ -6,14 +6,20 @@
       --evidence smoke=1,dysp=1 --query lung,bronc   # posterior query
   python -m repro_torch.launch.run_mcmc --config aia-mrf-penguin \
       --scale 0.1 --sweeps 20 --device cpu
+  python -m repro_torch.launch.run_mcmc --config aia-mrf-penguin \
+      --mesh 2x2 --devices 4 --scale 0.1 --device cpu   # halo exchange (C3)
 
 (run with ``PYTHONPATH=src``).  Runs on the card (``--device cuda``, the
 default) through the fused CUDA sweep kernel; ``--sampler torch`` picks
 the plain PyTorch path, the default on ``--device cpu``.  Both give the
 JAX driver's labels, marginals and bit counts under the same seed.
 Bayesian-network configs with ``--evidence`` route through the posterior
-query engine (:mod:`repro_torch.serve`).  ``--mesh`` (distributed
-halo-exchange Gibbs) is not ported.
+query engine (:mod:`repro_torch.serve`).  ``--mesh RxC`` runs an MRF
+config as distributed halo-exchange Gibbs over a tile mesh
+(:mod:`repro_torch.pgm.mesh_gibbs`): over every visible card, or over
+``--devices N`` copies of ``--device`` (N CPU devices are the
+counterpart of the reference's fake host devices; on one card, the card
+repeated, each tile and halo then on it).
 """
 from __future__ import annotations
 
@@ -38,13 +44,20 @@ def _sync(device: torch.device) -> None:
 
 def run_mrf(cfg, *, sweeps: int, chains: int, scale: float = 1.0,
             use_iu: bool = True, sampler: str = "cuda",
-            device="cuda") -> dict:
+            device="cuda", mesh=None, comm: str = "halo") -> dict:
     """The driver's MRF branch: build the config's task at ``scale``
     (each side at least 16), draw the initial labels from key 0, run
     ``sweeps`` checkerboard sweeps from key 1 and time them (device
     synchronized).  Returns the final labels, the bit and
     attempt totals, the seconds, the site-sample count (chains × sweeps ×
-    H·W), and the first chain's accuracy against the task's truth."""
+    H·W), and the first chain's accuracy against the task's truth.
+
+    With a ``("row", "col")`` ``mesh`` the sweeps run as distributed
+    Gibbs over its tiles (``comm`` "halo" or "allgather"), as the
+    reference's ``--mesh`` branch does: labels from ``shard_mrf`` under
+    key 0, sweep keys split from key 0.  Then ``labels`` is the gathered
+    field cut to H×W, ``attempts`` is None (the mesh step counts bits
+    only) and ``step`` holds the step with its copied-byte count."""
     from repro_torch.core import rng
     from repro_torch.pgm import networks
     from repro_torch.pgm.gibbs import init_labels, mrf_gibbs
@@ -57,6 +70,10 @@ def run_mrf(cfg, *, sweeps: int, chains: int, scale: float = 1.0,
     else:
         mrf, truth = networks.art_task(h, w, n_labels=cfg.n_labels,
                                        beta=cfg.beta, tau=cfg.tau)
+    if mesh is not None:
+        return _run_mesh(mrf, truth, mesh, cfg=cfg, sweeps=sweeps,
+                         chains=chains, use_iu=use_iu, sampler=sampler,
+                         comm=comm)
     lab = init_labels(rng.PRNGKey(0), mrf, chains, device=device)
     unary = torch.as_tensor(mrf.unary, device=device)
     pairwise = torch.as_tensor(mrf.pairwise, device=device)
@@ -74,6 +91,36 @@ def run_mrf(cfg, *, sweeps: int, chains: int, scale: float = 1.0,
                 accuracy=float((final == truth).mean()))
 
 
+def _run_mesh(mrf, truth, mesh, *, cfg, sweeps: int, chains: int,
+              use_iu: bool, sampler: str, comm: str) -> dict:
+    from repro_torch.core import rng
+    from repro_torch.pgm.mesh_gibbs import make_mesh_gibbs_step, shard_mrf
+
+    h, w = mrf.shape
+    key = rng.PRNGKey(0)
+    lab, u, pw, valid, _ = shard_mrf(mesh, mrf, n_chains=chains, key=key)
+    step = make_mesh_gibbs_step(mesh, k=cfg.k, use_iu=use_iu,
+                                sampler=sampler, comm=comm)
+    devices = set(mesh.devices.flat)
+    for d in devices:
+        _sync(d)
+    t0 = monotonic()
+    bits = 0
+    for _ in range(sweeps):
+        key, sub = rng.split(key)
+        lab, bgrid = step(sub, lab, u, pw, valid)
+        bits = bits + bgrid.sum()
+    for d in devices:
+        _sync(d)
+    dt = monotonic() - t0
+    labels = lab.gather()[:, :h, :w]
+    final = labels[0].cpu().numpy()
+    return dict(mrf=mrf, shape=(h, w), labels=labels, seconds=dt,
+                bits=int(bits), attempts=None, step=step,
+                n_samples=chains * sweeps * h * w,
+                accuracy=float((final == truth).mean()))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", required=True)
@@ -82,8 +129,11 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="scale MRF image size (small runs on the CPU)")
     ap.add_argument("--mesh", default="",
-                    help="e.g. 2x2 — distributed halo-exchange Gibbs "
-                         "(not ported)")
+                    help="e.g. 2x2 — MRF configs: distributed "
+                         "halo-exchange Gibbs over a tile mesh")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="build --mesh over this many copies of --device "
+                         "(default: every visible card)")
     ap.add_argument("--no-iu", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device the chains run on (default cuda)")
@@ -103,11 +153,6 @@ def main(argv=None) -> None:
                          "or annealed MAP/MPE search")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: distributed halo-exchange Gibbs is not ported to "
-            "repro_torch (ROADMAP Queue 1, the multi-GPU item)")
-
     from repro_torch.configs.aia_paper import MCMC_CONFIGS
     from repro_torch.core import rng
     from repro_torch.pgm import networks
@@ -120,6 +165,11 @@ def main(argv=None) -> None:
     device = torch.device(args.device)
     sampler = args.sampler or ("cuda" if device.type == "cuda" else "torch")
     where = _device_name(device)
+
+    if args.mesh and cfg.kind == "bayesnet":
+        raise SystemExit("--mesh runs the MRF configs (distributed "
+                         "halo-exchange Gibbs); Bayes nets shard through "
+                         "the serve mesh (serve.cli --mesh-shape)")
 
     if cfg.kind == "bayesnet" and args.evidence:
         from repro_torch.serve.engine import PosteriorEngine
@@ -181,8 +231,22 @@ def main(argv=None) -> None:
         return
 
     # ---- MRF ------------------------------------------------------------
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_pgm_mesh, parse_mesh_shape
+
+        shape = parse_mesh_shape(args.mesh)
+        if len(shape) != 2:
+            raise SystemExit(f"--mesh {args.mesh}: expected RxC")
+        if device.type == "cpu" and not args.devices:
+            raise SystemExit("--mesh on the CPU needs --devices N (a mesh "
+                             "over N copies of the CPU device)")
+        mesh = make_pgm_mesh(*shape, devices=(
+            [device] * args.devices if args.devices else None))
+        where = (f"{where}, mesh {args.mesh} over "
+                 f"{len(set(mesh.devices.flat))} device(s)")
     out = run_mrf(cfg, sweeps=sweeps, chains=chains, scale=args.scale,
-                  use_iu=use_iu, sampler=sampler, device=device)
+                  use_iu=use_iu, sampler=sampler, device=device, mesh=mesh)
     h, w = out["shape"]
     print(f"{cfg.name}: {h}x{w}, L={out['mrf'].n_labels}")
     n_samples = out["n_samples"]

@@ -12,10 +12,14 @@ flags:
       --scheduler deadline --quota-qps 50
   python -m repro_torch.launch.serve --connect :8080 --stream \
       --network asia --queries 32
+  python -m repro_torch.launch.serve --serve :8080 --mesh-shape 4
 
 (run with ``PYTHONPATH=src``; engines run on the card unless
-``--device cpu``).  The generation half of the reference's launcher
-(``--arch``: batched autoregressive decoding) is not ported.
+``--device cpu``).  The mesh flags ride along: ``--mesh-shape N|RxC``
+shards every engine's lanes over a serve mesh, over every visible card
+or over ``--force-host-devices N`` copies of ``--device``.  The
+generation half of the reference's launcher (``--arch``: batched
+autoregressive decoding) is not ported.
 """
 from __future__ import annotations
 

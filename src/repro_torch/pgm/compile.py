@@ -249,7 +249,10 @@ def _color_update(
     use_iu: bool,
     sampler: str = "torch",
     beta: torch.Tensor | None = None,   # inverse temperature, (B,) or scalar
+    lane0: int = 0,             # global chain index of x's first lane
 ) -> tuple[torch.Tensor, BNSweepStats]:
+    # the sampler's rows are (chain, node) pairs, chain-major: a lane
+    # shard's rows start at global row lane0 * G of the unsharded update
     dev = x.device
     i64 = torch.int64
 
@@ -301,10 +304,12 @@ def _color_update(
             logw.shape[:-1]).reshape(-1)
         res = fused_gibbs_sample(
             key, logw.reshape((-1, max_card)), lane_card,
-            k=k, use_iu=use_iu, table=_exp_on(str(dev)))
+            k=k, use_iu=use_iu, table=_exp_on(str(dev)),
+            lane0=lane0 * logw.shape[1])
     else:
         wts = ky_weights(logw, card, k, use_iu)
-        res = ky_sample(key, wts.reshape((-1, max_card)))
+        res = ky_sample(key, wts.reshape((-1, max_card)),
+                        lane0=lane0 * logw.shape[1])
     new = res.sample.reshape(logw.shape[:-1]).to(x.dtype)  # (B, G)
     x = x.clone()
     x[:, nodes] = new

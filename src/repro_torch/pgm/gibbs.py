@@ -93,6 +93,7 @@ def checkerboard_halfstep(
     use_iu: bool = True,
     sampler: str = "cuda",
     beta=None,                   # inverse temperature, (B,) or scalar
+    lane0: int = 0,              # global chain index of labels[0]
 ) -> tuple[torch.Tensor, SweepStats]:
     """Resample all sites of one checkerboard color, all chains at once.
 
@@ -102,7 +103,9 @@ def checkerboard_halfstep(
     site energies before the sampler branch (the MAP mode's annealing);
     None is ordinary Gibbs.  ``sampler="cuda"`` hands the negated
     energies to the fused kernel (negation is exact, so the kernel's
-    ``(-e) - max(-e)`` is the plain path's ``-(e - min e)``).
+    ``(-e) - max(-e)`` is the plain path's ``-(e - min e)``).  The
+    sampler's rows are sites, chain-major; a lane shard whose first chain
+    is global chain ``lane0`` reads the bits of rows from ``lane0·H·W``.
     """
     dev = labels.device
     _check_sampler(sampler, dev)
@@ -122,13 +125,13 @@ def checkerboard_halfstep(
             energies = unary[None] + neighbor_pair_energy(labels, pairwise)
         res = fused_gibbs_sample(
             key, (-energies).reshape((-1, l)), l, k=k, use_iu=use_iu,
-            table=_exp_on(str(dev)))
+            table=_exp_on(str(dev)), lane0=lane0 * h * w)
     else:
         if energies is None:
             wts = site_weights(labels, unary, pairwise, k=k, use_iu=use_iu)
         else:
             wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
-        res = ky_sample(key, wts.reshape((-1, l)))
+        res = ky_sample(key, wts.reshape((-1, l)), lane0=lane0 * h * w)
     new = res.sample.reshape((b, h, w)).to(labels.dtype)
     ar_h = torch.arange(h, device=dev)
     ar_w = torch.arange(w, device=dev)

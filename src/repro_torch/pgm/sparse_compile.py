@@ -311,6 +311,7 @@ def _sparse_color_update(
     use_iu: bool,
     sampler: str = "torch",
     beta=None,                  # inverse temperature, (B,) or scalar
+    lane0: int = 0,             # global chain index of x's first lane
 ) -> tuple[torch.Tensor, BNSweepStats]:
     """Resample every node of one color, all lanes at once.
 
@@ -319,9 +320,12 @@ def _sparse_color_update(
     ``sampler="cuda"`` hands the negated energies to the fused kernel
     (``kernels/csrc/fused_sweep.cu``); ``-energies`` is exactly the
     log-weight tensor ``ky_weights`` receives on the plain path, so both
-    return the same samples, bits and attempts.
+    return the same samples, bits and attempts.  The sampler's rows are
+    (chain, node) pairs, chain-major; a lane shard whose first chain is
+    global chain ``lane0`` reads the bits of rows from ``lane0·N``.
     """
     nodes = plan.nodes
+    row0 = lane0 * nodes.shape[0]
     energies = _plan_energies(x, plan, unary, tables_flat, max_card)
     if beta is not None:
         bb = torch.as_tensor(beta, dtype=energies.dtype,
@@ -332,10 +336,10 @@ def _sparse_color_update(
             energies.shape[:-1]).reshape(-1)
         res = fused_gibbs_sample(
             key, (-energies).reshape((-1, max_card)), lane_card,
-            k=k, use_iu=use_iu, table=_exp_on(str(x.device)))
+            k=k, use_iu=use_iu, table=_exp_on(str(x.device)), lane0=row0)
     else:
         wts = ky_weights(-energies, card[nodes], k, use_iu)
-        res = ky_sample(key, wts.reshape((-1, max_card)))
+        res = ky_sample(key, wts.reshape((-1, max_card)), lane0=row0)
     new = res.sample.reshape(energies.shape[:-1]).to(x.dtype)
     x = x.clone()
     x[:, nodes] = new

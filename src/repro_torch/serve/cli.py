@@ -5,6 +5,10 @@
   python -m repro_torch.serve.cli --network ising_torus --ising-side 256
   python -m repro_torch.serve.cli --network sprinkler --queries 4 \
       --budget 256 --chains 8 --burn-in 16 --device cpu
+  # lanes sharded over a mesh of 4 CPU devices (or of every card)
+  python -m repro_torch.serve.cli --network sprinkler --queries 8 \
+      --budget 512 --chains 8 --burn-in 16 --force-host-devices 4 \
+      --mesh-shape 4 --device cpu
   # streaming: replay timestamped traffic through the admission queue
   python -m repro_torch.serve.cli --network hailfinder_scale --stream \
       --patterns 4 --slices 4 --rate 50 --max-wait-ms 20
@@ -36,7 +40,11 @@ compares a served ``/v2/batch`` with an in-process ``answer_batch``
 bit for bit).  Engines run on the card (``--device cuda``, the default)
 with the fused CUDA sweep kernel unless ``--sampler torch`` picks the
 plain PyTorch path; every worker of ``--serve`` runs on that device.
-Multi-device serving (``--mesh-shape``) is not ported.
+``--mesh-shape N`` (or RxC) builds a serve mesh and shards each query
+group's chain-lane axis over its "batch" axis, over every visible card
+or over ``--force-host-devices N`` copies of ``--device`` (on the CPU
+the counterpart of the reference's fake host devices; on one card, the
+card repeated).
 """
 from __future__ import annotations
 
@@ -494,13 +502,38 @@ def _parse_mrf_shape(spec: str) -> tuple[int, int]:
     return mrf_shape
 
 
-def _engine_kwargs(args) -> dict:
+def _engine_kwargs(args, mesh=None) -> dict:
     return dict(
         chains_per_query=args.chains, burn_in=args.burn_in,
         rhat_target=args.rhat, ess_target=args.ess_target,
         retirement=args.retirement, use_iu=not args.no_iu,
-        sampler=args.sampler, device=args.device,
+        sampler=args.sampler, device=args.device, mesh=mesh,
         plan_cache_dir=args.plan_cache_dir or None, seed=args.seed)
+
+
+def _serve_mesh(args):
+    """The ``--mesh-shape`` serve mesh (None without one), over
+    ``--force-host-devices`` copies of ``--device`` or over every visible
+    card; prints the reference's ``serve mesh`` line."""
+    if not args.mesh_shape:
+        return None
+    import torch
+
+    from repro_torch.launch.mesh import (
+        make_serve_mesh, parse_mesh_shape, visible_devices)
+
+    dev = torch.device(args.device)
+    if args.force_host_devices:
+        devices = [dev] * args.force_host_devices
+    elif dev.type == "cpu":
+        raise SystemExit("--mesh-shape on the CPU needs --force-host-devices "
+                         "N (a mesh over N copies of the CPU device)")
+    else:
+        devices = visible_devices()
+    mesh = make_serve_mesh(parse_mesh_shape(args.mesh_shape),
+                           devices=devices)
+    print(f"serve mesh {mesh.shape} over {mesh.size}/{len(devices)} devices")
+    return mesh
 
 
 def build_traffic(args, registry):
@@ -773,6 +806,12 @@ def main(argv=None) -> None:
     ap.add_argument("--plan-cache-dir", default="",
                     help="persist compiled plans here (.npz per plan-key); "
                          "warm process starts skip the compiler chain")
+    ap.add_argument("--mesh-shape", default="",
+                    help="serve mesh, e.g. 4 or 2x2 — shard chain lanes "
+                         "over its 'batch' axis")
+    ap.add_argument("--force-host-devices", type=int, default=0,
+                    help="build --mesh-shape over this many copies of "
+                         "--device (default: every visible card)")
     ap.add_argument("--show", type=int, default=3,
                     help="print marginals of the first N queries")
     ap.add_argument("--trace-out", default="",
@@ -794,9 +833,10 @@ def main(argv=None) -> None:
 
     from repro_torch.serve.engine import PosteriorEngine
 
+    mesh = _serve_mesh(args)
     registry = build_registry(mrf_shape=_parse_mrf_shape(args.mrf_shape),
                               ising_side=args.ising_side)
-    engine_kw = _engine_kwargs(args)
+    engine_kw = _engine_kwargs(args, mesh=mesh)
     if args.serve:
         _run_serve(args, registry, engine_kw)
         return

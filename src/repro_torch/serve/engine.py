@@ -55,7 +55,19 @@ Device: the port runs a group's lanes on one torch device — the card
 kernel (``repro_torch/kernels/csrc/fused_sweep.cu``); ``sampler="torch"``
 runs the plain two-stage PyTorch path (the default on the CPU, where the
 tests run).  Both return the JAX package's results bit for bit under the
-same seed.  Multi-device lane sharding is not ported yet.
+same seed.
+
+Multi-device serving: give the engine a mesh from
+:func:`repro_torch.launch.mesh.make_serve_mesh` and each group's lane
+axis is split over the mesh's batch devices
+(:mod:`repro_torch.sharding.specs`); every device holds the whole plan,
+so the colour updates' gathers stay local.  Lane counts are padded up to
+a mesh multiple with throwaway replicas of the first query, which every
+host read slices off; the state is made globally, then split; and
+plans/runners are cached per (pattern, mesh fingerprint), so single- and
+multi-device runners never mix.  Each shard draws the bits of its global
+lanes, so a sharded group's counts equal the unsharded group's bit for
+bit.
 """
 from __future__ import annotations
 
@@ -69,6 +81,7 @@ import torch
 
 from repro_torch.core import rng as rng_lib
 from repro_torch.core.fixedpoint import DEFAULT_K
+from repro_torch.launch.mesh import mesh_fingerprint
 from repro_torch.pgm.compile import SAMPLERS, sum_sweep_stats
 from repro_torch.pgm.diagnostics import (
     Diagnostics, RunningDiagnostics, split_rhat)
@@ -79,6 +92,8 @@ from repro_torch.serve.query import Query, Request, Result
 from repro_torch.serve.sched import predict_remaining_rounds
 from repro_torch.serve.telemetry import (
     DEFAULT_COUNT_BINS, NULL, Telemetry, monotonic)
+from repro_torch.sharding.specs import (
+    LaneShards, serve_batch_devices, serve_lane_multiple)
 
 # retirement rules: "rank" = rank-normalized split-R̂ + min-ESS gate
 # (repro_torch.pgm.diagnostics, the default), "legacy" = plain split-R̂
@@ -219,7 +234,11 @@ class GroupRun:
         # the same lane count keeps the PRNG stream identical).  Pad
         # blocks are *vacant slots* — free real estate for ``admit``.
         shape_q = 1 << (nq - 1).bit_length() if engine.pow2_group_shapes else nq
-        self.bt = shape_q * self.c
+        b = shape_q * self.c
+        # mesh path: additionally pad the lane axis to a batch-shard
+        # multiple; pad lanes replicate query 0 and are sliced off every
+        # host read (slots cover whole lane blocks below bt)
+        self.bt = b + (-b) % serve_lane_multiple(engine.mesh)
         dev = engine.device
 
         ev_vals = np.zeros((self.bt, len(pattern)), np.int32)
@@ -227,10 +246,13 @@ class GroupRun:
             ev_vals[j * self.c:(j + 1) * self.c] = [e.ev[v] for v in pattern]
         ev_vals[nq * self.c:] = ev_vals[:1]
         engine._key, init_key, self._run_key = rng_lib.split(engine._key, 3)
-        self.x = self.family.init_states(
+        x = self.family.init_states(
             init_key, self.prog, self.bt,
             torch.as_tensor(ev_vals, device=dev) if pattern else None,
             device=dev)
+        if engine.mesh is not None:   # made globally, then split
+            x = LaneShards.split(x, serve_batch_devices(engine.mesh))
+        self.x = x
         self.slots = [self._fresh_slot(e, j, t0) for j, e in enumerate(entries)]
         self.slots += [
             _Slot(entry=None, j=j, cap=0, burn_left=0, t0=t0, done=True)
@@ -648,6 +670,10 @@ class PosteriorEngine:
     (the fused CUDA kernel, the default on the card) or ``"torch"`` (the
     plain two-stage PyTorch path, the default on the CPU and allowed on
     the card as an explicit option); ``"cuda"`` on a CPU device raises.
+    ``mesh`` (from :func:`repro_torch.launch.mesh.make_serve_mesh`) splits
+    each group's chain-lane axis over the mesh's batch devices; the
+    engine's ``device`` is then the first of them (where states are made
+    and counts gathered).  ``None`` keeps the single-device path.
     ``plan_cache_dir`` persists compiled plans (the ColorPlan tensors) as
     ``.npz`` files in the reference's format, so warm process starts skip
     the compiler chain.  ``pow2_group_shapes`` pads each group's slot
@@ -689,6 +715,7 @@ class PosteriorEngine:
         quantize_cpt_bits: int | None = 16,
         cache: PlanCache | None = None,
         device=None,
+        mesh=None,
         plan_cache_dir: str | None = None,
         pow2_group_shapes: bool = True,
         telemetry: Telemetry | None = None,
@@ -726,6 +753,14 @@ class PosteriorEngine:
         # entry points run on the card unless the caller asks for the CPU;
         # the sampler follows the device: the fused kernel ("cuda") on the
         # card, the plain PyTorch path ("torch") elsewhere
+        self.mesh = mesh
+        if mesh is not None:
+            dev0 = serve_batch_devices(mesh)[0]
+            want = torch.device(device or dev0)
+            if want.type != dev0.type or want.index not in (None, dev0.index):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"batch device {dev0}")
+            device = dev0
         self.device = torch.device(device or "cuda")
         sampler = sampler or ("cuda" if self.device.type == "cuda"
                               else "torch")
@@ -814,6 +849,7 @@ class PosteriorEngine:
             quantize_cpt_bits=self.quantize_cpt_bits,
             sweeps_per_round=self.sweeps_per_round, thin=self.thin,
             device=str(self.device),
+            mesh_fingerprint=mesh_fingerprint(self.mesh),
             model_salt=salt)
 
     def _plan(self, name: str, pattern: tuple[int, ...]):
@@ -841,7 +877,7 @@ class PosteriorEngine:
             runner = fam.make_runner(
                 prog, sweeps_per_round=self.sweeps_per_round,
                 thin=self.thin, use_iu=self.use_iu,
-                sampler=self.sampler, device=self.device)
+                sampler=self.sampler, device=self.device, mesh=self.mesh)
             return prog, runner
 
         (prog, runner), hit = self.cache.get(

@@ -13,6 +13,12 @@ Every round runner runs on one torch device (default ``cuda``) and
 launches the fused CUDA kernel once per color update with
 ``sampler="cuda"``, or runs the plain PyTorch path with
 ``sampler="torch"``; both return the JAX package's results bit for bit.
+Given a serve ``mesh`` (:func:`repro_torch.launch.mesh.make_serve_mesh`),
+a runner splits the lane axis over the mesh's batch devices
+(:class:`repro_torch.sharding.specs.LaneShards`), runs each shard's
+round with the same key and the shard's first global lane (``lane0``),
+and returns counts and moments per lane in global lane order: equal, bit
+for bit, to the unsharded round.
 """
 from __future__ import annotations
 
@@ -32,18 +38,22 @@ from repro_torch.pgm.sparse_compile import (
     compile_factor_graph, init_fg_states)
 from repro_torch.serve.plan_cache import (
     graph_fingerprint, load_compiled, persisted_plan_path, save_compiled)
+from repro_torch.sharding.specs import (
+    LaneShards, check_serve_cpt, check_serve_sites, lane_slice,
+    serve_batch_devices)
 
 
 # -- round runners --------------------------------------------------------
 def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
                   sweep, flat_of=lambda x: x):
-    """The round loop every family shares.  ``sweep(key, x, beta) ->
-    (key, x, stats)`` advances one sweep, splitting the carried key as its
-    family's reference does; ``flat_of(x)`` is the (B, M) flat view the
-    counts and moments read."""
+    """The round loop every family shares.  ``sweep(key, x, beta, lane0)
+    -> (key, x, stats)`` advances one sweep, splitting the carried key as
+    its family's reference does; ``flat_of(x)`` is the (B, M) flat view
+    the counts and moments read.  ``lane0`` is the global index of
+    ``x``'s first lane (0 unless ``x`` is a lane shard)."""
     labels = torch.arange(L, device=device)
 
-    def round_fn(key, x: torch.Tensor, offset, beta=None):
+    def round_fn(key, x: torch.Tensor, offset, beta=None, lane0: int = 0):
         offset = torch.as_tensor(offset, device=device)
         if beta is not None:
             beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
@@ -53,7 +63,7 @@ def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
         xsqsum = torch.zeros_like(xsum)
         per_sweep = []
         for i in range(sweeps_per_round):
-            key, x, st = sweep(key, x, beta)
+            key, x, st = sweep(key, x, beta, lane0)
             flat = flat_of(x)
             onehot = (flat[..., None] == labels).to(torch.int32)
             kept = ((offset + i) % thin) == 0
@@ -74,10 +84,51 @@ def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
     return round_fn
 
 
+def _sharded_runner(mesh, make_one):
+    """A round runner over ``mesh``'s batch devices: ``make_one(device)``
+    builds one shard's runner (shards on a repeated device share it, and
+    with it their plan tensors).  The state is split into
+    :class:`LaneShards` (a plain tensor is split first); each shard runs
+    its round with the same key, its block of per-lane ``offset`` and
+    ``beta``, and its first global lane as ``lane0``.  Counts and moments
+    come back per lane, concatenated in global lane order on the first
+    batch device; per-sweep stats come back (shards, sweeps), summed on
+    the host by the engine — nothing is summed across shards on a
+    device."""
+    devices = serve_batch_devices(mesh)
+    runners: dict[str, object] = {}
+    for d in devices:
+        if str(d) not in runners:
+            runners[str(d)] = make_one(d)
+    dev0 = devices[0]
+
+    def round_fn(key, x, offset, beta=None):
+        if not isinstance(x, LaneShards):
+            x = LaneShards.split(x, devices)
+        outs = []
+        for part, (lo, hi), d in zip(x.parts, x.bounds, devices):
+            outs.append(runners[str(d)](
+                key, part, lane_slice(offset, lo, hi),
+                None if beta is None else lane_slice(beta, lo, hi),
+                lane0=lo))
+        xs = LaneShards([o[0] for o in outs], x.bounds)
+        counts, xmean, xsq = (torch.cat([o[i].to(dev0) for o in outs])
+                              for i in (1, 2, 3))
+        st = outs[0][4]
+        stats = type(st)(*(torch.stack([getattr(o[4], f).to(dev0)
+                                        for o in outs])
+                           for f in st._fields))
+        return xs, counts, xmean, xsq, stats
+
+    return round_fn
+
 def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
-                      use_iu: bool, sampler: str = "cuda", device=None):
+                      use_iu: bool, sampler: str = "cuda", device=None,
+                      mesh=None):
     """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
-    round (Bayesian-network family), on ``device`` (default ``cuda``).
+    round (Bayesian-network family), on ``device`` (default ``cuda``), or
+    lane-sharded over ``mesh``'s batch devices (the log-CPT bank whole on
+    each; see :func:`_sharded_runner`).
 
     ``beta`` (float32, scalar or per-lane ``(B,)``; default None =
     ordinary Gibbs) is the inverse temperature of the simulated-annealing
@@ -94,19 +145,25 @@ def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
     ``stats``:  per-sweep (sweeps_per_round,) int64 tensors, summed
     host-side by the engine.
     """
+    if mesh is not None:
+        check_serve_cpt(mesh, np.asarray(prog.log_cpt).size)
+        return _sharded_runner(mesh, lambda d: make_round_runner(
+            prog, sweeps_per_round=sweeps_per_round, thin=thin,
+            use_iu=use_iu, sampler=sampler, device=d))
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
     log_cpt = torch.as_tensor(prog.log_cpt, device=device)
     plans = plans_on(prog.plans, device)
     L = prog.max_card
 
-    def sweep(key, x, beta):
+    def sweep(key, x, beta, lane0):
         key, sub = rng_lib.split(key)
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
         for plan in plans:
             sub, s2 = rng_lib.split(sub)
             x, st = _color_update(
-                s2, x, plan, log_cpt, L, prog.k, use_iu, sampler, beta)
+                s2, x, plan, log_cpt, L, prog.k, use_iu, sampler, beta,
+                lane0=lane0)
             bits, att = bits + st.bits_used, att + st.attempts
         return key, x, BNSweepStats(bits, att)
 
@@ -115,14 +172,21 @@ def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
 
 def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
                           thin: int, use_iu: bool, sampler: str = "cuda",
-                          device=None):
+                          device=None, mesh=None):
     """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
     round (MRF family) — the contract of :func:`make_round_runner` over
     the flat site space.  ``x`` is the (B, H, W) label field; the clamp
     mask of ``prog`` is placed on the device once.  ``counts`` come back
     flattened (B, H*W, L) and ``xmean`` (B, H*W), so the engine's slot
     bookkeeping is family-blind.  Each half-step is one fused launch over
-    all B·H·W sites with ``sampler="cuda"``."""
+    all B·H·W sites with ``sampler="cuda"``.  With ``mesh`` the lanes
+    shard over its batch devices, every lane a whole grid (the unary and
+    pairwise fields whole on each device), as the reference's
+    ``serve_mrf_state_spec`` lays them out."""
+    if mesh is not None:
+        return _sharded_runner(mesh, lambda d: make_mrf_round_runner(
+            prog, sweeps_per_round=sweeps_per_round, thin=thin,
+            use_iu=use_iu, sampler=sampler, device=d))
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
     unary = torch.as_tensor(prog.mrf.unary, dtype=torch.float32,
@@ -133,14 +197,14 @@ def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
              if prog.observed else None)
     h, w = prog.shape
 
-    def sweep(key, x, beta):
+    def sweep(key, x, beta, lane0):
         key, k0, k1 = rng_lib.split(key, 3)
         x, s0 = checkerboard_halfstep(
             k0, x, unary, pairwise, 0, clamp=clamp, k=prog.k, use_iu=use_iu,
-            sampler=sampler, beta=beta)
+            sampler=sampler, beta=beta, lane0=lane0)
         x, s1 = checkerboard_halfstep(
             k1, x, unary, pairwise, 1, clamp=clamp, k=prog.k, use_iu=use_iu,
-            sampler=sampler, beta=beta)
+            sampler=sampler, beta=beta, lane0=lane0)
         return key, x, SweepStats(s0.bits_used + s1.bits_used,
                                   s0.attempts + s1.attempts)
 
@@ -151,25 +215,32 @@ def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
 
 def make_fg_round_runner(prog: CompiledFactorGraph, *,
                          sweeps_per_round: int, thin: int, use_iu: bool,
-                         sampler: str = "cuda", device=None):
+                         sampler: str = "cuda", device=None, mesh=None):
     """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
     round (sparse factor-graph / Ising family) — the contract of
     :func:`make_round_runner` over the graph's flat node space.  ``x`` is
     the (B, n) node-state tensor; the plans' index arrays and the
-    unary/table banks are placed on the device once per runner."""
+    unary/table banks are placed on the device once per runner.  With
+    ``mesh`` the lanes shard over its batch devices, the site axis whole
+    on each."""
+    if mesh is not None:
+        check_serve_sites(mesh, prog.n_vars)
+        return _sharded_runner(mesh, lambda d: make_fg_round_runner(
+            prog, sweeps_per_round=sweeps_per_round, thin=thin,
+            use_iu=use_iu, sampler=sampler, device=d))
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
     ops = _Operands(prog, device)
     L = prog.max_card
 
-    def sweep(key, x, beta):
+    def sweep(key, x, beta, lane0):
         key, sub = rng_lib.split(key)
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
         for plan in ops.plans:
             sub, s2 = rng_lib.split(sub)
             x, st = _sparse_color_update(
                 s2, x, plan, ops.unary, ops.tables_flat, ops.card, L,
-                prog.k, use_iu, sampler, beta)
+                prog.k, use_iu, sampler, beta, lane0=lane0)
             bits, att = bits + st.bits_used, att + st.attempts
         return key, x, BNSweepStats(bits, att)
 
@@ -210,10 +281,10 @@ class BayesNetFamily:
             observed=pattern)
 
     def make_runner(self, prog, *, sweeps_per_round, thin, use_iu,
-                    sampler="cuda", device=None):
+                    sampler="cuda", device=None, mesh=None):
         return make_round_runner(
             prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=device)
+            use_iu=use_iu, sampler=sampler, device=device, mesh=mesh)
 
     def init_states(self, key, prog, n_lanes, evidence_values, device=None):
         return init_states(key, prog, n_lanes, evidence_values, device=device)
@@ -335,10 +406,10 @@ class MrfFamily:
         return compile_mrf(model, k=k, observed=pattern)
 
     def make_runner(self, prog, *, sweeps_per_round, thin, use_iu,
-                    sampler="cuda", device=None):
+                    sampler="cuda", device=None, mesh=None):
         return make_mrf_round_runner(
             prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=device)
+            use_iu=use_iu, sampler=sampler, device=device, mesh=mesh)
 
     def init_states(self, key, prog, n_lanes, evidence_values, device=None):
         return init_mrf_states(key, prog, n_lanes, evidence_values,
@@ -439,10 +510,10 @@ class IsingFamily:
         return compile_factor_graph(model, k=k, observed=pattern)
 
     def make_runner(self, prog, *, sweeps_per_round, thin, use_iu,
-                    sampler="cuda", device=None):
+                    sampler="cuda", device=None, mesh=None):
         return make_fg_round_runner(
             prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=device)
+            use_iu=use_iu, sampler=sampler, device=device, mesh=mesh)
 
     def init_states(self, key, prog, n_lanes, evidence_values, device=None):
         return init_fg_states(key, prog, n_lanes, evidence_values,

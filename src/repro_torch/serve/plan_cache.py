@@ -57,13 +57,18 @@ def plan_key(
     thin: int,
     sampler: str = "cuda",
     device: str | None = None,
+    mesh_fingerprint=None,
     model_salt=None,
 ) -> tuple:
     """Canonical cache key of one compiled (plan, round-runner) pair.
 
     Everything a round runner depends on must appear here, including
-    the ``device`` its plan tensors live on.  Long patterns are folded
-    to their :func:`pattern_key` digest.
+    the ``device`` its plan tensors live on and ``mesh_fingerprint``
+    ((shape, axis names, devices), or None for the single-device path):
+    a runner that splits lanes over one mesh — its plan tensors placed on
+    that mesh's devices — must never be served to an engine on another;
+    see :func:`repro_torch.launch.mesh.mesh_fingerprint`.  Long patterns
+    are folded to their :func:`pattern_key` digest.
 
     ``model_salt`` folds in a *content* identity where the name alone is
     too weak: sparse factor graphs compile to plans shaped by the graph
@@ -73,7 +78,8 @@ def plan_key(
     on (name, pattern, knobs) leave it None.
     """
     return (network, pattern_key(pattern), k, use_iu, sampler,
-            quantize_cpt_bits, sweeps_per_round, thin, device, model_salt)
+            quantize_cpt_bits, sweeps_per_round, thin, device,
+            mesh_fingerprint, model_salt)
 
 
 @dataclass

@@ -13,9 +13,9 @@ when either
 * a **deadline** fires — the bucket's oldest query has waited
   ``max_wait_ms`` (bounds tail latency under trickle traffic), or
 * a **size trigger** fires — the bucket can fill ``max_group_lanes``
-  chain lanes (``DEFAULT_GROUP_QUERIES`` queries' worth by default: on
-  one card a group's lane count needs no shard alignment, so the lane
-  multiple is 1).
+  chain lanes (defaults to a multiple of the mesh's
+  ``serve_lane_multiple``, so a full group shards without padding; 1
+  without a mesh).
 
 Each ``submit`` returns a :class:`repro_torch.serve.query.QueryHandle`
 supporting blocking ``result()`` and per-query ``cancel()`` — honoured
@@ -70,12 +70,12 @@ from repro_torch.serve.query import (  # noqa: F401
     MrfQuery, Query, QueryHandle, QueryStatus, Request)
 from repro_torch.serve.sched import deadline_order
 from repro_torch.serve.telemetry import monotonic
+from repro_torch.sharding.specs import serve_lane_multiple
 
 SCHEDULERS = ("fifo", "deadline")
 
-# Default size trigger, in queries, per dispatch group.  The reference
-# scales it by the serve mesh's lane multiple; one card has no mesh, and
-# the multiple is 1 (multi-GPU lane sharding is not ported).
+# Default size trigger, in queries, per dispatch group, scaled by the
+# serve mesh's lane multiple (1 without a mesh).
 DEFAULT_GROUP_QUERIES = 8
 
 # dispatch_log is a diagnostics ring, not an audit trail — bounded so a
@@ -125,7 +125,7 @@ class AdmissionQueue:
     max_group_lanes:
         Size trigger — a bucket flushes as soon as its queries fill
         this many chain lanes.  Defaults to ``DEFAULT_GROUP_QUERIES *
-        chains_per_query``.
+        chains_per_query * serve_lane_multiple(engine.mesh)``.
     backfill:
         Re-use the lanes of retired (converged/cancelled) queries for
         waiting queries of the same plan mid-flight.
@@ -152,7 +152,8 @@ class AdmissionQueue:
         self.max_wait_s = float(max_wait_ms) / 1e3
         c = engine.chains_per_query
         if max_group_lanes is None:
-            max_group_lanes = DEFAULT_GROUP_QUERIES * c
+            max_group_lanes = (
+                DEFAULT_GROUP_QUERIES * c * serve_lane_multiple(engine.mesh))
         self.max_group_queries = max(1, int(max_group_lanes) // c)
         self.backfill = bool(backfill)
         self.stats = QueueStats()

@@ -8,7 +8,9 @@ the stand-alone kernels
 (KY sampler and IU bitwise, both flash attention routes within the JAX
 tests' tolerances) against their plain versions, the KY sampler at the
 group and round boundaries of its group walk and the float32 flash kernel
-at odd head dims, ragged sequences and unaligned views.
+at odd head dims, ragged sequences and unaligned views; and the mesh
+path on the card repeated (lane shards at their ``lane0``, the tile
+mesh, the sharded engine) against the unsharded results.
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -384,6 +386,70 @@ def _ky_inputs(seed, b, n, device):
                                  device=device)
     klvl, rej = ref.ky_prep(w)
     return w, words, klvl, rej
+
+
+def test_kernel_lane0_rows_equal_the_unsharded_launch(cuda_device):
+    """A lane shard launched with ``lane0=lo`` equals rows ``[lo, hi)`` of
+    the unsharded launch and the plain version at the same ``lane0``;
+    a ``lane0`` whose counters pass 2**32 equals the plain version."""
+    logw, card = _inputs(11, 5000, 7, cuda_device)
+    key = rng.PRNGKey(4)
+    full = fs.fused_gibbs_sample(key, logw, card, k=14)
+    for lo, hi, lane0 in ((0, 1200, 0), (1200, 3001, 1200),
+                          (3001, 5000, 3001), (0, 5000, 1 << 40)):
+        got = fs.fused_gibbs_sample(key, logw[lo:hi], card[lo:hi], k=14,
+                                    lane0=lane0)
+        want = fs.fused_gibbs_sample_ref(key, logw[lo:hi], card[lo:hi],
+                                         k=14, lane0=lane0)
+        torch.cuda.synchronize()
+        for g, w, f in zip(got, want, full):
+            assert torch.equal(g, w)
+            if lane0 == lo:
+                assert torch.equal(g, f[lo:hi])
+
+
+def test_mesh_gibbs_cuda_equals_torch_and_halo_equals_allgather(
+        cuda_device):
+    """The tile mesh over the card repeated: the fused kernel on every
+    tile equals the plain path, and the halo exchange equals the
+    all-gather baseline, labels and per-tile bits."""
+    from repro_torch.launch.mesh import make_pgm_mesh
+    from repro_torch.pgm import networks
+    from repro_torch.pgm.mesh_gibbs import make_mesh_gibbs_step, shard_mrf
+
+    mesh = make_pgm_mesh(2, 2, devices=[cuda_device] * 4)
+    mrf, _ = networks.penguin_task(41, 29)
+    runs = []
+    for sampler, comm in (("cuda", "halo"), ("torch", "halo"),
+                          ("cuda", "allgather")):
+        key = rng.PRNGKey(0)
+        lab, u, pw, valid, _ = shard_mrf(mesh, mrf, 3, key)
+        step = make_mesh_gibbs_step(mesh, sampler=sampler, comm=comm)
+        grids = []
+        for _ in range(4):
+            key, sub = rng.split(key)
+            lab, bits = step(sub, lab, u, pw, valid)
+            grids.append(bits)
+        runs.append((lab.gather(), torch.stack(grids)))
+    for lab, bits in runs[1:]:
+        assert torch.equal(lab, runs[0][0]) and torch.equal(bits, runs[0][1])
+
+
+def test_sharded_engine_on_the_card_equals_unsharded(cuda_device):
+    """A 4-way serve mesh over the card repeated: each shard launches
+    the kernel at its own ``lane0``, and the results equal the unsharded
+    engine's bit for bit."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve.engine import PosteriorEngine
+
+    reg, traffic = _queue_traffic()
+    kw = dict(chains_per_query=8, burn_in=16, sweeps_per_round=6, seed=2,
+              max_rounds=6)
+    mesh = make_serve_mesh((4,), devices=[cuda_device] * 4)
+    before = fs.fused_gibbs_sample.launches
+    sharded = PosteriorEngine(reg, mesh=mesh, **kw).answer_batch(traffic)
+    assert fs.fused_gibbs_sample.launches > before
+    _assert_same(sharded, PosteriorEngine(reg, **kw).answer_batch(traffic))
 
 
 @pytest.mark.parametrize("b,n", [

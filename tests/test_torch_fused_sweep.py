@@ -148,3 +148,47 @@ def test_launch_count_holds_under_concurrent_launchers():
     assert t_fs.fused_gibbs_sample.shapes[shape] == before[1] + n
     t_fs.fused_gibbs_sample.launches -= n
     t_fs.fused_gibbs_sample.shapes[shape] -= n
+
+
+@pytest.mark.parametrize("cuts", [((0, 100), (100, 250), (250, 300)),
+                                  ((0, 1), (1, 299), (299, 300))])
+def test_lane0_shards_equal_rows_of_the_unsharded_call(cuts):
+    """A lane shard with ``lane0=lo`` returns rows ``[lo, hi)`` of the
+    unsharded call (the JAX kernel's on the whole tile), in both the
+    wrapper's CPU path and the plain twin; ``lane0=0`` is today's call."""
+    logw = _logw(5, 300, 5)
+    card = np.random.default_rng(6).integers(1, 6, 300).astype(np.int32)
+    jr, full = _both(9, logw, card, k=DEFAULT_K)
+    _assert_identical(jr, full)
+    key = t_rng.PRNGKey(9)
+    for lo, hi in cuts:
+        part_logw = torch.as_tensor(logw[lo:hi])
+        part_card = torch.as_tensor(card[lo:hi])
+        got = t_fs.fused_gibbs_sample(key, part_logw, part_card,
+                                      k=DEFAULT_K, lane0=lo)
+        twin = t_fs.fused_gibbs_sample_ref(key, part_logw, part_card,
+                                           k=DEFAULT_K, lane0=lo)
+        for g, t, f in zip(got, twin, full):
+            assert torch.equal(g, f[lo:hi]) and torch.equal(t, f[lo:hi])
+
+
+def test_lane0_words_are_the_global_draw():
+    """``random_bit_words(lane0=a)`` is rows ``[a, a + n)`` of the global
+    draw, ``lane_word`` its scalar twin, and ``ky_sample(lane0=a)`` reads
+    those rows; a negative ``lane0`` is refused."""
+    key = t_rng.PRNGKey(3)
+    full = t_rng.random_bit_words(key, (40,), 31 * 32)
+    part = t_rng.random_bit_words(key, (15,), 31 * 32, lane0=20)
+    assert torch.equal(part, full[20:35])
+    k0, k1 = t_rng._key_words(key)
+    w = full.shape[1]
+    assert t_rng.lane_word(k0, k1, 2, 7, w, lane0=20) == int(
+        full[22, 7]) & 0xFFFFFFFF
+    weights = torch.randint(0, 50, (40, 4), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(0)) + 1
+    whole = ky_sample(key, weights)
+    shard = ky_sample(key, weights[20:35], lane0=20)
+    for s, f in zip(shard, whole):
+        assert torch.equal(s, f[20:35])
+    with pytest.raises(ValueError, match="lane0"):
+        t_fs.fused_gibbs_sample(key, torch.zeros((2, 3)), 3, k=14, lane0=-1)

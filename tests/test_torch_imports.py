@@ -24,7 +24,13 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "networkx", "repro"))
 print("BAD", bad)
 print("N", sum(n.startswith("repro_torch.") for n in sys.modules))
+print("MODULES", sorted(n for n in sys.modules
+                        if n.startswith("repro_torch.")))
 """
+
+# the mesh path's modules, which must be among those imported
+MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding.specs",
+                "repro_torch.pgm.mesh_gibbs", "repro_torch.pgm.metropolis")
 
 
 def test_port_imports_no_jax_networkx_or_reference():
@@ -36,7 +42,10 @@ def test_port_imports_no_jax_networkx_or_reference():
     # every module of the package was imported: one per file, less the
     # package's own __init__
     files = list(Path(REPO, "src", "repro_torch").rglob("*.py"))
-    assert n == len(files) - 1 >= 29, out
+    assert n == len(files) - 1 >= 34, out
+    modules = out.split("MODULES ")[-1]
+    for name in MESH_MODULES:
+        assert repr(name) in modules, name
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -96,6 +105,23 @@ def test_state_entry_points_default_to_the_card(name):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             call()
+
+
+@pytest.mark.parametrize("make", ["serve", "pgm"])
+def test_meshes_default_to_every_visible_card(make):
+    """With no ``devices`` a mesh is built over the visible cards: with
+    too few it raises, it never falls back to the CPU or repeats a card."""
+    from repro_torch.launch import mesh
+
+    n = torch.cuda.device_count()
+    build = {"serve": lambda: mesh.make_serve_mesh((n + 1,)),
+             "pgm": lambda: mesh.make_pgm_mesh(1, n + 1)}[make]
+    with pytest.raises(RuntimeError, match=f"have {n}"):
+        build()
+    if n:
+        full = mesh.make_serve_mesh()
+        assert [str(d) for d in full.devices.flat] == [
+            f"cuda:{i}" for i in range(n)]
 
 
 def _kernel_api_calls():

@@ -329,5 +329,14 @@ def test_run_mcmc_mrf_branch_matches_reference_driver(capsys, monkeypatch):
 
 
 def test_run_mcmc_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_mcmc.main(["--config", "aia-mrf-penguin", "--mesh", "2x2"])
+    """``--mesh`` is ported (``tests/test_torch_mesh.py`` holds it to the
+    reference); what it still refuses is a mesh it cannot build: on the
+    CPU without ``--devices``, or over fewer devices than the mesh has
+    tiles — nothing drops to the CPU or repeats a device unasked."""
+    from repro_torch.launch.mesh import make_pgm_mesh
+
+    with pytest.raises(SystemExit, match="--devices"):
+        t_mcmc.main(["--config", "aia-mrf-penguin", "--mesh", "2x2",
+                     "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="needs 4 devices, have 3"):
+        make_pgm_mesh(2, 2, devices=[torch.device("cpu")] * 3)

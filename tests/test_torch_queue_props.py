@@ -43,6 +43,7 @@ class FakeEngine:
     """The engine surface AdmissionQueue actually touches."""
 
     chains_per_query = 1
+    mesh = None
     telemetry = telemetry.NULL
 
     def __init__(self):

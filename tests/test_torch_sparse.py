@@ -285,3 +285,23 @@ def test_cuda_sampler_on_cpu_raises():
                           burn_in=0, sampler="cuda", device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         t_sc.make_fg_sweep(tp, sampler="cuda", device="cpu")
+
+
+def test_jitted_reference_gap_at_the_card_runs_glass_is_within_one_weight(
+        capsys):
+    """The same gap at ``chip_smoke.py``'s ``random_sparse_ising(65536)``
+    (8 chains, every colour, degree buckets up to 32), counted by
+    ``tools/sparse_sum_gap.py``: the reference's jitted colour-update tail
+    against the port's, KY weights within one (the script's exit code)."""
+    import importlib.util
+    import os
+
+    from conftest import REPO
+
+    spec = importlib.util.spec_from_file_location(
+        "sparse_sum_gap", os.path.join(REPO, "tools", "sparse_sum_gap.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--colors", "99"]) == 0
+    out = capsys.readouterr().out
+    assert "6 of 6 colours" in out and "weights differ" in out

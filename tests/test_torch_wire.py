@@ -305,6 +305,7 @@ def test_observability_endpoints(served):
 
 class FakeEngine:
     chains_per_query = 1
+    mesh = None          # the queue's size trigger reads the lane multiple
 
     def __init__(self):
         from repro_torch.serve.telemetry import NULL
