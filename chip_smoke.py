@@ -104,11 +104,26 @@ line is printed:
    same inputs; the bfloat16 and float16 cases also per row, within 2e-2
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
+19. lm_generate — the LM serving path (``models.sampling.generate``, the
+   ``--arch`` half of ``launch/serve.py``) on the card at full width with
+   random weights from a seeded generator: phi4-mini-3.8b (bf16, 32
+   layers, vocab 200,064) and mamba2-130m, batch 4, prompt 16, 32 new
+   tokens, with the ky, categorical and greedy samplers and ky again at
+   the first step's logit standard deviation; tok/s, ms a decode step,
+   bits a token, the steps' entropy (the run's tokens fed back), a
+   decode step alone beside its bytes bound, device launches of one
+   profiled step, peak memory.  Then every family at smoke size in
+   float32, the card against the CPU in one process: decode logits
+   within 1e-5 of the largest, greedy tokens equal, the KY token stages
+   bit for bit on the same integer weights.  No kernel of the port is on
+   this path (the reference's models call no Pallas kernel, and its KY
+   token walks are plain XLA): every launch count must stay 0 over it.
 
-Phases 4, 7, 8 and 10-18 each zero their kernel's launch count just before
-their main path and read it just after; the fused kernel's entry of the
-per-kernel JSON line carries each path's launches, shapes and times
-under ``paths``.  Then the nvidia-smi name/power-limit line, and last
+Phases 4, 7, 8 and 10-19 each zero their kernel's launch count (phase 19:
+every kernel's) just before their main path and read it just after; the
+fused kernel's entry of the per-kernel JSON line carries each path's
+launches, shapes and times under ``paths`` (``lm_generate`` with 0
+launches).  Then the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
 from __future__ import annotations
@@ -222,6 +237,32 @@ SHARDED_PAD = dict(chains_per_query=6, burn_in=64, max_rounds=48, seed=7,
 METROPOLIS = dict(sweeps=100, min_accuracy=0.9, fg_chains=8, fg_sweeps=5,
                   small_shape=(50, 34), small_chains=2, small_sweeps=5,
                   small_spins=4096)
+
+
+# The LM serving path (python -m repro_torch.launch.serve --arch ...) at full
+# width with random weights: phi4-mini-3.8b (src/repro/configs/phi4_mini.py:
+# 32 layers, d_model 3072, 24 heads on 8 kv heads, d_head 128, d_ff 8192,
+# vocab 200,064, tied embeddings; bf16 compute, float32 parameters) and
+# mamba2-130m (24 SSD layers, d_model 768, vocab 50,280), at the launcher's
+# defaults: batch 4, prompt 16, 32 new tokens; a second ky run at a
+# temperature of the first step's logit standard deviation (untrained
+# logits are nearly one-hot, so at temperature 1 the KY walks take their
+# zero-bit bypass)
+LM_FULL = ("phi4-mini-3.8b", "mamba2-130m")
+LM_RUN = dict(batch=4, prompt_len=16, max_new=32)
+LM_SAMPLERS = ("ky", "categorical", "greedy")
+# every family at smoke size in float32, the card against the CPU in one
+# process (one arch a family; "encdec" is seamless under the text family's
+# name): logits within LM_TOL of the largest (tests/test_torch_models.py's
+# tolerance against the reference), greedy tokens equal, the KY stages
+# bitwise on the same integer weights
+LM_FAMILIES = (("dense", "phi4-mini-3.8b", {}), ("moe", "grok-1-314b", {}),
+               ("ssm", "mamba2-130m", {}), ("hybrid", "hymba-1.5b", {}),
+               ("encdec", "seamless-m4t-medium", {"family": "encdec"}),
+               ("vlm", "pixtral-12b", {}),
+               ("audio", "seamless-m4t-medium", {}))
+LM_TOL = 1e-5
+LM_SMOKE = dict(batch=2, prompt_len=4, max_new=8)
 
 
 def emit(obj) -> None:
@@ -1943,6 +1984,291 @@ def phase_metropolis(card_name: str) -> dict:
             "fg_accept_rate": float(fst.accept_rate)}
 
 
+def kernel_launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_sweep as fs
+    from repro_torch.kernels import interp_lut as il
+    from repro_torch.kernels import ky_sampler as kys
+
+    return {"fused_gibbs_sample": fs.fused_gibbs_sample.launches,
+            "ky_sampler": kys.ky_sampler.launches,
+            "interp_lut": il.interp_lut.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+def zero_kernel_launch_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_sweep as fs
+    from repro_torch.kernels import interp_lut as il
+    from repro_torch.kernels import ky_sampler as kys
+
+    fs.fused_gibbs_sample.launches = 0
+    kys.ky_sampler.launches = 0
+    il.interp_lut.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention.launches_tc = 0
+    fa.flash_attention.launches_simt = 0
+
+
+def lm_step_bytes(model, batch: int, cache_len: int) -> int:
+    """Bytes one decode step must move: every parameter read once in the
+    dtype the step reads it (matrices in the compute dtype, vectors as
+    stored; a tok table that is not tied is gathered at ``batch`` rows
+    only), the KV cache read over ``cache_len`` positions and one
+    position written, the SSM state read and written, the logits
+    written."""
+    import torch
+
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import init_cache
+
+    cfg = model.cfg
+    cdt = torch.tensor([], dtype=torch_dtype(cfg.dtype)).element_size()
+    n = 0
+    for name, p in model.named_parameters():
+        if p.ndim >= 2:
+            rows = batch if (name == "embed.tok"
+                             and not cfg.tie_embeddings) else p.shape[0]
+            n += rows * p[0].numel() * cdt
+        else:
+            n += p.numel() * p.element_size()
+    for name, c in init_cache(cfg, 1, 1, device="meta").items():
+        row = c[0, 0].numel() * c.element_size() * cfg.n_layers * batch
+        if name in ("k", "v", "k_scale", "v_scale"):   # (L, B, T, ...)
+            n += row * (cache_len + 1)
+        elif name in ("xk", "xv"):         # the static cross memory, read
+            n += row
+        else:                              # SSM state: read and written
+            n += 2 * row
+    return n + batch * cfg.vocab * cdt
+
+
+def lm_replay(model, prompt, tokens, temperature: float,
+              **extra) -> dict:
+    """Feed a run's tokens back through the model and read every step's
+    distribution: mean entropy (bits) of softmax(logits / T) over steps
+    and rows, and the smallest top-2 logit margin."""
+    import torch
+
+    from repro_torch.models.sampling import prefill
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    b, s = prompt.shape
+    n = tokens.shape[1]
+    cache = init_cache(model.cfg, b, s + n, device=prompt.device)
+    cache, logits = prefill(model, prompt, cache, q_block=s, **extra)
+    ent, margin = [], float("inf")
+    for i in range(n):
+        lp = torch.log_softmax(logits.float() / temperature, dim=-1)
+        ent.append(float(-(lp.exp() * lp).sum(-1).mean()) / np.log(2.0))
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        margin = min(margin, float((top2[:, 0] - top2[:, 1]).min()))
+        if i + 1 < n:
+            logits, cache = decode_step(model, tokens[:, i:i + 1], s + i,
+                                        cache)
+    return {"entropy_bits": float(np.mean(ent)), "top2_margin": margin}
+
+
+def lm_full_width(arch: str, card_name: str) -> dict:
+    """One architecture at its published width on the card: random init
+    from a seeded generator on the card, ``generate`` with each sampler
+    (tok/s, ms a decode step, bits a token, the steps' entropy), the ky
+    sampler again at the first step's logit std, a decode step alone
+    (host clock, synchronized), device launches and busy time of one
+    step and of one KY sample by torch.profiler, peak memory, and the
+    step's bytes bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.models.sampling import generate, prefill, sample_logits
+    from repro_torch.models.transformer import (
+        decode_step, init_cache, init_model)
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    b, s, n_new = LM_RUN["batch"], LM_RUN["prompt_len"], LM_RUN["max_new"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = rng.randint(rng.PRNGKey(1), (b, s), 0, cfg.vocab, device=dev)
+    # warm-up: cuBLAS handles, the compute-dtype casts of the weights
+    generate(model, prompt, rng.PRNGKey(2), max_new=2, sampler="greedy")
+    cache = init_cache(cfg, b, s + n_new, device=dev)
+    cache, logits = prefill(model, prompt, cache)
+    t_std = float(logits.float().std())
+    if not (torch.isfinite(logits.float()).all() and t_std > 0):
+        raise AssertionError(f"lm_generate {arch}: bad first-step logits")
+    steps = s + n_new - 1                       # decode steps of a run
+    runs = {}
+    for sampler, temp in [(x, 1.0) for x in LM_SAMPLERS] + [("ky", t_std)]:
+        label = sampler if temp == 1.0 else "ky_at_logit_std"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, bits = generate(model, prompt, rng.PRNGKey(2), max_new=n_new,
+                              sampler=sampler, temperature=temp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if tuple(toks.shape) != (b, n_new) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"lm_generate {arch} {label}: bad tokens")
+        rep = lm_replay(model, prompt, toks, temp)
+        runs[label] = dict(
+            temperature=temp, tok_s=b * n_new / wall, wall_s=wall,
+            ms_per_step=wall / steps * 1e3, bits_per_token=bits / (b * n_new),
+            tokens0=toks[0, :8].tolist(), **rep)
+        if sampler == "greedy" and not torch.equal(
+                toks[:, 0], torch.argmax(logits, -1).to(torch.int32)):
+            raise AssertionError(f"lm_generate {arch}: greedy != argmax")
+    # one decode step alone, and sampling alone, host clock synchronized
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(8):
+        logits, cache = decode_step(model, tok, s + i, cache)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 8 * 1e3
+    sample_ms = {}
+    for sampler, temp in (("ky", 1.0), ("ky", t_std), ("categorical", 1.0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            sample_logits(rng.PRNGKey(i), logits.float(), sampler=sampler,
+                          temperature=temp)
+        torch.cuda.synchronize()
+        label = sampler if temp == 1.0 else "ky_at_logit_std"
+        sample_ms[label] = (time.perf_counter() - t0) / 8 * 1e3
+    profiled = {}
+    for part in ("decode_step", "ky_sample_at_logit_std"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "decode_step":
+                logits, cache = decode_step(model, tok, s + 8, cache)
+            else:
+                sample_logits(rng.PRNGKey(9), logits.float(), sampler="ky",
+                              temperature=t_std)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        profiled[part] = {
+            "launches": int(sum(e.count for e in kernels)),
+            "wall_ms": wall * 1e3,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+    nbytes = lm_step_bytes(model, b, s + n_new)
+    mat = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
+    bound_ms, bound_by = roofline(nbytes, 2 * b * mat, BF16_OPS_PER_S)
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "lm_generate", "arch": arch, "card": card_name,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": b, "prompt_len": s, "max_new": n_new,
+           "init_s": init_s, "first_step_logit_std": t_std, "runs": runs,
+           "decode_step_ms": step_ms, "sample_ms": sample_ms,
+           "step_bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+           "step_over_bound": step_ms / bound_ms,
+           "launches_per_step": sum(p["launches"] for p in profiled.values()),
+           "profiled": profiled,
+           "peak_memory_gb": peak / 1e9}
+    emit(out)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_card_vs_cpu(family: str, arch: str, kw: dict) -> dict:
+    """One family at smoke size in float32: the same weights on the CPU
+    and the card; decode logits, greedy tokens, KY stages."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.core.token_sampler import ky_sample_stages, token_weights
+    from repro_torch.models.layers import drop_casts
+    from repro_torch.models.sampling import generate
+    from repro_torch.models.transformer import (
+        decode_step, encode, init_cache, init_model, prefill_cross_cache)
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cfg = get_config(arch, smoke=True).replace(**kw)
+    assert cfg.dtype == "float32"
+    host = init_model(cfg, torch.Generator().manual_seed(0), device=cpu)
+    card = copy.deepcopy(host).to(dev)
+    drop_casts(card)
+    b, s, n_new = LM_SMOKE["batch"], LM_SMOKE["prompt_len"], LM_SMOKE["max_new"]
+    r = np.random.default_rng(1)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    extra = {}
+    if cfg.family in ("encdec", "audio"):
+        extra["src_embeds"] = torch.from_numpy(r.standard_normal(
+            (b, cfg.enc_seq_len, cfg.d_model), dtype=np.float32))
+    caches = {}
+    for name, m, d in (("cpu", host, cpu), ("cuda", card, dev)):
+        c = init_cache(cfg, b, s, device=d)
+        if extra:
+            c = prefill_cross_cache(m, encode(m, extra["src_embeds"].to(d), 8), c)
+        caches[name] = c
+    err = 0.0
+    for t in range(s):
+        want, caches["cpu"] = decode_step(host, toks[:, t:t + 1], t,
+                                          caches["cpu"])
+        got, caches["cuda"] = decode_step(card, toks[:, t:t + 1].to(dev), t,
+                                          caches["cuda"])
+        lim = LM_TOL * max(1.0, float(want.abs().max()))
+        e = float((got.cpu() - want).abs().max())
+        if not e <= lim:
+            raise AssertionError(f"lm {family}: card logits {e} > {lim}")
+        err = max(err, e / max(1.0, float(want.abs().max())))
+    temp = float(want.std())
+    w1, w2 = token_weights(want, temperature=temp)
+    k_cpu = ky_sample_stages(rng.PRNGKey(3), w1, w2, chunk=512)
+    k_card = ky_sample_stages(rng.PRNGKey(3), w1.to(dev), w2.to(dev),
+                              chunk=512)
+    if not all(torch.equal(x, y.cpu()) for x, y in zip(k_cpu, k_card)):
+        raise AssertionError(f"lm {family}: KY stages card != CPU")
+    gen = {}
+    for name, m, d in (("cpu", host, cpu), ("cuda", card, dev)):
+        kw_d = {k: v.to(d) for k, v in extra.items()}
+        gen[name], _ = generate(m, toks.to(d), rng.PRNGKey(2), max_new=n_new,
+                                sampler="greedy", q_block=s, **kw_d)
+    margin = lm_replay(host, toks, gen["cpu"], 1.0, **extra)["top2_margin"]
+    if not torch.equal(gen["cpu"], gen["cuda"].cpu()):
+        raise AssertionError(f"lm {family}: greedy tokens card != CPU "
+                             f"(smallest top-2 margin {margin})")
+    return {"max_rel_logit_err": err, "ky_bits": int(k_cpu.bits_used.sum()),
+            "greedy_min_margin": margin}
+
+
+def phase_lm_generate(card_name: str) -> dict:
+    """The LM serving path on the card.  No kernel of the port is on it
+    (the reference's models call no Pallas kernel; the KY walks run as
+    plain PyTorch), so every launch count must stay 0 over it."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the float32 checks need it off")
+    zero_kernel_launch_counts()                      # the main path
+    full = {arch: lm_full_width(arch, card_name) for arch in LM_FULL}
+    launches = kernel_launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_generate launched a kernel: {launches}")
+    smoke = {fam: lm_card_vs_cpu(fam, arch, kw)
+             for fam, arch, kw in LM_FAMILIES}
+    emit({"phase": "lm_identity", "tolerance": LM_TOL, "families": smoke})
+    p = full[LM_FULL[0]]
+    return {"launches": 0, "kernel_launches": launches,
+            "arch": LM_FULL[0], "decode_step_ms": p["decode_step_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": p["bound_by"]}
+
+
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
     """One kernel's entry of the per-kernel JSON line."""
     entry = {"name": name, "route": "cuda",
@@ -2011,6 +2337,7 @@ def main() -> int:
     ky = phase_ky_sampler(device)
     iu = phase_interp_lut(device)
     flash = phase_flash_attention(device)
+    paths["lm_generate"] = phase_lm_generate(card_name)
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",
@@ -2018,7 +2345,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_sweep.py:71",
         "launches": sum(p["launches"] for p in paths.values()),
         "max_abs_err": max(check["max_abs_err"],
-                           *(p["max_abs_err"] for p in paths.values())),
+                           *(p["max_abs_err"] for p in paths.values()
+                             if p["launches"])),
         "library_ms": None,
         **{k: main_path[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "call_ms", "words_ms",

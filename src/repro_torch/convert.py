@@ -9,7 +9,9 @@ arrays, so moving one across is a matter of handing the arrays over:
 sparse models, and :func:`compiled_fg_from_numpy` a
 :class:`repro_torch.pgm.sparse_compile.CompiledFactorGraph` (so a test
 can sweep the reference's own plan and tell a compile difference from a
-sweep difference).  Nothing here imports the reference package; callers
+sweep difference).  :func:`lm_params_from_numpy` builds a
+:class:`repro_torch.models.transformer.LM` from the reference's LM
+parameter tree.  Nothing here imports the reference package; callers
 pass its arrays.
 """
 from __future__ import annotations
@@ -17,7 +19,11 @@ from __future__ import annotations
 from collections.abc import Mapping, Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import drop_casts
+from repro_torch.models.transformer import LM, resolve_device
 from repro_torch.pgm.compile import ColorPlan, CompiledBN
 from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
 from repro_torch.pgm.sparse_compile import (
@@ -104,3 +110,54 @@ def compiled_fg_from_numpy(fg: FactorGraph, unary: np.ndarray,
         tables=np.asarray(tables, np.float32), plans=tuple(out),
         max_card=int(max_card), k=int(k),
         observed=tuple(int(v) for v in observed))
+
+
+def _tensor(a) -> torch.Tensor:
+    """A copy of a numpy leaf as a tensor; bfloat16 (ml_dtypes) arrays by
+    their bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _load(module: torch.nn.Module, tree: Mapping, idx: int | None,
+          where: str) -> None:
+    params = dict(module.named_parameters(recurse=False))
+    children = dict(module.named_children())
+    if set(tree) != set(params) | set(children):
+        raise ValueError(f"{where}: tree has {sorted(tree)}, the port's "
+                         f"module has {sorted(set(params) | set(children))}")
+    for name, leaf in tree.items():
+        if name in children:
+            _load(children[name], leaf, idx, f"{where}.{name}")
+            continue
+        t = _tensor(leaf if idx is None else np.asarray(leaf)[idx])
+        p = params[name]
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"{where}.{name}: {tuple(t.shape)} {t.dtype} "
+                             f"for {tuple(p.shape)} {p.dtype}")
+        p.copy_(t)
+
+
+@torch.no_grad()
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device=None) -> LM:
+    """A port :class:`LM` on ``device`` (the card by default) holding the
+    reference's parameters: ``tree`` is its ``init_model`` pytree as
+    nested dicts of numpy arrays, with the layer stacks (``layers``,
+    ``encoder``) on axis 0.  Every leaf must match a parameter in name,
+    shape and dtype, and every parameter must get one."""
+    model = LM(cfg, resolve_device(device))
+    groups = dict(model.named_children())
+    if set(tree) != set(groups):
+        raise ValueError(f"tree has {sorted(tree)}, the model has "
+                         f"{sorted(groups)}")
+    for name, sub in tree.items():
+        if name in ("layers", "encoder"):
+            for i, block in enumerate(groups[name]):
+                _load(block, sub, i, f"{name}[{i}]")
+        else:
+            _load(groups[name], sub, None, name)
+    drop_casts(model)
+    return model

@@ -23,6 +23,15 @@ DEFAULT_K = 14
 MAX_K = 30  # int32 safety bound for single-distribution total mass
 
 
+def div(x: torch.Tensor, y) -> torch.Tensor:
+    """``x / y`` rounded once on every device.  A Python divisor becomes a
+    0-d tensor: on the card a tensor over a scalar is a multiply by the
+    scalar's rounded reciprocal."""
+    if not torch.is_tensor(y):
+        y = torch.full((), y, dtype=x.dtype, device=x.device)
+    return x / y
+
+
 def quantize_probs(p: torch.Tensor, k: int = DEFAULT_K) -> torch.Tensor:
     """Quantize a (batch of) probability vector(s) to int32 KY weights:
     ``floor(p / max(p) * (2**k - 1))`` — the argmax maps to 2**k - 1."""

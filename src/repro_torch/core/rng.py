@@ -128,11 +128,22 @@ def lane_word(k0: int, k1: int, i: int, j: int, n_words: int,
     return x0 ^ x1
 
 
-def uniform(key, shape: tuple, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1): the
-    mantissa trick ``bitcast(bits >> 9 | 0x3f800000) - 1.0``."""
+def uniform(key, shape: tuple, device=None, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in float32:
+    the mantissa trick ``f = bitcast(bits >> 9 | 0x3f800000) - 1.0`` on
+    [0, 1), then ``max(minval, f * (maxval - minval) + minval)`` with the
+    bounds in float32.  XLA fuses that multiply-add into one rounding;
+    here it runs in float64, where ``f * (maxval - minval)`` is exact
+    (``f`` is a multiple of 2**-23) and so is the sum whenever
+    ``|minval| < 2**6 * (maxval - minval)``: its one rounding to float32
+    is the fused one."""
     f = ((bits(key, shape, device) >> 9) | 0x3F800000).to(torch.int32)
-    return torch.clamp_min(f.view(torch.float32) - 1.0, 0.0)
+    f = f.view(torch.float32) - 1.0
+    lo = torch.full((), minval, dtype=torch.float32, device=f.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=f.device)
+    y = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, y)
 
 
 def randint(key, shape: tuple, minval: int, maxval: int,

@@ -1,0 +1,186 @@
+"""Layer primitives: norms, activations, RoPE, embeddings, MLP.
+
+Torch twin of ``repro.models.layers``.  Parameters keep the reference's
+semantic axes unflattened (attention weights are ``(d_model, heads,
+d_head)``) and its names, so :func:`repro_torch.convert.
+lm_params_from_numpy` can hand a reference parameter tree over leaf by
+leaf.  They are stored in the config's ``param_dtype``; the reference
+casts every matrix to the compute dtype at each use, and the port keeps
+that cast once per (parameter, dtype) instead (:meth:`ParamModule.w`):
+the numbers are the same, and a bf16 decode step reads each matrix once
+in bf16 rather than re-casting it from float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.fixedpoint import div
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int8": torch.int8}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+class ParamModule(nn.Module):
+    """A module whose parameters are leaves of the reference's tree.
+
+    Parameters are made empty (``torch.empty``) and filled by
+    ``init_model`` from a ``torch.Generator`` or by the converter; they
+    take no gradient (training is not ported)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self._pdt = torch_dtype(cfg.param_dtype)
+        self._device = device
+        self._casts: dict = {}
+
+    def param(self, name: str, *shape: int) -> None:
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=self._pdt, device=self._device),
+            requires_grad=False))
+
+    def w(self, name: str, dt: torch.dtype) -> torch.Tensor:
+        """Parameter ``name`` in dtype ``dt`` (the reference's
+        ``params[name].astype(dt)``), cast once and kept."""
+        p = getattr(self, name)
+        if p.dtype == dt:
+            return p
+        c = self._casts.get((name, dt))
+        if c is None or c.device != p.device:
+            c = self._casts[(name, dt)] = p.to(dt)
+        return c
+
+
+def drop_casts(model: nn.Module) -> None:
+    """Forget the kept casts of every :class:`ParamModule` in ``model``
+    (after its parameters were written)."""
+    for m in model.modules():
+        if isinstance(m, ParamModule):
+            m._casts.clear()
+
+
+def normal_(p: torch.Tensor, gen: torch.Generator, scale: float = 1.0) -> None:
+    """Fill ``p`` with float32 N(0, 1) draws times ``scale`` made on the
+    generator's device, then cast to ``p``'s dtype (the reference draws
+    float32 and casts the tree to ``param_dtype``)."""
+    x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    p.copy_(x * scale)
+
+
+class RMSNorm(ParamModule):
+    def __init__(self, cfg: ModelConfig, d: int, device):
+        super().__init__(cfg, device)
+        self.param("scale", d)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(self.scale, x)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale).to(dt)
+
+
+def act_fn(name: str, x: torch.Tensor,
+           gate: torch.Tensor | None = None) -> torch.Tensor:
+    if name == "swiglu":
+        assert gate is not None
+        return F.silu(gate) * x
+    if name == "gelu":  # jax.nn.gelu's default is the tanh form
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":  # nemotron squared ReLU
+        r = F.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+class MLP(ParamModule):
+    def __init__(self, cfg: ModelConfig, device, d_ff: int | None = None):
+        super().__init__(cfg, device)
+        d, ff = cfg.d_model, d_ff or cfg.d_ff
+        self.param("wi", d, ff)
+        self.param("wo", ff, d)
+        if cfg.act == "swiglu":
+            self.param("wg", d, ff)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        d, ff = self.wi.shape
+        normal_(self.wi, gen, d ** -0.5)
+        normal_(self.wo, gen, ff ** -0.5)
+        if hasattr(self, "wg"):
+            normal_(self.wg, gen, d ** -0.5)
+
+
+def apply_mlp(mlp: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ mlp.w("wi", dt)
+    g = x @ mlp.w("wg", dt) if hasattr(mlp, "wg") else None
+    return act_fn(cfg.act, h, g) @ mlp.w("wo", dt)
+
+
+class Embed(ParamModule):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device)
+        self.param("tok", cfg.vocab, cfg.d_model)
+        if not cfg.tie_embeddings:
+            self.param("head", cfg.d_model, cfg.vocab)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        normal_(self.tok, gen)
+        if hasattr(self, "head"):
+            normal_(self.head, gen, self.head.shape[0] ** -0.5)
+
+
+def embed_tokens(embed: Embed, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return embed.w("tok", dtype)[tokens.long()]
+
+
+def unembed(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ embed.w("tok", x.dtype).T
+    else:
+        logits = x @ embed.w("head", x.dtype)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(div(logits.float(), c))
+    return logits
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
+    half = cfg.d_head // 2
+    e = -div(torch.arange(0, half, dtype=torch.float32, device=device),
+             float(half))
+    return torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                device=device), e)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, dh); pos: (S,) or (B, S) int positions."""
+    ang = pos[..., None].float() * freqs  # (..., S, half)
+    if ang.ndim == 2:  # (S, half) -> broadcast over batch
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -10,7 +10,9 @@ tests' tolerances) against their plain versions, the KY sampler at the
 group and round boundaries of its group walk and the float32 flash kernel
 at odd head dims, ragged sequences and unaligned views; and the mesh
 path on the card repeated (lane shards at their ``lane0``, the tile
-mesh, the sharded engine) against the unsharded results.
+mesh, the sharded engine) against the unsharded results; and the LM
+serving path (every family's decode, greedy generation and KY token
+stages on the card against the CPU, phi4-mini at full width).
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -717,3 +719,97 @@ def test_flash_tc_takes_a_view_that_is_not_16_byte_aligned(cuda_device):
     got = fa.flash_attention(q, q, q, q_block=64, kv_block=64)
     torch.testing.assert_close(got.float(), ref.mha_ref(q, q, q).float(),
                                atol=3e-2, rtol=3e-2)
+
+
+# --------------------------------------------------------------------------
+# the LM serving path: no kernel of the port, plain PyTorch on the card
+# --------------------------------------------------------------------------
+
+# one arch a family at smoke size, float32 ("encdec" is seamless under the
+# text family's name)
+_LM_FAMILIES = {"dense": ("phi4-mini-3.8b", {}), "moe": ("grok-1-314b", {}),
+                "ssm": ("mamba2-130m", {}), "hybrid": ("hymba-1.5b", {}),
+                "encdec": ("seamless-m4t-medium", {"family": "encdec"}),
+                "vlm": ("pixtral-12b", {}),
+                "audio": ("seamless-m4t-medium", {})}
+
+
+@pytest.mark.parametrize("family", list(_LM_FAMILIES))
+def test_lm_decode_card_equals_cpu(cuda_device, family):
+    """The same weights on the CPU and the card: decode logits within
+    1e-5 of the largest (TF32 stays off), greedy tokens equal, and the KY
+    token stages bit for bit on the same integer weights and key."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.token_sampler import ky_sample_stages, token_weights
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import drop_casts
+    from repro_torch.models.sampling import generate
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch, kw = _LM_FAMILIES[family]
+    cfg = get_config(arch, smoke=True).replace(**kw)
+    cpu = torch.device("cpu")
+    host = tt.init_model(cfg, torch.Generator().manual_seed(0), device=cpu)
+    card = copy.deepcopy(host).to(cuda_device)
+    drop_casts(card)
+    r = np.random.default_rng(1)
+    toks = torch.from_numpy(r.integers(0, cfg.vocab, (2, 4)).astype(np.int32))
+    extra = {}
+    if cfg.family in ("encdec", "audio"):
+        extra["src_embeds"] = torch.from_numpy(r.standard_normal(
+            (2, cfg.enc_seq_len, cfg.d_model), dtype=np.float32))
+    c_cpu = tt.init_cache(cfg, 2, 4, device=cpu)
+    c_card = tt.init_cache(cfg, 2, 4, device=cuda_device)
+    if extra:
+        src = extra["src_embeds"]
+        c_cpu = tt.prefill_cross_cache(host, tt.encode(host, src, 8), c_cpu)
+        c_card = tt.prefill_cross_cache(
+            card, tt.encode(card, src.to(cuda_device), 8), c_card)
+    for t in range(4):
+        want, c_cpu = tt.decode_step(host, toks[:, t:t + 1], t, c_cpu)
+        got, c_card = tt.decode_step(card, toks[:, t:t + 1].to(cuda_device),
+                                     t, c_card)
+        assert got.device.type == "cuda"
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+    w1, w2 = token_weights(want, temperature=float(want.std()))
+    a = ky_sample_stages(rng.PRNGKey(3), w1, w2, chunk=512)
+    b = ky_sample_stages(rng.PRNGKey(3), w1.to(cuda_device),
+                         w2.to(cuda_device), chunk=512)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y.cpu())
+    g_cpu, _ = generate(host, toks, rng.PRNGKey(2), max_new=8,
+                        sampler="greedy", **extra)
+    g_card, _ = generate(card, toks.to(cuda_device), rng.PRNGKey(2),
+                         max_new=8, sampler="greedy",
+                         **{k: v.to(cuda_device) for k, v in extra.items()})
+    assert torch.equal(g_cpu, g_card.cpu())
+
+
+def test_phi4_mini_full_width_generates_on_the_card(cuda_device):
+    """phi4-mini-3.8b at its published width (bf16 compute, random
+    weights): a decode step's logits are finite bf16 (4, 200064), and
+    ``generate`` with the KY sampler gives in-range tokens, launching no
+    kernel of the port."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.sampling import generate
+
+    cfg = get_config("phi4-mini-3.8b")
+    model = tt.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          device=cuda_device)
+    prompt = rng.randint(rng.PRNGKey(1), (4, 16), 0, cfg.vocab,
+                         device=cuda_device)
+    cache = tt.init_cache(cfg, 4, 17, device=cuda_device)
+    logits, cache = tt.decode_step(model, prompt[:, :1], 0, cache)
+    assert logits.shape == (4, cfg.vocab) and logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits.float()).all())
+    before = fs.fused_gibbs_sample.launches + kys.ky_sampler.launches
+    toks, bits = generate(model, prompt, rng.PRNGKey(2), max_new=4,
+                          sampler="ky",
+                          temperature=float(logits.float().std()))
+    assert toks.shape == (4, 4) and toks.device.type == "cuda"
+    assert bool(((toks >= 0) & (toks < cfg.vocab)).all()) and bits > 0
+    assert fs.fused_gibbs_sample.launches + kys.ky_sampler.launches == before

@@ -28,9 +28,16 @@ print("MODULES", sorted(n for n in sys.modules
                         if n.startswith("repro_torch.")))
 """
 
-# the mesh path's modules, which must be among those imported
+# the mesh path's and the LM serving path's modules, which must be among
+# those imported
 MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding.specs",
                 "repro_torch.pgm.mesh_gibbs", "repro_torch.pgm.metropolis")
+LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.phi4_mini",
+              "repro_torch.configs.mamba2_130m",
+              "repro_torch.core.token_sampler", "repro_torch.sharding.ctx",
+              "repro_torch.models.layers", "repro_torch.models.attention",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.transformer", "repro_torch.models.sampling")
 
 
 def test_port_imports_no_jax_networkx_or_reference():
@@ -42,9 +49,9 @@ def test_port_imports_no_jax_networkx_or_reference():
     # every module of the package was imported: one per file, less the
     # package's own __init__
     files = list(Path(REPO, "src", "repro_torch").rglob("*.py"))
-    assert n == len(files) - 1 >= 34, out
+    assert n == len(files) - 1 >= 56, out
     modules = out.split("MODULES ")[-1]
-    for name in MESH_MODULES:
+    for name in MESH_MODULES + LM_MODULES:
         assert repr(name) in modules, name
 
 

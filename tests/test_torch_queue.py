@@ -380,8 +380,8 @@ def test_synthetic_stream_traffic_matches_reference():
 
 def test_launch_serve_forwards_posterior_modes(monkeypatch):
     """``launch.serve`` hands ``--stream``/``--serve``/``--connect`` to
-    the serving CLI and refuses the generation half, which is not
-    ported."""
+    the serving CLI, and only those: anything else is the generation
+    half (``--arch``), which never reaches the CLI."""
     from repro_torch.launch import serve
     from repro_torch.serve import cli as t_cli
 
@@ -392,8 +392,9 @@ def test_launch_serve_forwards_posterior_modes(monkeypatch):
         serve.main(argv)
     assert seen == [["--stream", "--network", "asia"], ["--serve=:0"],
                     ["--connect", ":8080"]]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.main(["--arch", "phi4-mini-3.8b"])
+    with pytest.raises(SystemExit):      # argparse: --arch is required
+        serve.main(["--network", "asia"])
+    assert len(seen) == 3
 
 
 # -- scheduling policy --------------------------------------------------------
