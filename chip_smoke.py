@@ -118,12 +118,28 @@ line is printed:
    bit for bit on the same integer weights.  No kernel of the port is on
    this path (the reference's models call no Pallas kernel, and its KY
    token walks are plain XLA): every launch count must stay 0 over it.
+20. lm_train — first every family at smoke size, the card against the
+   CPU: loss and every gradient leaf, one train step for each optimizer
+   kind, microbatch 2 against the full batch.  Then the training path
+   (``launch/train.py``'s loop: ``init_train_state``, ``make_train_step``,
+   ``StepGuard``, ``TokenDataset``) on the card at full width with random
+   weights from a seeded generator: phi4-mini-3.8b with its config's
+   settings (AdamW, float32 moments, microbatch 2, remat "full"), batch
+   8 x 128 tokens, 4 steps (loss and gradient norm finite, median ms a
+   step over steps 2-4, tok/s, peak memory beside the state's 16 bytes a
+   parameter, busy share, launches and top ops of one profiled step, the
+   step beside its bound) and mamba2-130m (microbatch 8), 4 steps, then
+   its state saved, restored into a state of other weights and stepped
+   once more, equal to the live state's next step bit for bit; zero
+   retries.  No kernel of the port is on this path either: every launch
+   count must stay 0 over it.
 
-Phases 4, 7, 8 and 10-19 each zero their kernel's launch count (phase 19:
-every kernel's) just before their main path and read it just after; the
-fused kernel's entry of the per-kernel JSON line carries each path's
-launches, shapes and times under ``paths`` (``lm_generate`` with 0
-launches).  Then the nvidia-smi name/power-limit line, and last
+Phases 4, 7, 8 and 10-20 each zero their kernel's launch count (phases 19
+and 20: every kernel's) just before their main path and read it just
+after; the fused kernel's entry of the per-kernel JSON line carries each
+path's launches, shapes and times under ``paths`` (``lm_generate`` and
+``lm_train`` with 0 launches, every kernel's count beside them).  Then
+the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
 from __future__ import annotations
@@ -147,7 +163,8 @@ SERVE_NET = "hailfinder_scale"
 SERVE_QUERIES, SERVE_PATTERNS = 64, 4
 # depth cut so the script stays near its earlier run time with the MRF and
 # Ising phases added: a 2048-sample budget and 32 burn-in sweeps (engine
-# defaults 4096 and 64; 6 rounds a group instead of 12)
+# defaults 4096 and 64; 6 rounds a group instead of 12; a smaller budget
+# gives no fewer: the engine keeps at least 4 sampling rounds)
 SERVE_BUDGET, SERVE_BURN_IN = 2048, 32
 KERNEL_SHAPES = ((7, 3), (300, 5), (4096, 16), (20000, 5), (65536, 2))
 # lane-offset cases: blocks of one (20000, 5) launch run as lane shards,
@@ -263,6 +280,29 @@ LM_FAMILIES = (("dense", "phi4-mini-3.8b", {}), ("moe", "grok-1-314b", {}),
                ("audio", "seamless-m4t-medium", {}))
 LM_TOL = 1e-5
 LM_SMOKE = dict(batch=2, prompt_len=4, max_new=8)
+
+# The training path (python -m repro_torch.launch.train) at full width with
+# random weights: phi4-mini-3.8b with the config's own settings (bf16
+# compute, float32 parameters, AdamW with float32 moments, microbatch 2,
+# remat "full") at the launcher's defaults, batch 8 x 128 tokens, 4 steps of
+# TokenDataset; its state is 16 bytes a parameter (4 parameter + 4 gradient
+# + 8 moments); then mamba2-130m's config (microbatch 8), 4 steps, and a
+# checkpoint round trip of its state on the card
+LM_TRAIN_FULL = "phi4-mini-3.8b"
+LM_TRAIN_SSM = "mamba2-130m"
+LM_TRAIN_RUN = dict(batch=8, seq_len=128, steps=4)
+LM_TRAIN_STATE_BYTES = 16
+# every family at smoke size, the card against the CPU on the same weights
+# and batch (16 tokens, q_block 8): loss within LM_TRAIN_LOSS_RTOL relative
+# and each gradient leaf within LM_TRAIN_GRAD_TOL of its largest |g| (a bf16
+# leaf also one bf16 step, 2**-7, of the element), tests/test_torch_models.py's
+# tolerances against the reference; one train step for each optimizer kind;
+# microbatch 2 against the full batch (tests/test_training.py's 5e-5)
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_TOL = 1e-5, 1e-4
+LM_TRAIN_OPT_ARCHS = (("adamw", "phi4-mini-3.8b"),
+                      ("adamw_bf16", "qwen1.5-32b"),
+                      ("adafactor", "grok-1-314b"))
+LM_TRAIN_MB_TOL = 5e-5
 
 
 def emit(obj) -> None:
@@ -2015,7 +2055,7 @@ def lm_step_bytes(model, batch: int, cache_len: int) -> int:
     """Bytes one decode step must move: every parameter read once in the
     dtype the step reads it (matrices in the compute dtype, vectors as
     stored; a tok table that is not tied is gathered at ``batch`` rows
-    only), the KV cache read over ``cache_len`` positions and one
+    only, as stored), the KV cache read over ``cache_len`` positions and one
     position written, the SSM state read and written, the logits
     written."""
     import torch
@@ -2027,10 +2067,10 @@ def lm_step_bytes(model, batch: int, cache_len: int) -> int:
     cdt = torch.tensor([], dtype=torch_dtype(cfg.dtype)).element_size()
     n = 0
     for name, p in model.named_parameters():
-        if p.ndim >= 2:
-            rows = batch if (name == "embed.tok"
-                             and not cfg.tie_embeddings) else p.shape[0]
-            n += rows * p[0].numel() * cdt
+        if name == "embed.tok" and not cfg.tie_embeddings:
+            n += batch * p[0].numel() * p.element_size()
+        elif p.ndim >= 2:
+            n += p.numel() * cdt
         else:
             n += p.numel() * p.element_size()
     for name, c in init_cache(cfg, 1, 1, device="meta").items():
@@ -2269,6 +2309,356 @@ def phase_lm_generate(card_name: str) -> dict:
             "bound_ms": p["bound_ms"], "bound_by": p["bound_by"]}
 
 
+def lm_train_bound(cfg, tokens: int) -> dict:
+    """The least time of one train step of the config as it runs
+    (remat "full"), and its reckoning.  Operations: 8 N T matrix FLOPs
+    (forward 2 N T, the remat's second forward 2 N T, backward 4 N T; N
+    parameters, T tokens) at the bf16 tensor-core peak; the 6 N T of a
+    step without remat (which this batch would fit) is given beside it.
+    Bytes: what the step function must move, each input read once and
+    each output written once: the float32 parameters and both float32
+    moments read and written, 24 bytes a parameter.  The gradients are
+    made and used inside the step, so they are not counted; writing and
+    reading them once (8 bytes a parameter more) is given beside it."""
+    n = cfg.param_count()
+    flops = 8 * n * tokens
+    nbytes = 24 * n
+    bound_ms, bound_by = roofline(nbytes, flops, BF16_OPS_PER_S)
+    return {"params": n, "tokens": tokens, "remat": cfg.remat,
+            "flops": flops, "flops_ms": flops / BF16_OPS_PER_S * 1e3,
+            "bytes": nbytes, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops_no_remat_6nt_ms": 6 * n * tokens / BF16_OPS_PER_S * 1e3,
+            "bytes_with_grads_32b_ms": 32 * n / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_train_steps(cfg, steps: int, dev, seed: int = 0):
+    """``launch/train.py``'s loop on the card: a state from a seeded
+    generator, ``TokenDataset`` batches, each step through ``StepGuard``
+    and timed on the host clock to its synchronize.  Returns (state,
+    step function, per-step records, dataset); fails on a loss or norm
+    that is not finite, and on any retry or reload."""
+    import torch
+
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import DataConfig, StepGuard, TokenDataset
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    run = LM_TRAIN_RUN
+    model = init_model(cfg, torch.Generator(dev).manual_seed(seed),
+                       device=dev)
+    state = init_train_state(cfg, model)
+    step_fn, _ = make_train_step(cfg, q_block=min(run["seq_len"], 512))
+    ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
+    guard = StepGuard()
+    recs = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = guard.run(step_fn, state, batch)
+        torch.cuda.synchronize()
+        recs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+    if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
+        raise AssertionError(f"lm_train {cfg.name}: a loss or grad norm "
+                             f"is not finite: {recs}")
+    if guard.retries or guard.reloads:
+        raise AssertionError(f"lm_train {cfg.name}: {guard.retries} "
+                             f"retries, {guard.reloads} reloads")
+    return state, step_fn, recs, ds
+
+
+def lm_train_full_width(card_name: str) -> dict:
+    """phi4-mini-3.8b's training at full width: 4 steps, their times and
+    numbers, peak memory, then one more step under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_TRAIN_FULL)
+    run = LM_TRAIN_RUN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step_fn, recs, ds = lm_train_steps(cfg, run["steps"], dev)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    med = float(np.median([r["ms"] for r in recs[1:]]))
+    tokens = run["batch"] * run["seq_len"]
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(run["steps"]).items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # device time by the PyTorch op that launched it (kernel names alone
+    # do not tell a cast from an add)
+    ops = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:12]
+    bound = lm_train_bound(cfg, tokens)
+    n = bound["params"]
+    out = {"phase": "lm_train", "arch": cfg.name, "card": card_name,
+           "params": n, "n_layers": cfg.n_layers, "depth_cut": None,
+           "batch": run["batch"], "seq_len": run["seq_len"],
+           "microbatch": cfg.microbatch, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "steps": recs, "wall_s": wall_s,
+           "median_step_ms": med, "tok_s": tokens / med * 1e3,
+           "peak_memory_gb": peak / 1e9,
+           "state_gb_reckoned": n * LM_TRAIN_STATE_BYTES / 1e9,
+           "profiled_step": {
+               "wall_ms": prof_wall * 1e3, "busy_ms": busy_ms,
+               "busy_share": busy_ms / (prof_wall * 1e3),
+               "launches": int(sum(e.count for e in kernels)),
+               "top_ops_ms": [[e.key, e.self_device_time_total / 1e3,
+                               e.count] for e in top]},
+           "bound": bound, "step_over_bound": med / bound["bound_ms"]}
+    emit(out)
+    del state, step_fn, batch, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_ssm_and_checkpoint(card_name: str) -> dict:
+    """mamba2-130m's training at full width (microbatch 8), 4 steps; then
+    its state saved, restored into a state of other weights, and both
+    stepped once more on the next batch: every leaf equal bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import restore, save
+    from repro_torch.training.checkpoint import host_snapshot
+    from repro_torch.training.train_step import init_train_state
+
+    dev = torch.device("cuda")
+    cfg = get_config(LM_TRAIN_SSM)
+    steps = LM_TRAIN_RUN["steps"]
+    state, step_fn, recs, ds = lm_train_steps(cfg, steps, dev)
+    tmp = tempfile.mkdtemp(prefix="lm_train_ckpt_")
+    try:
+        save(tmp, steps, state)
+        other = init_train_state(cfg, init_model(
+            cfg, torch.Generator(dev).manual_seed(1), device=dev))
+        other, at = restore(tmp, other)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(steps).items()}
+    state, m1 = step_fn(state, batch)
+    other, m2 = step_fn(other, batch)
+    a, b = host_snapshot(state), host_snapshot(other)
+    bad = [k for k in a if not np.array_equal(a[k][0], b[k][0])]
+    if at != steps or bad or float(m1["loss"]) != float(m2["loss"]):
+        raise AssertionError(f"lm_train checkpoint: restored step {at}, "
+                             f"leaves that differ after a step: {bad[:8]}")
+    med = float(np.median([r["ms"] for r in recs[1:]]))
+    out = {"phase": "lm_train", "arch": cfg.name, "card": card_name,
+           "microbatch": cfg.microbatch, "steps": recs,
+           "median_step_ms": med,
+           "tok_s": LM_TRAIN_RUN["batch"] * LM_TRAIN_RUN["seq_len"]
+           / med * 1e3,
+           "checkpoint": {"leaves": len(a), "bitwise_after_a_step": True,
+                          "restored_step": at}}
+    emit(out)
+    del state, other
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_loss_grads(model, batch) -> tuple[float, dict]:
+    """``loss_fn`` (q_block 8) and every gradient leaf, stacked, on the
+    host."""
+    import torch
+
+    from repro_torch.models.transformer import loss_fn, param_leaves
+
+    for p in model.parameters():
+        p.grad = None
+    loss = loss_fn(model, batch, 8)
+    loss.backward()
+    return float(loss.detach()), {
+        k: (torch.stack([x.grad for x in p]) if isinstance(p, list)
+            else p.grad).float().cpu()
+        for k, p in param_leaves(model).items()}
+
+
+def lm_train_card_vs_cpu(family: str, arch: str, kw: dict) -> dict:
+    """One family at smoke size: the same weights and batch on the CPU and
+    the card, loss and every gradient leaf."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training.data import make_batch
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cfg = get_config(arch, smoke=True).replace(**kw)
+    host = init_model(cfg, torch.Generator().manual_seed(0), device=cpu)
+    card = copy.deepcopy(host).to(dev)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, ShapeCfg("t", 16, 2, "train"), 3).items()}
+    want_loss, want = lm_loss_grads(host, batch)
+    got_loss, got = lm_loss_grads(card, {k: v.to(dev)
+                                         for k, v in batch.items()})
+    if not abs(got_loss - want_loss) <= LM_TRAIN_LOSS_RTOL * abs(want_loss):
+        raise AssertionError(f"lm_train {family}: card loss {got_loss} "
+                             f"!= CPU {want_loss}")
+    worst = 0.0
+    for k, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        lim = LM_TRAIN_GRAD_TOL * scale
+        if cfg.param_dtype == "bfloat16":
+            lim = lim + 2.0 ** -7 * w.abs()
+        err = (got[k] - w).abs()
+        if not bool((err <= lim).all()):
+            raise AssertionError(f"lm_train {family}: gradient {k} card != "
+                                 f"CPU by {float(err.max())}")
+        worst = max(worst, float(err.max()) / scale)
+    return {"loss": want_loss,
+            "loss_rel_err": abs(got_loss - want_loss) / abs(want_loss),
+            "max_rel_grad_err": worst}
+
+
+def lm_train_params(state) -> dict:
+    """Leaf path -> float32 host copy of every parameter leaf."""
+    from repro_torch.training.checkpoint import host_snapshot
+
+    out = {}
+    for k, (arr, dt) in host_snapshot(state).items():
+        if k.startswith(".params"):
+            out[k] = ((arr.astype(np.uint32) << 16).view(np.float32)
+                      if dt == "bfloat16" else arr, dt)
+    return out
+
+
+def lm_train_step_card_vs_cpu(kind: str, arch: str) -> dict:
+    """One train step of an optimizer kind's smoke config from the same
+    state on the CPU and the card.  Parameters within 1e-6 (a bf16
+    parameter also one bf16 step of the element), except where a
+    near-zero gradient took the other sign: AdamW's first step moves
+    every element by about its lr whatever the gradient's size; at most
+    1 in 10,000 elements may, by at most 2 x 2.1 lr."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import DataConfig, TokenDataset
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    cfg = get_config(arch, smoke=True)
+    assert cfg.optimizer == kind
+    host = init_train_state(cfg, device=cpu)
+    card = init_train_state(cfg, copy.deepcopy(host.model).to(dev))
+    step_fn, _ = make_train_step(cfg, q_block=8)
+    ds = TokenDataset(DataConfig(cfg.vocab, 16, 4))
+    batch = {k: torch.from_numpy(v) for k, v in ds.batch_at(0).items()}
+    host, mh = step_fn(host, batch)
+    card, mc = step_fn(card, {k: v.to(dev) for k, v in batch.items()})
+    lr = make_optimizer(cfg).lr
+    a, b = lm_train_params(host), lm_train_params(card)
+    n = flipped = 0
+    for k, (want, dt) in a.items():
+        tol = 1e-6 + (2.0 ** -7 * np.abs(want) if dt == "bfloat16" else 0)
+        d = np.abs(b[k][0].astype(np.float64) - want)
+        n += d.size
+        flipped += int((d > tol).sum())
+        if not d.max() <= 2 * 2.1 * lr + np.max(tol):
+            raise AssertionError(f"lm_train {kind}: {k} card != CPU by "
+                                 f"{d.max()}")
+    loss_err = abs(float(mc["loss"]) - float(mh["loss"]))
+    if flipped > n // 10_000 or not loss_err <= \
+            LM_TRAIN_LOSS_RTOL * abs(float(mh["loss"])):
+        raise AssertionError(f"lm_train {kind}: {flipped} of {n} parameters "
+                             f"differ; loss differs by {loss_err}")
+    return {"loss": float(mh["loss"]), "flipped": flipped, "elements": n}
+
+
+def lm_train_microbatch_on_card() -> dict:
+    """tests/test_training.py's identity on the card: granite smoke in
+    float32, microbatch 2 against the full batch, one step: parameters
+    within 5e-5."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import DataConfig, TokenDataset
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    dev = torch.device("cuda")
+    cfg = get_config("granite-20b", smoke=True).replace(dtype="float32")
+    model = init_model(cfg, torch.Generator(dev).manual_seed(1), device=dev)
+    ds = TokenDataset(DataConfig(cfg.vocab, 8, 4))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(0).items()}
+    params = {}
+    for mb in (0, 2):
+        c = cfg.replace(microbatch=mb)
+        st = init_train_state(c, copy.deepcopy(model))
+        st, _ = make_train_step(c, q_block=8)[0](st, batch)
+        params[mb] = lm_train_params(st)
+    err = max(float(np.abs(params[0][k][0] - params[2][k][0]).max())
+              for k in params[0])
+    if not err < LM_TRAIN_MB_TOL:
+        raise AssertionError(f"lm_train: microbatch 2 != full batch by {err}")
+    return {"max_abs_diff": err}
+
+
+def phase_lm_train(card_name: str) -> dict:
+    """The training path on the card.  No kernel of the port is on it
+    (the reference's models call no Pallas kernel, and its flash
+    attention has no backward), so every launch count must stay 0 over
+    it."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the float32 checks need it off")
+    ident = {"families": {fam: lm_train_card_vs_cpu(fam, arch, kw)
+                          for fam, arch, kw in LM_FAMILIES},
+             "optimizers": {kind: lm_train_step_card_vs_cpu(kind, arch)
+                            for kind, arch in LM_TRAIN_OPT_ARCHS},
+             "microbatch": lm_train_microbatch_on_card()}
+    emit({"phase": "lm_train_identity", "loss_rtol": LM_TRAIN_LOSS_RTOL,
+          "grad_tol": LM_TRAIN_GRAD_TOL, **ident})
+    zero_kernel_launch_counts()                      # the main path
+    full = lm_train_full_width(card_name)
+    ssm = lm_train_ssm_and_checkpoint(card_name)
+    launches = kernel_launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_train launched a kernel: {launches}")
+    return {"launches": 0, "kernel_launches": launches,
+            "arch": full["arch"], "median_step_ms": full["median_step_ms"],
+            "bound_ms": full["bound"]["bound_ms"],
+            "bound_by": full["bound"]["bound_by"],
+            "ssm_median_step_ms": ssm["median_step_ms"]}
+
+
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
     """One kernel's entry of the per-kernel JSON line."""
     entry = {"name": name, "route": "cuda",
@@ -2338,6 +2728,7 @@ def main() -> int:
     iu = phase_interp_lut(device)
     flash = phase_flash_attention(device)
     paths["lm_generate"] = phase_lm_generate(card_name)
+    paths["lm_train"] = phase_lm_train(card_name)
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",

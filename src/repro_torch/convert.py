@@ -11,8 +11,10 @@ sparse models, and :func:`compiled_fg_from_numpy` a
 can sweep the reference's own plan and tell a compile difference from a
 sweep difference).  :func:`lm_params_from_numpy` builds a
 :class:`repro_torch.models.transformer.LM` from the reference's LM
-parameter tree.  Nothing here imports the reference package; callers
-pass its arrays.
+parameter tree, and :func:`train_state_from_numpy` /
+:func:`train_state_to_numpy` carry a whole training state (parameters,
+optimizer state, step) across in the reference's ``TrainState`` layout.
+Nothing here imports the reference package; callers pass its arrays.
 """
 from __future__ import annotations
 
@@ -23,12 +25,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import drop_casts
-from repro_torch.models.transformer import LM, resolve_device
+from repro_torch.models.transformer import LM, param_leaves, resolve_device
 from repro_torch.pgm.compile import ColorPlan, CompiledBN
 from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
 from repro_torch.pgm.sparse_compile import (
     CompiledFactorGraph, DegreeBucket, SparsePlan)
 from repro_torch.serve.plan_cache import _PLAN_FIELDS
+from repro_torch.training.optimizer import copy_into, make_optimizer
+from repro_torch.training.train_step import StateTree, TrainState
 
 
 def bayesnet_from_numpy(card: Sequence[int],
@@ -161,3 +165,81 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
             _load(groups[name], sub, None, name)
     drop_casts(model)
     return model
+
+
+def _nest(flat: Mapping) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *path, last = key.split("/")
+        d = out
+        for part in path:
+            d = d.setdefault(part, {})
+        d[last] = v
+    return out
+
+
+def _unnest(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_unnest(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bfloat16 as float32 (exact: numpy has no bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _fill(dst: Mapping, tree: Mapping, where: str) -> None:
+    """Copy a nested numpy dict into leaves keyed like ``param_leaves``
+    (a list leaf takes the array's rows), cast to their dtypes."""
+    flat = _unnest(tree)
+    if set(flat) != set(dst):
+        raise ValueError(f"{where}: tree has {sorted(flat)}, the port has "
+                         f"{sorted(dst)}")
+    for key, leaf in dst.items():
+        a = np.asarray(flat[key])
+        a = a.astype(np.float32) if a.dtype.name == "bfloat16" else a.copy()
+        copy_into(leaf, torch.from_numpy(a), f"{where}/{key}")
+
+
+def train_state_to_numpy(state: TrainState) -> StateTree:
+    """The port's training state as the reference's ``TrainState`` of
+    numpy host copies: nested parameter and moment dicts, layer stacks on
+    axis 0, the optimizer state with the reference's field names."""
+    params = {k: np.stack([_array(t) for t in p]) if isinstance(p, list)
+              else _array(p) for k, p in param_leaves(state.model).items()}
+    opt = type(state.opt)(**{
+        f: _array(v) if torch.is_tensor(v)
+        else _nest({k: _array(t) for k, t in v.items()})
+        for f, v in state.opt._asdict().items()})
+    return StateTree(_nest(params), opt, _array(state.step))
+
+
+@torch.no_grad()
+def train_state_from_numpy(tree, cfg: ModelConfig,
+                           device=None) -> TrainState:
+    """A port :class:`TrainState` on ``device`` (the card by default) from
+    the reference's ``TrainState`` as numpy (anything with ``params``,
+    ``opt`` and ``step``; ``opt`` the config's optimizer state with the
+    reference's field names).  bfloat16 leaves may come as float32."""
+    model = LM(cfg, resolve_device(device))
+    leaves = param_leaves(model)
+    _fill(leaves, tree.params, "params")
+    drop_casts(model)
+    opt = make_optimizer(cfg).init(leaves)
+    fields = tuple(tree.opt._fields)
+    if fields != opt._fields:
+        raise ValueError(f"opt state has {fields}, {cfg.optimizer} keeps "
+                         f"{opt._fields}")
+    for f in fields[1:]:
+        _fill(getattr(opt, f), getattr(tree.opt, f), f"opt.{f}")
+    opt.step.copy_(torch.from_numpy(np.array(tree.opt.step)))
+    step = torch.from_numpy(np.array(tree.step, np.int32)).to(model.device)
+    return TrainState(model=model, opt=opt, step=step)

@@ -32,6 +32,17 @@ def div(x: torch.Tensor, y) -> torch.Tensor:
     return x / y
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(x)`` rounded once on every device, as XLA's is.  The card's
+    float32 root is correctly rounded; torch's CPU root of a large tensor
+    is MKL's, within 1 ulp only, so there a float32 root is taken in
+    float64 (whose one rounding to float32 is the correctly rounded
+    root)."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def quantize_probs(p: torch.Tensor, k: int = DEFAULT_K) -> torch.Tensor:
     """Quantize a (batch of) probability vector(s) to int32 KY weights:
     ``floor(p / max(p) * (2**k - 1))`` — the argmax maps to 2**k - 1."""

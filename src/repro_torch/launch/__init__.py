@@ -1,1 +1,2 @@
-"""Launchers of the port: the MCMC driver."""
+"""Launchers of the port: the MCMC driver, the serving launcher and the
+trainer."""

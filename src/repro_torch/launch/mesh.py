@@ -15,7 +15,9 @@ visible CUDA device, and too few of them raise — nothing drops to the
 CPU or repeats a card unasked.
 
 ``make_production_mesh`` (the LM side's mesh) is not ported; it comes
-with the LM side.
+with the training half of ``sharding/specs.py`` (ROADMAP Queue 1 item
+4).  :func:`repro_torch.training.elastic.elastic_mesh` builds a
+``("data", "model")`` :class:`DeviceMesh`.
 """
 from __future__ import annotations
 

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixedpoint import div
-from repro_torch.models.layers import ParamModule, apply_rope, normal_
+from repro_torch.models.layers import (
+    ParamModule, apply_rope, normal_, repeat_heads)
 from repro_torch.sharding import ctx as shard_ctx
 
 _NEG_INF = -1e30
@@ -95,8 +96,8 @@ def attend_blockwise(
             kblk = k[:, ik * kv_block:(ik + 1) * kv_block]
             vblk = v[:, ik * kv_block:(ik + 1) * kv_block]
             if g > 1:  # expand kv -> flat heads for this block only
-                kblk = torch.repeat_interleave(kblk, g, dim=2)
-                vblk = torch.repeat_interleave(vblk, g, dim=2)
+                kblk = repeat_heads(kblk, g, 2)
+                vblk = repeat_heads(vblk, g, 2)
             pos_k = ik * kv_block + torch.arange(kv_block, device=dev)
             s = torch.einsum("bqhd,bshd->bhqs", qblk, kblk.float()) * scale
             s = s + _mask(pos_q, pos_k, causal=causal, window=window)

@@ -5,16 +5,22 @@ semantic axes unflattened (attention weights are ``(d_model, heads,
 d_head)``) and its names, so :func:`repro_torch.convert.
 lm_params_from_numpy` can hand a reference parameter tree over leaf by
 leaf.  They are stored in the config's ``param_dtype``; the reference
-casts every matrix to the compute dtype at each use, and the port keeps
-that cast once per (parameter, dtype) instead (:meth:`ParamModule.w`):
-the numbers are the same, and a bf16 decode step reads each matrix once
-in bf16 rather than re-casting it from float32.
+casts every matrix to the compute dtype at each use.  With gradients
+enabled (training) the port does the same, inside the autograd graph;
+with them off (serving) it keeps that cast once per (parameter, dtype)
+instead (:meth:`ParamModule.w`): the numbers are the same, and a bf16
+decode step reads each matrix once in bf16 rather than re-casting it
+from float32.
+
+``chunked_xent`` is the training loss: cross-entropy over the vocabulary
+a chunk of positions at a time, never storing the ``(B, S, V)`` logits.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixedpoint import div
@@ -32,7 +38,8 @@ class ParamModule(nn.Module):
 
     Parameters are made empty (``torch.empty``) and filled by
     ``init_model`` from a ``torch.Generator`` or by the converter; they
-    take no gradient (training is not ported)."""
+    take gradients (``requires_grad``), and the serving entry points run
+    under ``torch.no_grad``."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -42,15 +49,18 @@ class ParamModule(nn.Module):
 
     def param(self, name: str, *shape: int) -> None:
         self.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=self._pdt, device=self._device),
-            requires_grad=False))
+            torch.empty(shape, dtype=self._pdt, device=self._device)))
 
     def w(self, name: str, dt: torch.dtype) -> torch.Tensor:
         """Parameter ``name`` in dtype ``dt`` (the reference's
-        ``params[name].astype(dt)``), cast once and kept."""
+        ``params[name].astype(dt)``).  With gradients enabled the cast is
+        made at each use, in the graph; otherwise it is made once and
+        kept (``drop_casts`` forgets it after the parameter changes)."""
         p = getattr(self, name)
         if p.dtype == dt:
             return p
+        if torch.is_grad_enabled():
+            return p.to(dt)
         c = self._casts.get((name, dt))
         if c is None or c.device != p.device:
             c = self._casts[(name, dt)] = p.to(dt)
@@ -146,7 +156,10 @@ class Embed(ParamModule):
 
 def embed_tokens(embed: Embed, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    return embed.w("tok", dtype)[tokens.long()]
+    """Rows of the table, then the cast (the reference's ``take`` then
+    ``astype``): the gradient sums repeated tokens in the table's dtype,
+    and ``F.embedding``'s backward is deterministic on the card."""
+    return F.embedding(tokens.long(), embed.tok).to(dtype)
 
 
 def unembed(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -158,6 +171,18 @@ def unembed(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         logits = c * torch.tanh(div(logits.float(), c))
     return logits
+
+
+def repeat_heads(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
+    """``jnp.repeat(x, rep, axis=dim)``: each entry along ``dim`` ``rep``
+    times in a row, as a broadcast view made contiguous.  Its gradient
+    sums over the copies by a reduction (``repeat_interleave``'s is an
+    ``index_add``, which PyTorch lists as nondeterministic on CUDA)."""
+    if rep == 1:
+        return x
+    dim %= x.ndim
+    shape = x.shape[:dim + 1] + (rep,) + x.shape[dim + 1:]
+    return x.unsqueeze(dim + 1).expand(shape).flatten(dim, dim + 1)
 
 
 # --------------------------------------------------------------------------
@@ -184,3 +209,41 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Chunked cross-entropy: never stores the full (B, S, V) logits
+# --------------------------------------------------------------------------
+
+def _chunk_loss(embed: Embed, cfg: ModelConfig, xi: torch.Tensor,
+                li: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
+    logits = unembed(embed, cfg, xi).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+    return torch.sum((lse - gold) * mi)
+
+
+def chunked_xent(
+    x: torch.Tensor,             # (B, S, D) final hidden states
+    embed: Embed,
+    cfg: ModelConfig,
+    labels: torch.Tensor,        # (B, S) int
+    mask: torch.Tensor | None = None,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean token cross-entropy over ``mask`` (all ones by default).  Each
+    chunk's logits are recomputed in the backward pass
+    (``torch.utils.checkpoint``); chunk losses are summed in order and
+    the total divided by ``max(sum(mask), 1)``, as the reference does."""
+    b, s, d = x.shape
+    n_chunks = max(s // chunk, 1)
+    chunk = s // n_chunks
+    xc = x.reshape(b, n_chunks, chunk, d)
+    lc = labels.reshape(b, n_chunks, chunk)
+    mc = (mask.reshape(b, n_chunks, chunk) if mask is not None
+          else torch.ones(lc.shape, dtype=torch.float32, device=x.device))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        total = total + checkpoint(_chunk_loss, embed, cfg, xc[:, i],
+                                   lc[:, i], mc[:, i], use_reentrant=False)
+    return total / torch.clamp_min(torch.sum(mc), 1.0)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ParamModule, normal_
+from repro_torch.models.layers import ParamModule, normal_, repeat_heads
 
 
 class SSM(ParamModule):
@@ -101,7 +101,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int):
     # mask BEFORE exp: exp of the masked (i<j, positive) entries overflows
     decay = torch.exp(torch.where(causal, li, -60.0)) * causal
     cb = torch.einsum("bzqgn,bzsgn->bzqsg", cc.to(f32), bc.to(f32))
-    cb = torch.repeat_interleave(cb, rep, dim=-1)        # groups -> heads
+    cb = repeat_heads(cb, rep, -1)                       # groups -> heads
     w_ij = cb * decay * dtc[:, :, None, :, :]            # (B,nc,Q,S,H)
     y = torch.einsum("bzqsh,bzshp->bzqhp", w_ij.to(x.dtype).to(f32),
                      xc.to(f32))
@@ -109,7 +109,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int):
     # ---- chunk states + inter-chunk recurrence --------------------------
     dec_to_end = torch.exp(seg_total[:, :, None, :] - cum)   # (B,nc,Q,H)
     xb = xc * (dtc * dec_to_end)[..., None]                  # weight each step
-    bh = torch.repeat_interleave(bc, rep, dim=3)             # (B,nc,Q,H,N)
+    bh = repeat_heads(bc, rep, 3)                            # (B,nc,Q,H,N)
     states = torch.einsum("bzqhn,bzqhp->bzhnp", bh.to(x.dtype).to(f32),
                           xb.to(f32))                        # (B,nc,H,N,P)
 
@@ -121,7 +121,7 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int):
     h_prevs = torch.stack(h_prevs, dim=1)                    # (B,nc,H,N,P)
 
     # ---- contribution of carried state to each position -----------------
-    ch = torch.repeat_interleave(cc, rep, dim=3)             # (B,nc,Q,H,N)
+    ch = repeat_heads(cc, rep, 3)                            # (B,nc,Q,H,N)
     dec_from_start = torch.exp(cum)                          # (B,nc,Q,H)
     y_inter = torch.einsum("bzqhn,bzhnp->bzqhp", ch.to(x.dtype).to(f32),
                            h_prevs.to(x.dtype).to(f32))
@@ -169,11 +169,11 @@ def apply_ssm(
         h_prev = state["h"]                              # (B,H,N,P) f32
         dt1 = dt[:, 0]                                   # (B,H)
         dec = torch.exp(dt1 * a[None])                   # (B,H)
-        bh = torch.repeat_interleave(b_mat[:, 0], h // g, dim=1)   # (B,H,N)
+        bh = repeat_heads(b_mat[:, 0], h // g, 1)        # (B,H,N)
         xh = x[:, 0] * dt1[..., None]                    # (B,H,P)
         h_new = h_prev * dec[..., None, None] + torch.einsum(
             "bhn,bhp->bhnp", bh.to(f32), xh.to(f32))
-        ch = torch.repeat_interleave(c_mat[:, 0], h // g, dim=1)   # (B,H,N)
+        ch = repeat_heads(c_mat[:, 0], h // g, 1)        # (B,H,N)
         y = torch.einsum("bhn,bhnp->bhp", ch.to(f32), h_new)
         y = y[:, None].to(dt_).reshape(bsz, 1, h, p)     # (B,1,H,P)
         new_state = {"h": h_new, "conv": new_conv}

@@ -1,6 +1,6 @@
 """Model assembly for all seven families, layers as an ``nn.ModuleList``.
 
-Torch twin of ``repro.models.transformer``'s serving half:
+Torch twin of ``repro.models.transformer``:
 
   dense/vlm      attn + MLP blocks (GQA, RoPE, optional QKV bias/softcap)
   moe            attn + MoE blocks (Switch capacity dispatch)
@@ -11,16 +11,25 @@ Torch twin of ``repro.models.transformer``'s serving half:
                  written into the first ``frontend_tokens`` positions
 
 Entry points: ``init_model``, ``forward`` (train/prefill hidden states),
-``encode``, ``init_cache`` + ``prefill_cross_cache`` + ``decode_step``
-(serving).  The reference scans one layer body over stacked parameters;
-here each layer is a module and the loop runs in Python.  The decode
-cache is one preallocated ``(L, B, T, KV, dh)`` tensor a field, written
-in place.  ``loss_fn`` and remat belong to training, which is not ported.
+``encode``, ``loss_fn`` (training), ``init_cache`` +
+``prefill_cross_cache`` + ``decode_step`` (serving, under
+``torch.no_grad``).  The reference scans one layer body over stacked
+parameters; here each layer is a module and the loop runs in Python,
+each layer's body under the config's remat policy while gradients are
+on.  The decode cache is one preallocated ``(L, B, T, KV, dh)`` tensor a
+field, written in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
@@ -31,6 +40,7 @@ from repro_torch.models.layers import (
     Embed,
     RMSNorm,
     apply_mlp,
+    chunked_xent,
     drop_casts,
     embed_tokens,
     rope_freqs,
@@ -99,6 +109,22 @@ class LM(nn.Module):
         return self.final_norm.scale.device
 
 
+def param_leaves(model: LM) -> dict:
+    """The model's parameters as the reference's tree leaves, keyed by
+    their path (``"layers/attn/wq"``) in ``jax.tree.leaves`` order
+    (sorted keys at every level).  A layer stack (``layers``,
+    ``encoder``) is one leaf there, stacked on axis 0; here it maps to
+    the list of its layers' tensors, in layer order."""
+    out: dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("layers", "encoder"):
+            out.setdefault("/".join([parts[0]] + parts[2:]), []).append(p)
+        else:
+            out["/".join(parts)] = p
+    return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}
+
+
 def resolve_device(device) -> torch.device:
     """The card unless the caller names another device."""
     return torch.device("cuda" if device is None else device)
@@ -140,25 +166,28 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def _block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block):
+    """One layer: (x, aux loss) — the aux loss is the MoE router's, None
+    for the other kinds (the reference adds a float32 zero)."""
     kind = lp.kind
     if kind == "ssm":
         h, _ = ssm_lib.apply_ssm(lp.ssm, cfg, lp.ln1(x))
-        return x + h
+        return x + h, None
     if kind == "hybrid":
         hn = lp.ln1(x)
         a, _ = attn_lib.apply_attention(
             lp.attn, cfg, hn, freqs=freqs, window=window, q_block=q_block)
         s, _ = ssm_lib.apply_ssm(lp.ssm, cfg, hn)
         x = x + 0.5 * (a + s)
-        return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
+        return x + apply_mlp(lp.mlp, cfg, lp.ln2(x)), None
     a, _ = attn_lib.apply_attention(
         lp.attn, cfg, lp.ln1(x),
         freqs=freqs, window=window, causal=(kind != "enc"), q_block=q_block)
     x = x + a
     if kind == "moe":
-        m, _ = moe_lib.apply_moe(lp.moe, cfg, lp.ln2(x))
-        return x + m
-    return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
+        m, aux = moe_lib.apply_moe(lp.moe, cfg, lp.ln2(x))
+        moe_loss = 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
+        return x + m, moe_loss
+    return x + apply_mlp(lp.mlp, cfg, lp.ln2(x)), None
 
 
 def _dec_block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block,
@@ -170,30 +199,63 @@ def _dec_block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block,
         lp.cross, cfg, lp.lnx(x), freqs=None, causal=False,
         kv_source=enc_out, q_block=q_block)
     x = x + c
-    return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
+    return x + apply_mlp(lp.mlp, cfg, lp.ln2(x)), None
+
+
+# jax.checkpoint_policies.checkpoint_dots: keep the outputs of matrix
+# products, recompute everything else
+_DOTS = frozenset(getattr(torch.ops.aten, name).default
+                  for name in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, body):
+    """The config's remat policy around one layer's body: ``full``
+    stores only the layer's input and recomputes the rest in the
+    backward pass, ``dots`` also stores matrix-product outputs, ``none``
+    stores everything.  Without gradients the body runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, body, use_reentrant=False,
+                                 context_fn=ctx)
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
 def _stack(cfg, layers, x, windows, body):
+    """Run ``body`` over the layers; returns (x, summed aux loss or
+    None), the aux summed in layer order as the reference's scan does."""
+    body = _remat(cfg, body)
+    aux = None
     x = shard_ctx.constrain(x, "residual")
     for lp, w in zip(layers, windows):
+        x, a = body(lp, x, w)
+        if a is not None:
+            aux = a if aux is None else aux + a
         # sequence-parallel storage of the saved residual (sharding/ctx.py)
-        x = shard_ctx.constrain(body(lp, x, w), "residual")
-    return x
+        x = shard_ctx.constrain(x, "residual")
+    return x, aux
 
 
-@torch.no_grad()
 def encode(model: LM, src_embeds: torch.Tensor,
            q_block: int = 512) -> torch.Tensor:
     """Bidirectional encoder over precomputed frontend embeddings (run in
     their dtype, as the reference does)."""
     cfg = model.cfg
     freqs = rope_freqs(cfg, model.device)
-    x = _stack(cfg, model.encoder, src_embeds, [0] * cfg.enc_layers,
-               lambda lp, x, w: _block(cfg, lp, x, w, freqs, q_block))
+    x, _ = _stack(cfg, model.encoder, src_embeds, [0] * cfg.enc_layers,
+                  lambda lp, x, w: _block(cfg, lp, x, w, freqs, q_block))
     return model.enc_norm(x)
 
 
-@torch.no_grad()
 def forward(
     model: LM,
     tokens: torch.Tensor,                     # (B, S)
@@ -201,8 +263,11 @@ def forward(
     frontend: torch.Tensor | None = None,     # (B, F, D) vlm/audio stub
     enc_out: torch.Tensor | None = None,      # encdec: encoder output
     q_block: int = 512,
-) -> torch.Tensor:
-    """Final hidden states (B, S, D) — unembed them for logits."""
+    return_aux: bool = False,
+):
+    """Final hidden states (B, S, D) — unembed them for logits; with
+    ``return_aux`` also the summed MoE aux loss (a float32 zero for the
+    other families)."""
     cfg = model.cfg
     dt = torch_dtype(cfg.dtype)
     x = embed_tokens(model.embed, tokens, dt)
@@ -212,13 +277,33 @@ def forward(
     windows = layer_windows(cfg)
     if _layer_kind(cfg) == "dec":  # enc-dec family
         assert enc_out is not None
-        x = _stack(cfg, model.layers, x, windows,
-                   lambda lp, x, w: _dec_block(cfg, lp, x, w, freqs, q_block,
-                                               enc_out))
+        x, aux = _stack(cfg, model.layers, x, windows,
+                        lambda lp, x, w: _dec_block(cfg, lp, x, w, freqs,
+                                                    q_block, enc_out))
     else:
-        x = _stack(cfg, model.layers, x, windows,
-                   lambda lp, x, w: _block(cfg, lp, x, w, freqs, q_block))
-    return model.final_norm(x)
+        x, aux = _stack(cfg, model.layers, x, windows,
+                        lambda lp, x, w: _block(cfg, lp, x, w, freqs,
+                                                q_block))
+    x = model.final_norm(x)
+    if not return_aux:
+        return x
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def loss_fn(model: LM, batch: dict, q_block: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy plus the MoE aux loss, on a batch of
+    tensors: ``tokens``, ``labels`` (B, S), optional ``mask``, and
+    ``frontend`` (vlm) or ``src_embeds`` (encdec/audio)."""
+    cfg = model.cfg
+    enc_out = (encode(model, batch["src_embeds"], q_block)
+               if cfg.family in ("encdec", "audio") else None)
+    x, aux = forward(model, batch["tokens"], frontend=batch.get("frontend"),
+                     enc_out=enc_out, q_block=q_block, return_aux=True)
+    xent = chunked_xent(x, model.embed, cfg, batch["labels"],
+                        batch.get("mask"))
+    return xent + aux
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ at odd head dims, ragged sequences and unaligned views; and the mesh
 path on the card repeated (lane shards at their ``lane0``, the tile
 mesh, the sharded engine) against the unsharded results; and the LM
 serving path (every family's decode, greedy generation and KY token
-stages on the card against the CPU, phi4-mini at full width).
+stages on the card against the CPU, phi4-mini at full width); and the
+training path (every family's loss and gradients on the card against the
+CPU, a checkpoint round trip of a state on the card).
 
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -812,4 +814,77 @@ def test_phi4_mini_full_width_generates_on_the_card(cuda_device):
                           temperature=float(logits.float().std()))
     assert toks.shape == (4, 4) and toks.device.type == "cuda"
     assert bool(((toks >= 0) & (toks < cfg.vocab)).all()) and bits > 0
+    assert fs.fused_gibbs_sample.launches + kys.ky_sampler.launches == before
+
+
+@pytest.mark.parametrize("family", list(_LM_FAMILIES))
+def test_lm_loss_and_gradients_card_equal_cpu(cuda_device, family):
+    """The same weights and batch on the CPU and the card: the loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its largest
+    |g| (a bf16 leaf also one bf16 step, 2**-7, of the element) — the
+    tolerances of the port against the reference."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import transformer as tt
+    from repro_torch.training.data import make_batch
+
+    arch, kw = _LM_FAMILIES[family]
+    cfg = get_config(arch, smoke=True).replace(**kw)
+    cpu = torch.device("cpu")
+    host = tt.init_model(cfg, torch.Generator().manual_seed(0), device=cpu)
+    card = copy.deepcopy(host).to(cuda_device)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, ShapeCfg("t", 16, 2, "train"), 3).items()}
+    out = {}
+    for name, model, dev in (("cpu", host, cpu), ("card", card, cuda_device)):
+        loss = tt.loss_fn(model, {k: v.to(dev) for k, v in batch.items()}, 8)
+        loss.backward()
+        out[name] = float(loss.detach()), {
+            k: (torch.stack([x.grad for x in p]) if isinstance(p, list)
+                else p.grad).float().cpu()
+            for k, p in tt.param_leaves(model).items()}
+    (lc, gc), (lg, gg) = out["cpu"], out["card"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, w in gc.items():
+        lim = 1e-4 * float(w.abs().max())
+        if cfg.param_dtype == "bfloat16":
+            lim = lim + 2.0 ** -7 * w.abs()
+        assert bool(((gg[k] - w).abs() <= lim).all()), k
+
+
+def test_train_state_checkpoint_round_trip_on_the_card(cuda_device,
+                                                       tmp_path):
+    """mamba2-130m smoke (microbatch 2) trained 2 steps on the card, saved,
+    restored into a state of other weights: one more step on each gives
+    the same state bit for bit, with no kernel of the port launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import (
+        DataConfig, TokenDataset, restore, save)
+    from repro_torch.training.checkpoint import host_snapshot
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    cfg = get_config("mamba2-130m", smoke=True).replace(microbatch=2)
+    step, _ = make_train_step(cfg, q_block=8)
+    ds = TokenDataset(DataConfig(cfg.vocab, 16, 4))
+    batches = [{k: torch.from_numpy(v).to(cuda_device)
+                for k, v in ds.batch_at(i).items()} for i in range(3)]
+    before = fs.fused_gibbs_sample.launches + kys.ky_sampler.launches
+    state = init_train_state(cfg, device=cuda_device)
+    for b in batches[:2]:
+        state, _ = step(state, b)
+    save(str(tmp_path), 2, state)
+    other = init_train_state(cfg, init_model(
+        cfg, torch.Generator(cuda_device).manual_seed(1),
+        device=cuda_device))
+    other, at = restore(str(tmp_path), other)
+    state, m1 = step(state, batches[2])
+    other, m2 = step(other, batches[2])
+    assert at == 2 and float(m1["loss"]) == float(m2["loss"])
+    a, b = host_snapshot(state), host_snapshot(other)
+    for k in a:
+        np.testing.assert_array_equal(a[k][0], b[k][0], err_msg=k)
     assert fs.fused_gibbs_sample.launches + kys.ky_sampler.launches == before

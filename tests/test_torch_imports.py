@@ -38,6 +38,12 @@ LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.phi4_mini",
               "repro_torch.models.layers", "repro_torch.models.attention",
               "repro_torch.models.moe", "repro_torch.models.ssm",
               "repro_torch.models.transformer", "repro_torch.models.sampling")
+# the training path's modules
+TRAIN_MODULES = ("repro_torch.training", "repro_torch.training.data",
+                 "repro_torch.training.optimizer",
+                 "repro_torch.training.train_step",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.elastic", "repro_torch.launch.train")
 
 
 def test_port_imports_no_jax_networkx_or_reference():
@@ -49,9 +55,9 @@ def test_port_imports_no_jax_networkx_or_reference():
     # every module of the package was imported: one per file, less the
     # package's own __init__
     files = list(Path(REPO, "src", "repro_torch").rglob("*.py"))
-    assert n == len(files) - 1 >= 56, out
+    assert n == len(files) - 1 >= 63, out
     modules = out.split("MODULES ")[-1]
-    for name in MESH_MODULES + LM_MODULES:
+    for name in MESH_MODULES + LM_MODULES + TRAIN_MODULES:
         assert repr(name) in modules, name
 
 
@@ -158,6 +164,32 @@ def test_kernel_api_sends_numpy_inputs_to_the_card(name):
     call = _kernel_api_calls()[name]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
+def _train_entry_points():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = get_config("mamba2-130m", smoke=True)
+    return {
+        "init_train_state": lambda: init_train_state(cfg).model.device,
+        "launch.train": lambda: train.main(
+            ["--arch", "mamba2-130m", "--smoke", "--steps", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["init_train_state", "launch.train"])
+def test_training_entry_points_default_to_the_card(name):
+    """With no ``device`` the trainer's state goes to ``cuda``: without a
+    card the call raises, it never trains on the CPU."""
+    call = _train_entry_points()[name]
+    if torch.cuda.is_available():
+        if name == "init_train_state":
+            assert call().type == "cuda"
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             call()

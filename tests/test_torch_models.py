@@ -1,6 +1,7 @@
-"""The port's LM serving path against the JAX package on the CPU: configs,
+"""The port's LM path against the JAX package on the CPU: configs,
 decode logits for every model family, forward (train/prefill) hidden
-states, the int8 KV cache, MoE dispatch, and greedy ``generate``.
+states, the int8 KV cache, MoE dispatch, greedy ``generate``, and the
+training loss with its gradients under each remat policy.
 
 Weights are the reference's own (``jax.random`` init), carried over by
 ``convert.lm_params_from_numpy``; inputs are made with numpy from a seed.
@@ -68,7 +69,8 @@ def _models(arch, seed=0, **kw):
 
 
 def _close(got, want, tol=TOL):
-    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got)
+    got = (got.detach().float().numpy() if torch.is_tensor(got)
+           else np.asarray(got))
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape, (got.shape, want.shape)
     err = float(np.max(np.abs(got - want)))
@@ -285,8 +287,9 @@ def test_moe_dispatch_matches_reference():
     tcfg = t_configs.ModelConfig(**base)
     p = j_moe.init_moe(jax.random.PRNGKey(0), jcfg)
     mod = t_moe.MoE(tcfg, CPU)
-    for name, leaf in p.items():
-        getattr(mod, name).copy_(torch.from_numpy(np.array(leaf)))
+    with torch.no_grad():          # parameters take gradients
+        for name, leaf in p.items():
+            getattr(mod, name).copy_(torch.from_numpy(np.array(leaf)))
     x = np.random.default_rng(5).standard_normal((2, 32, 32), dtype=np.float32)
     jy, jaux = j_moe.apply_moe(p, jcfg, jnp.asarray(x))
     ty, taux = t_moe.apply_moe(mod, tcfg, torch.from_numpy(x))
@@ -388,3 +391,147 @@ def test_serve_launcher_arch_runs_on_the_cpu_and_needs_a_card_by_default(
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             serve.main(["--arch", "mamba2-130m", "--smoke"])
+
+
+# --------------------------------------------------------------------------
+# training: loss_fn, gradients, remat
+# --------------------------------------------------------------------------
+
+# loss within LOSS_RTOL relative; each gradient leaf, re-stacked, within
+# GRAD_TOL of that leaf's largest |g| (XLA's jit reorders sums and
+# contracts multiply-adds, ROADMAP Queue 3).  A bfloat16 leaf (grok and
+# nemotron keep bf16 parameters) is the float32 cotangent rounded to
+# bf16, so an element whose two float32 values straddle a bf16 rounding
+# boundary differs by one bf16 step: those leaves are held within
+# GRAD_TOL of the largest |g| plus one bf16 step of the element (at most
+# 2**-7 of its magnitude).
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+BF16_STEP = 2.0 ** -7
+
+
+def _train_batch(jcfg, b=2, s=16, seed=3):
+    """numpy tokens/labels (and frontend or source embeddings) from the
+    reference's ``make_batch``."""
+    from repro.configs.base import ShapeCfg
+    from repro.training.data import make_batch
+
+    return make_batch(jcfg, ShapeCfg("t", s, b, "train"), seed)
+
+
+def _t_batch(batch, device=CPU):
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+_j_loss_grad = jax.jit(jax.value_and_grad(jt.loss_fn), static_argnums=(1, 3))
+
+
+def _port_loss_grads(model, batch, q_block):
+    from repro_torch.models.transformer import param_leaves
+
+    for p in model.parameters():
+        p.grad = None
+    loss = tt.loss_fn(model, _t_batch(batch), q_block)
+    loss.backward()
+    loss = loss.detach()
+    grads = {k: (torch.stack([x.grad for x in p]) if isinstance(p, list)
+                 else p.grad).float().numpy()
+             for k, p in param_leaves(model).items()}
+    return float(loss), grads
+
+
+def _flat_tree(tree):
+    return {"/".join(str(getattr(k, "key", k)) for k in path): np.asarray(
+        leaf, np.float32) if np.asarray(leaf).dtype.name == "bfloat16"
+        else np.asarray(leaf)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _grads_close(got: dict, want_tree, dtypes: dict):
+    want = _flat_tree(want_tree)
+    assert list(got) == list(want)        # the reference's leaf order
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        assert g.shape == w.shape, key
+        lim = GRAD_TOL * max(float(np.max(np.abs(w))), 1e-30)
+        if dtypes[key] == torch.bfloat16:
+            lim = lim + BF16_STEP * np.abs(w)
+        err = np.abs(g - w)
+        assert np.all(err <= lim), (key, float(err.max()), np.max(lim))
+        worst = max(worst, float(err.max()) / max(float(np.abs(w).max()),
+                                                  1e-30))
+    return worst
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_loss_and_gradients_match_reference(family):
+    """``loss_fn`` and every gradient leaf for each family at smoke size
+    (16 tokens, q_block 8: two query blocks; the moe family's aux loss,
+    the vlm frontend and the encoder-decoder's source embeddings
+    included), with the config's own remat ("full")."""
+    from repro_torch.models.transformer import param_leaves
+
+    arch, kw = FAMILIES[family]
+    jcfg, tcfg, params, model = _models(arch, **kw)
+    assert tcfg.remat == "full"
+    batch = _train_batch(jcfg)
+    jloss, jgrads = _j_loss_grad(
+        params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()}, 8)
+    loss, grads = _port_loss_grads(model, batch, 8)
+    assert abs(loss - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
+    dtypes = {k: (p[0] if isinstance(p, list) else p).dtype
+              for k, p in param_leaves(model).items()}
+    _grads_close(grads, jgrads, dtypes)
+    if family == "moe":         # the aux loss is in the loss
+        x, aux = tt.forward(model, _t_batch(batch)["tokens"], q_block=8,
+                            return_aux=True)
+        assert float(aux.detach()) > 0
+
+
+@pytest.mark.parametrize("remat", ["dots", "none"])
+def test_remat_policies_give_the_full_remat_gradients(remat):
+    """``dots`` (matrix products saved) and ``none`` recompute nothing
+    differently: loss and gradients equal ``full``'s bit for bit (hybrid:
+    attention, SSD and MLP in one layer)."""
+    arch, kw = FAMILIES["hybrid"]
+    _, tcfg, params, model = _models(arch, **kw)
+    batch = _train_batch(j_configs.get_config(arch, smoke=True))
+    want = _port_loss_grads(model, batch, 8)
+    model.cfg = tcfg.replace(remat=remat)
+    got = _port_loss_grads(model, batch, 8)
+    assert got[0] == want[0]
+    for k in want[1]:
+        np.testing.assert_array_equal(got[1][k], want[1][k], err_msg=k)
+
+
+def test_chunked_xent_with_a_mask_over_chunks_matches_reference():
+    """Several chunks (S 12, chunk 4), a 0/1 mask, softcapped logits:
+    loss and the gradients to the hidden states and the head."""
+    from repro.models.layers import chunked_xent as j_xent
+    from repro_torch.models.layers import chunked_xent as t_xent
+
+    jcfg, tcfg, params, model = _models("grok-1-314b")     # softcap 30
+    assert tcfg.logit_softcap > 0
+    r = np.random.default_rng(8)
+    x = r.standard_normal((2, 12, jcfg.d_model), dtype=np.float32)
+    lab = r.integers(0, jcfg.vocab, (2, 12)).astype(np.int32)
+    mask = (r.random((2, 12)) < 0.7).astype(np.float32)
+
+    def jf(x, emb):
+        return j_xent(x, emb, jcfg, jnp.asarray(lab), jnp.asarray(mask),
+                      chunk=4)
+
+    jl, (jgx, jge) = jax.value_and_grad(jf, argnums=(0, 1))(
+        jnp.asarray(x), params["embed"])
+    tx = torch.from_numpy(x).requires_grad_()
+    tl = t_xent(tx, model.embed, tcfg, torch.from_numpy(lab),
+                torch.from_numpy(mask), chunk=4)
+    tl.backward()
+    assert abs(float(tl.detach()) - float(jl)) <= LOSS_RTOL * abs(float(jl))
+    _close(tx.grad, jgx, GRAD_TOL)
+    assert model.embed.tok.grad is None          # not tied: no gradient
+    want = np.asarray(jge["head"], np.float32)  # bf16 parameters
+    lim = GRAD_TOL * np.abs(want).max() + BF16_STEP * np.abs(want)
+    assert np.all(np.abs(model.embed.head.grad.float().numpy() - want) <= lim)
