@@ -133,12 +133,33 @@ line is printed:
    once more, equal to the live state's next step bit for bit; zero
    retries.  No kernel of the port is on this path either: every launch
    count must stay 0 over it.
+21. lm_mesh — the training path on a ("data", "model") mesh
+   (``launch/train.py --mesh 2x2``: ``place_model``, ``init_train_state``,
+   ``make_train_step(mesh=)``, ``StepGuard``): phi4-mini-3.8b at full
+   width with its config's settings on a 2 x 2 mesh over
+   ``mesh_devices(4)``, batch 8 x 128, 4 steps (median ms a step beside
+   ``lm_train``'s 1 x 1 median from this process, peak memory beside the
+   state's 16 bytes a parameter and the 1 x 1 peak, the bytes a step
+   copied between mesh positions counted by ``partition.TRAFFIC`` and
+   reckoned from the layout, launches and busy share of one profiled
+   step); then the 2 x 2 step against the 1 x 1 step at full width cut
+   to 2 layers, in float32 (loss within 1e-5 relative, each gradient leaf
+   within 1e-4 of its largest, parameters after one AdamW step within
+   5e-4) and in bf16 (LM_MESH_BF16); granite-20b smoke in float32 on 4 x 2
+   (8 x the card) and every family's smoke on 4 x 1 against one device;
+   the builders' train, prefill and decode cells on 2 x 2 against 1 x 1
+   for granite smoke (a cache split on the sequence) and phi4 smoke (on
+   kv heads): prefill logits within 1e-5 of the largest, decode tokens
+   equal; a 2 x 2 checkpoint restored onto 4 x 1 and 1 x 1 bit for bit,
+   the restored next step bitwise, two mesh steps bitwise.  No kernel of
+   the port: every launch count must stay 0.
 
-Phases 4, 7, 8 and 10-20 each zero their kernel's launch count (phases 19
-and 20: every kernel's) just before their main path and read it just
+Phases 4, 7, 8 and 10-21 each zero their kernel's launch count (phases
+19-21: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
-path's launches, shapes and times under ``paths`` (``lm_generate`` and
-``lm_train`` with 0 launches, every kernel's count beside them).  Then
+path's launches, shapes and times under ``paths`` (``lm_generate``,
+``lm_train`` and ``lm_mesh`` with 0 launches, every kernel's count
+beside them).  Then
 the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
@@ -303,6 +324,30 @@ LM_TRAIN_OPT_ARCHS = (("adamw", "phi4-mini-3.8b"),
                       ("adamw_bf16", "qwen1.5-32b"),
                       ("adafactor", "grok-1-314b"))
 LM_TRAIN_MB_TOL = 5e-5
+
+# The training path on a ("data", "model") mesh (launch/train.py --mesh 2x2):
+# phi4-mini-3.8b at full width with the config's own settings, on a 2 x 2
+# mesh over mesh_devices(4) (cuda:0..3 on a 4-card host, else the card
+# four times), batch 8 x 128, 4 steps; then the identities: the 2 x 2 step
+# against the 1 x 1 step at full width cut to 2 layers, in float32 (loss
+# within 1e-5 relative, each gradient leaf within 1e-4 of its largest |g|,
+# parameters after one AdamW step within 5e-4: tests/test_distributed.py's
+# and the card-against-CPU checks' tolerances) and in the config's bf16
+# (LM_MESH_BF16: tensor-parallel partial sums are added in bf16, one more
+# rounding of 2**-8 an add; a near-zero gradient of the other sign moves
+# its element by 2 lr); the small cases (granite smoke on 4 x 2, every
+# family's smoke on 4 x 1, the builders' train, prefill and decode cells
+# on 2 x 2); checkpoints across meshes
+LM_MESH = dict(shape=(2, 2), steps=4, ident_layers=2)
+LM_MESH_TOL = dict(loss_rtol=1e-5, grad_tol=1e-4, param_tol=5e-4)
+LM_MESH_BF16 = dict(loss_rtol=1e-2, grad_tol=5e-2, param_tol=2 * 2.1 * 3e-4)
+LM_MESH_FAMILIES = (("dense", "phi4-mini-3.8b", {}),
+                    ("vlm", "pixtral-12b", {}),
+                    ("moe", "llama4-scout-17b-a16e", {}),
+                    ("ssm", "mamba2-130m", {}), ("hybrid", "hymba-1.5b", {}),
+                    ("encdec", "seamless-m4t-medium", {"family": "encdec"}),
+                    ("audio", "seamless-m4t-medium", {}),
+                    ("moe_adafactor", "grok-1-314b", {}))
 
 
 def emit(obj) -> None:
@@ -2654,9 +2699,489 @@ def phase_lm_train(card_name: str) -> dict:
         raise AssertionError(f"lm_train launched a kernel: {launches}")
     return {"launches": 0, "kernel_launches": launches,
             "arch": full["arch"], "median_step_ms": full["median_step_ms"],
+            "peak_memory_gb": full["peak_memory_gb"],
             "bound_ms": full["bound"]["bound_ms"],
             "bound_by": full["bound"]["bound_by"],
             "ssm_median_step_ms": ssm["median_step_ms"]}
+
+
+def mesh_batch(cfg, seed: int, b: int, s: int, dev) -> dict:
+    """A TokenDataset batch (plus the stub frontend or source embeddings
+    the family takes, from a seeded generator) on ``dev``."""
+    import torch
+
+    from repro_torch.training import DataConfig, TokenDataset
+
+    ds = TokenDataset(DataConfig(cfg.vocab, s, b))
+    batch = {k: torch.from_numpy(v) for k, v in ds.batch_at(seed).items()}
+    g = torch.Generator().manual_seed(seed + 3)
+    if cfg.family == "vlm":
+        batch["frontend"] = torch.randn(b, cfg.frontend_tokens, cfg.d_model,
+                                        generator=g)
+    if cfg.family in ("encdec", "audio"):
+        batch["src_embeds"] = torch.randn(b, cfg.enc_seq_len, cfg.d_model,
+                                          generator=g)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def mesh_params(state) -> dict:
+    """Leaf path -> float32 host copy of every parameter leaf, gathered."""
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.sharding import partition
+
+    return {k: partition.gather(v, "cpu").detach().float()
+            for k, v in param_leaves(state.model).items()}
+
+
+def mesh_state(cfg, model, devices):
+    """A copy of ``model`` with a fresh optimizer state, placed on a
+    ("data", "model") mesh over ``devices`` (None: unplaced)."""
+    import copy
+
+    from repro_torch.models.transformer import place_model
+    from repro_torch.training.train_step import init_train_state
+
+    m = copy.deepcopy(model)
+    if devices is None:
+        return init_train_state(cfg, m), None
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    mesh = make_lm_mesh(*devices[0], devices=devices[1])
+    place_model(mesh, m)
+    return init_train_state(cfg, m), mesh
+
+
+def mesh_loss_grads(state, mesh, batch) -> tuple[float, dict]:
+    """The loss over the whole batch and every gradient leaf (stacked, on
+    the host), on a mesh or one device."""
+    import torch
+
+    from repro_torch.models.transformer import (
+        loss_fn, mesh_loss, param_leaves)
+    from repro_torch.sharding import partition
+    from repro_torch.training.optimizer import as_list, map_leaf
+    from repro_torch.training.train_step import split_batch
+
+    leaves = param_leaves(state.model)
+    for p in leaves.values():
+        for t in as_list(p):
+            t.grad = None
+    if mesh is None:
+        loss = loss_fn(state.model, batch, 8)
+    else:
+        (run, shards), = split_batch(mesh, batch, 1)
+        loss = mesh_loss(state.model, run, shards, 8)
+    loss.backward()
+    grads = {k: partition.gather(map_leaf(p, lambda t: t.grad), "cpu")
+             .float() for k, p in leaves.items()}
+    for p in leaves.values():
+        for t in as_list(p):
+            t.grad = None
+    return float(loss.detach()), grads
+
+
+def mesh_identity(cfg, model, devices, batch, tol: dict,
+                  grads: bool = True) -> dict:
+    """The mesh's loss, gradients (with ``grads``) and one train step
+    against one device's on the same weights and batch; fails outside
+    ``tol``."""
+    from repro_torch.training.train_step import make_train_step
+
+    out = {}
+    for name, dv in (("one", None), ("mesh", devices)):
+        st, mesh = mesh_state(cfg, model, dv)
+        loss, g = mesh_loss_grads(st, mesh, batch) if grads else (None, {})
+        st, m = make_train_step(cfg, q_block=8, mesh=mesh)[0](st, batch)
+        out[name] = (float(m["loss"]) if loss is None else loss, g,
+                     float(m["loss"]), mesh_params(st))
+        del st
+    (l1, g1, s1, p1), (l2, g2, s2, p2) = out["one"], out["mesh"]
+    # bf16 parameters: each element also one bf16 step of itself, each
+    # gradient one bf16 step of the leaf's largest |g| (the data shards'
+    # gradients are summed in bf16, each sum rounded once)
+    bf = 2.0 ** -7 if cfg.param_dtype == "bfloat16" else 0.0
+    loss_err = abs(l2 - l1) / abs(l1)
+    step_loss_err = abs(s2 - s1) / abs(s1)
+    grad_err = max((float((g2[k] - g1[k]).abs().max())
+                    / max(float(g1[k].abs().max()), 1e-30) for k in g1),
+                   default=None)
+    param_err = max(float((p2[k] - p1[k]).abs().max()) for k in p1)
+    grads_ok = all(float((g2[k] - g1[k]).abs().max()) <= (
+        tol["grad_tol"] + bf) * float(g1[k].abs().max()) for k in g1)
+    params_ok = all(bool(((p2[k] - p1[k]).abs() <= tol["param_tol"]
+                          + bf * p1[k].abs()).all()) for k in p1)
+    res = {"loss": l1, "loss_rel_err": loss_err,
+           "step_loss_rel_err": step_loss_err,
+           "max_rel_grad_err": grad_err, "max_param_err": param_err,
+           "bf16_params": bool(bf), "tolerance": tol}
+    if not (loss_err <= tol["loss_rtol"] and step_loss_err <= tol["loss_rtol"]
+            and grads_ok and params_ok):
+        raise AssertionError(f"lm_mesh {cfg.name}: the mesh step != one "
+                             f"device: {res}")
+    return res
+
+
+def mesh_reckoned_bytes(cfg, mesh, mb_rows: int, nmb: int, seq: int) -> dict:
+    """The bytes a train step must copy between mesh positions, from the
+    layout, for a model whose "model"-split leaves are all read as their
+    pieces and the others whole on each batch shard's home device
+    (phi4-mini's: its kv heads divide the axis).  Each leaf's gather
+    brings every consumer what is not at its position: (D - 1) times the
+    leaf, whatever its spec; a layer's weights are gathered three times
+    a microbatch (forward, the remat's second forward, the backward's
+    reduce-scatter), the final norm twice, the tied table five times
+    (the embedding's and the loss chunk's forward, the chunk's remat,
+    both backward passes).  Each tensor-parallel op copies its
+    activation to the M - 1 other "model" devices and their partial sums
+    back, in the same three passes (the embedding's sum in two, the loss
+    chunk's activation in three)."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import init_model, param_leaves
+    from repro_torch.sharding import specs as specs_lib
+
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    leaves = param_leaves(init_model(cfg, device="meta"))
+    weights = 0
+    for k, p in leaves.items():
+        nbytes = int(np.prod(specs_lib._shape(p))) * 4
+        passes = {"embed/tok": 5, "final_norm/scale": 2}.get(k, 3)
+        weights += passes * (d - 1) * nbytes
+    act = (mb_rows // d) * seq * cfg.d_model * torch_dtype(cfg.dtype).itemsize
+    emb = (mb_rows // d) * seq * cfg.d_model * 4
+    tp_ops = 2 * cfg.n_layers                       # attention and MLP
+    activations = d * (3 * tp_ops * 2 * (m - 1) * act   # layers
+                       + 2 * (m - 1) * emb              # embedding
+                       + 3 * (m - 1) * act)             # the loss chunk
+    return {"weights": weights * nmb, "activations": activations * nmb,
+            "total": (weights + activations) * nmb}
+
+
+def lm_mesh_full_width(card_name: str, devices, kind: str,
+                       one: dict) -> dict:
+    """phi4-mini-3.8b's training at full width on a 2 x 2 mesh: 4 steps
+    through StepGuard, their times beside lm_train's 1 x 1 steps from this
+    process, peak memory, the bytes a step copied between mesh positions
+    (counted and reckoned), then one step under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import init_model, place_model
+    from repro_torch.sharding import partition
+    from repro_torch.training import DataConfig, StepGuard, TokenDataset
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    dev = devices[0]
+    cards = sorted(set(devices), key=str)
+    cfg = get_config(LM_TRAIN_FULL)
+    run = LM_TRAIN_RUN
+    d, m = LM_MESH["shape"]
+    mesh = make_lm_mesh(d, m, devices=devices)
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    place_model(mesh, model)
+    state = init_train_state(cfg, model)
+    del model
+    place_s = time.perf_counter() - t0
+    step_fn, _ = make_train_step(cfg, q_block=min(run["seq_len"], 512),
+                                 mesh=mesh)
+    ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
+    guard = StepGuard()
+    recs = []
+    for i in range(LM_MESH["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch_at(i).items()}
+        partition.reset_traffic()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, mt = guard.run(step_fn, state, batch)
+        torch.cuda.synchronize()
+        recs.append({"ms": (time.perf_counter() - t1) * 1e3,
+                     "loss": float(mt["loss"]),
+                     "grad_norm": float(mt["grad_norm"]),
+                     "crossed_bytes": partition.TRAFFIC["crossed_bytes"],
+                     "moved_bytes": partition.TRAFFIC["moved_bytes"],
+                     "copies": partition.TRAFFIC["crossed_copies"]})
+    if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
+        raise AssertionError(f"lm_mesh: a loss or norm is not finite {recs}")
+    if guard.retries or guard.reloads:
+        raise AssertionError(f"lm_mesh: {guard.retries} retries")
+    peaks = {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+             for c in cards}
+    med = float(np.median([r["ms"] for r in recs[1:]]))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(LM_MESH["steps"]).items()}
+    # device activity only: the host's ~300,000 op events of a mesh step
+    # take minutes to reduce, and launches and busy time need none
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, mt = step_fn(state, batch)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        prof_wall = time.perf_counter() - t1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    nmb = max(cfg.microbatch, 1)
+    reckoned = mesh_reckoned_bytes(cfg, mesh, run["batch"] // nmb, nmb,
+                                   run["seq_len"])
+    n = cfg.param_count()
+    out = {"phase": "lm_mesh", "arch": cfg.name, "card": card_name,
+           "mesh": mesh.shape, "devices": [str(x) for x in devices],
+           "kind": kind, "params": n, "n_layers": cfg.n_layers,
+           "depth_cut": None, "batch": run["batch"],
+           "seq_len": run["seq_len"], "microbatch": cfg.microbatch,
+           "remat": cfg.remat, "optimizer": cfg.optimizer,
+           "place_s": place_s, "steps": recs, "median_step_ms": med,
+           "one_device_median_step_ms": one["median_step_ms"],
+           "over_one_device": med / one["median_step_ms"],
+           "tok_s": run["batch"] * run["seq_len"] / med * 1e3,
+           "peak_memory_gb": max(peaks.values()),
+           "peak_memory_gb_by_card": peaks,
+           "one_device_peak_memory_gb": one["peak_memory_gb"],
+           "state_gb_reckoned": n * LM_TRAIN_STATE_BYTES / 1e9,
+           "crossed_bytes_counted": recs[-1]["crossed_bytes"],
+           "crossed_bytes_reckoned": reckoned,
+           "profiled_step": {
+               "wall_ms": prof_wall * 1e3, "busy_ms": busy_ms,
+               "busy_share": busy_ms / (prof_wall * 1e3 * len(cards)),
+               "launches": int(sum(e.count for e in kernels))}}
+    emit(out)
+    del state, step_fn, batch, mt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_small_cases(devices1) -> dict:
+    """granite-20b smoke in float32 on 4 x 2 (the reference's own case) and
+    every family's smoke on 4 x 1 against one device, a train step each
+    (loss and parameters, as the reference's test); the builders'
+    train, prefill and decode cells on 2 x 2 against 1 x 1 for granite
+    smoke (a cache split on the sequence) and phi4 smoke (on kv heads)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+
+    dev = devices1[0]
+    out = {}
+    cases = [("granite-20b", "granite-20b", (4, 2), {"dtype": "float32"})
+             ] + [(fam, arch, (4, 1), kw) for fam, arch, kw in LM_MESH_FAMILIES]
+    for name, arch, shape, kw in cases:
+        cfg = get_config(arch, smoke=True).replace(**kw)
+        model = init_model(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        batch = mesh_batch(cfg, 0, 8, 16, dev)
+        tol = dict(LM_MESH_TOL, loss_rtol=1e-4)
+        n = int(np.prod(shape))
+        out[f"{name}@{shape[0]}x{shape[1]}"] = mesh_identity(
+            cfg, model, (shape, [dev] * n), batch, tol, grads=False)
+    out["cells"] = {arch: lm_mesh_cells(arch, dev)
+                    for arch in ("granite-20b", "phi4-mini-3.8b")}
+    return out
+
+
+def lm_mesh_cells(arch: str, dev) -> dict:
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import rng
+    from repro_torch.launch.builders import build_cell
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.sharding import partition
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.train_step import (
+        init_train_state, place_train_state)
+
+    cfg = get_config(arch, smoke=True).replace(microbatch=2)
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    shapes = (ShapeCfg("t", 64, 8, "train"), ShapeCfg("p", 64, 4, "prefill"),
+              ShapeCfg("d", 64, 4, "decode"))
+    res = {}
+    for d, m in ((1, 1), (2, 2)):
+        mesh = make_lm_mesh(d, m, devices=[dev] * (d * m))
+        got = {}
+        for shape in shapes:
+            fn, args, insh, outsh, donate = build_cell(cfg, mesh, shape)
+            spec = {k: v.spec for k, v in (
+                insh[1] if shape.kind != "decode" else insh[4]).items()}
+            if shape.kind == "train":
+                st = place_train_state(mesh, init_train_state(
+                    cfg, copy.deepcopy(model)))
+                b = {k: torch.from_numpy(v).to(dev) for k, v in
+                     make_batch(cfg, shape, 1).items()}
+                st, met = fn(st, partition.place(mesh, b, spec))
+                got["train"] = (float(met["loss"]), mesh_params(st))
+                continue
+            mdl = partition.place(mesh, copy.deepcopy(model),
+                                  {k: v.spec for k, v in insh[0].items()})
+            if shape.kind == "prefill":
+                b = {k: torch.from_numpy(v).to(dev) for k, v in
+                     make_batch(cfg, shape, 2).items() if k != "labels"}
+                got["prefill"] = fn(mdl, partition.place(mesh, b, spec)
+                                    ).gather("cpu")
+                continue
+            cache = partition.place(mesh, init_cache(
+                cfg, shape.global_batch, shape.seq_len, device=dev), spec)
+            tok = (torch.arange(shape.global_batch, dtype=torch.int32,
+                                device=dev) * 7 + 3)[:, None]
+            toks = []
+            for p in range(4):
+                t, cache = fn(mdl, rng.PRNGKey(p),
+                              partition.place(mesh, tok, insh[2].spec), p,
+                              cache)
+                tok = t.gather(dev)[:, None]
+                toks.append(tok[:, 0].tolist())
+            got["decode"] = toks
+            got["cache_spec"] = spec["k"]
+        res[(d, m)] = got
+    a, b = res[(1, 1)], res[(2, 2)]
+    loss_err = abs(a["train"][0] - b["train"][0])
+    param_err = max(float((a["train"][1][k] - b["train"][1][k]).abs().max())
+                    for k in a["train"][1])
+    pre_err = float((a["prefill"] - b["prefill"]).abs().max()) / float(
+        a["prefill"].abs().max())
+    out = {"loss_err": loss_err, "param_err": param_err,
+           "prefill_rel_err": pre_err, "decode_equal": a["decode"] ==
+           b["decode"], "cache_spec": b["cache_spec"]}
+    if not (loss_err < 1e-4 and param_err < 5e-4 and pre_err <= 1e-5
+            and a["decode"] == b["decode"]):
+        raise AssertionError(f"lm_mesh cells {arch}: 2 x 2 != 1 x 1: {out}")
+    return out
+
+
+def lm_mesh_checkpoints(dev) -> dict:
+    """phi4-mini smoke trained a step on 2 x 2 and saved: restored onto
+    4 x 1 and one device bit for bit; restored on 2 x 2 its next step
+    equals the live one's bit for bit; two runs of the mesh step on equal
+    inputs are bitwise equal."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import restore, save
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    runs = []
+    for _ in range(2):
+        st, mesh = mesh_state(cfg, model, ((2, 2), [dev] * 4))
+        step = make_train_step(cfg, q_block=8, mesh=mesh)[0]
+        st, m = step(st, mesh_batch(cfg, 0, 8, 16, dev))
+        runs.append((st, mesh, step, float(m["loss"])))
+    a, b = mesh_params(runs[0][0]), mesh_params(runs[1][0])
+    repeat = runs[0][3] == runs[1][3] and all(torch.equal(a[k], b[k])
+                                              for k in a)
+    live, mesh, step, _ = runs[0]
+    tmp = tempfile.mkdtemp(prefix="lm_mesh_ckpt_")
+    try:
+        save(tmp, 1, live)
+        snap = convert.train_state_to_numpy(live)
+        reshard = {}
+        for d, m in ((4, 1), (1, 1)):
+            other = init_train_state(cfg, init_model(
+                cfg, torch.Generator(dev).manual_seed(5), device=dev))
+            other, _ = restore(tmp, other, mesh=make_lm_mesh(
+                d, m, devices=[dev] * (d * m)))
+            got = convert.train_state_to_numpy(other)
+            reshard[f"{d}x{m}"] = all(
+                np.array_equal(x, y) for x, y in zip(
+                    _leaves(snap), _leaves(got)))
+        back, _ = mesh_state(cfg, init_model(
+            cfg, torch.Generator(dev).manual_seed(7), device=dev),
+            ((2, 2), [dev] * 4))
+        # a state placed on its own mesh object: restore writes its shards
+        back, at = restore(tmp, back)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    nb = mesh_batch(cfg, 1, 8, 16, dev)
+    live, m1 = step(live, nb)
+    back, m2 = make_train_step(cfg, q_block=8, mesh=back.model.mesh)[0](
+        back, nb)
+    a, b = mesh_params(live), mesh_params(back)
+    restored = float(m1["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a[k], b[k]) for k in a)
+    out = {"repeat_bitwise": repeat, "reshard_bitwise": reshard,
+           "restored_step_bitwise": restored, "leaves": len(a)}
+    if not (repeat and restored and all(reshard.values())):
+        raise AssertionError(f"lm_mesh checkpoints: {out}")
+    return out
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [np.asarray(tree)]
+
+
+def phase_lm_mesh(card_name: str, one: dict) -> dict:
+    """The training path on a ("data", "model") mesh.  No kernel of the
+    port is on it: every launch count must stay 0 over it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+
+    devices, kind = mesh_devices(int(np.prod(LM_MESH["shape"])))
+    zero_kernel_launch_counts()                      # the main path
+    t0 = time.perf_counter()
+    full = lm_mesh_full_width(card_name, devices, kind, one)
+    emit({"phase": "lm_mesh_full_width_seconds",
+          "s": time.perf_counter() - t0})
+    launches = kernel_launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_mesh launched a kernel: {launches}")
+    dev = devices[0]
+    ident = {}
+    t0 = time.perf_counter()
+    for name, kw, tol in (("float32", {"dtype": "float32"}, LM_MESH_TOL),
+                          ("bfloat16", {}, LM_MESH_BF16)):
+        cfg = get_config(LM_TRAIN_FULL).replace(
+            n_layers=LM_MESH["ident_layers"], **kw)
+        model = init_model(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        batch = mesh_batch(cfg, 0, LM_TRAIN_RUN["batch"],
+                           LM_TRAIN_RUN["seq_len"], dev)
+        ident[name] = mesh_identity(cfg, model, (LM_MESH["shape"], devices),
+                                    batch, tol)
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "lm_mesh_identity", "arch": LM_TRAIN_FULL,
+          "n_layers": LM_MESH["ident_layers"], "full_width": ident,
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    small = lm_mesh_small_cases(devices)
+    t1 = time.perf_counter()
+    ckpt = lm_mesh_checkpoints(dev)
+    emit({"phase": "lm_mesh_small", "cases": small, "checkpoints": ckpt,
+          "seconds": {"cases": t1 - t0,
+                      "checkpoints": time.perf_counter() - t1}})
+    return {"launches": 0, "kernel_launches": launches,
+            "arch": full["arch"], "mesh": full["mesh"],
+            "median_step_ms": full["median_step_ms"],
+            "one_device_median_step_ms": full["one_device_median_step_ms"],
+            "peak_memory_gb": full["peak_memory_gb"],
+            "crossed_bytes_counted": full["crossed_bytes_counted"],
+            "busy_share": full["profiled_step"]["busy_share"]}
 
 
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
@@ -2729,6 +3254,7 @@ def main() -> int:
     flash = phase_flash_attention(device)
     paths["lm_generate"] = phase_lm_generate(card_name)
     paths["lm_train"] = phase_lm_train(card_name)
+    paths["lm_mesh"] = phase_lm_mesh(card_name, paths["lm_train"])
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",

@@ -1,8 +1,9 @@
 """Config registry: ``--arch <id>`` resolution (plain dataclasses, no
-framework).  The same ten architectures as the reference's
-``repro.configs``; ``input_specs`` belongs to the dry run, which is not
-ported."""
+framework) and the inputs of each (arch x shape) cell.  The same ten
+architectures as the reference's ``repro.configs``."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs import (
     granite_20b,
@@ -41,7 +42,33 @@ def cell_runnable(cfg: ModelConfig, shape: ShapeCfg) -> tuple[bool, str]:
     return True, ""
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
+    """Stand-ins for every model input of a cell: tensors on the ``meta``
+    device (shape and dtype, no memory), the counterpart of the
+    reference's ``ShapeDtypeStruct``s.
+
+    train/prefill: token batches (+ stub frontend embeddings); decode:
+    the last token (caches come from ``init_cache`` on ``meta``)."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    i32, f32 = torch.int32, torch.float32
+    if shape.kind == "train":
+        out = {"tokens": sds((b, s), i32), "labels": sds((b, s), i32)}
+    elif shape.kind == "prefill":
+        out = {"tokens": sds((b, s), i32)}
+    else:  # decode: one new token against a seq_len cache
+        out = {"tokens": sds((b, 1), i32)}
+    if cfg.family == "vlm" and shape.kind != "decode":
+        out["frontend"] = sds((b, cfg.frontend_tokens, cfg.d_model), f32)
+    if cfg.family in ("encdec", "audio"):
+        out["src_embeds"] = sds((b, cfg.enc_seq_len, cfg.d_model), f32)
+    return out
+
+
 __all__ = [
     "ARCHS", "ARCH_IDS", "MCMC_CONFIGS", "SHAPES", "ModelConfig", "ShapeCfg",
-    "cell_runnable", "get_config", "shape_by_name",
+    "cell_runnable", "get_config", "input_specs", "shape_by_name",
 ]

@@ -31,8 +31,10 @@ from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
 from repro_torch.pgm.sparse_compile import (
     CompiledFactorGraph, DegreeBucket, SparsePlan)
 from repro_torch.serve.plan_cache import _PLAN_FIELDS
+from repro_torch.sharding import partition
 from repro_torch.training.optimizer import copy_into, make_optimizer
-from repro_torch.training.train_step import StateTree, TrainState
+from repro_torch.training.train_step import (
+    StateTree, TrainState, place_train_state)
 
 
 def bayesnet_from_numpy(card: Sequence[int],
@@ -188,9 +190,11 @@ def _unnest(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
-def _array(t: torch.Tensor) -> np.ndarray:
-    """A host copy; bfloat16 as float32 (exact: numpy has no bfloat16)."""
-    t = t.detach().cpu()
+@torch.no_grad()
+def _array(t) -> np.ndarray:
+    """A host copy of a leaf (gathered whole if placed on a mesh, layers
+    stacked); bfloat16 as float32 (exact: numpy has no bfloat16)."""
+    t = partition.gather(t, "cpu").detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy().copy()
@@ -212,9 +216,9 @@ def _fill(dst: Mapping, tree: Mapping, where: str) -> None:
 def train_state_to_numpy(state: TrainState) -> StateTree:
     """The port's training state as the reference's ``TrainState`` of
     numpy host copies: nested parameter and moment dicts, layer stacks on
-    axis 0, the optimizer state with the reference's field names."""
-    params = {k: np.stack([_array(t) for t in p]) if isinstance(p, list)
-              else _array(p) for k, p in param_leaves(state.model).items()}
+    axis 0, the optimizer state with the reference's field names (a
+    state placed on a mesh is gathered)."""
+    params = {k: _array(p) for k, p in param_leaves(state.model).items()}
     opt = type(state.opt)(**{
         f: _array(v) if torch.is_tensor(v)
         else _nest({k: _array(t) for k, t in v.items()})
@@ -223,12 +227,18 @@ def train_state_to_numpy(state: TrainState) -> StateTree:
 
 
 @torch.no_grad()
-def train_state_from_numpy(tree, cfg: ModelConfig,
-                           device=None) -> TrainState:
+def train_state_from_numpy(tree, cfg: ModelConfig, device=None,
+                           mesh=None) -> TrainState:
     """A port :class:`TrainState` on ``device`` (the card by default) from
     the reference's ``TrainState`` as numpy (anything with ``params``,
     ``opt`` and ``step``; ``opt`` the config's optimizer state with the
-    reference's field names).  bfloat16 leaves may come as float32."""
+    reference's field names).  bfloat16 leaves may come as float32.
+    With ``mesh`` the state is then placed on it (built on ``device``,
+    default the mesh's first device)."""
+    if mesh is not None:
+        state = train_state_from_numpy(
+            tree, cfg, mesh.devices.flat[0] if device is None else device)
+        return place_train_state(mesh, state)
     model = LM(cfg, resolve_device(device))
     leaves = param_leaves(model)
     _fill(leaves, tree.params, "params")

@@ -14,14 +14,17 @@ come only from the caller's ``devices=``: ``devices=None`` means every
 visible CUDA device, and too few of them raise — nothing drops to the
 CPU or repeats a card unasked.
 
-``make_production_mesh`` (the LM side's mesh) is not ported; it comes
-with the training half of ``sharding/specs.py`` (ROADMAP Queue 1 item
-4).  :func:`repro_torch.training.elastic.elastic_mesh` builds a
-``("data", "model")`` :class:`DeviceMesh`.
+``make_production_mesh`` builds the LM side's production meshes,
+(16, 16) as ``("data", "model")`` and (2, 16, 16) as ``("pod", "data",
+"model")``; :func:`make_lm_mesh` any ``D x M`` ``("data", "model")``
+mesh, and :func:`repro_torch.training.elastic.elastic_mesh` the largest
+one the healthy devices allow.  A mesh of ``meta`` devices lays out
+shapes without memory (the dry run's production meshes).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -47,7 +50,7 @@ class DeviceMesh:
         if len(kinds) != 1:
             raise ValueError(f"a mesh holds one kind of device, got {kinds}")
 
-    @property
+    @cached_property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
@@ -113,6 +116,24 @@ def make_pgm_mesh(rows: int = 4, cols: int = 4, *,
     """The AIA-analogue 2D core mesh ``("row", "col")`` for distributed
     MRF Gibbs (:mod:`repro_torch.pgm.mesh_gibbs`)."""
     return _mesh((int(rows), int(cols)), ("row", "col"), devices, "pgm mesh")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices=None) -> DeviceMesh:
+    """The production LM mesh: (16, 16) as ("data", "model"), or
+    (2, 16, 16) as ("pod", "data", "model") with the leading "pod" axis
+    carrying only data parallelism.  ``devices=None`` takes every
+    visible card; too few raise."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, devices, "production mesh")
+
+
+def make_lm_mesh(data: int, model: int, *, devices=None) -> DeviceMesh:
+    """A ``data x model`` mesh ("data", "model") for the LM trainer and
+    server (``--mesh DxM``)."""
+    return _mesh((int(data), int(model)), ("data", "model"), devices,
+                 "LM mesh")
 
 
 def mesh_fingerprint(mesh: DeviceMesh | None):

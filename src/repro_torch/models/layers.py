@@ -14,6 +14,15 @@ from float32.
 
 ``chunked_xent`` is the training loss: cross-entropy over the vocabulary
 a chunk of positions at a time, never storing the ``(B, S, V)`` logits.
+
+On a mesh (:mod:`repro_torch.sharding.partition`) a placed parameter is
+a :class:`Sharded`; :meth:`ParamModule.w` gathers its "data" (FSDP)
+dims at use onto the device that computes.  Where a leaf is split over
+"model" the MLP is tensor parallel (``wi``/``wg`` on F, ``wo`` on F
+giving partial sums added across the "model" devices), and so is the
+vocabulary: ``embed_tokens`` looks up each shard's rows and sums,
+``unembed`` works per shard, and ``chunked_xent`` combines each shard's
+max, sum of exponentials and gold logit.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fixedpoint import div
+from repro_torch.sharding import partition
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int8": torch.int8}
@@ -46,17 +56,46 @@ class ParamModule(nn.Module):
         self._pdt = torch_dtype(cfg.param_dtype)
         self._device = device
         self._casts: dict = {}
+        self._sharded: dict[str, partition.Sharded] = {}
 
     def param(self, name: str, *shape: int) -> None:
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=self._pdt, device=self._device)))
 
-    def w(self, name: str, dt: torch.dtype) -> torch.Tensor:
+    def has(self, name: str) -> bool:
+        return name in self._parameters or name in self._sharded
+
+    def leaf(self, name: str):
+        """The parameter as stored: a tensor, or a :class:`Sharded`."""
+        return self._sharded.get(name) or self._parameters[name]
+
+    def p(self, name: str, tp: int | None = None, whole: bool = False,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+        """Parameter ``name`` as stored.  A placed one is gathered for
+        the mesh run's current batch shard (and cast to ``dtype``): whole
+        on its home device, or "model" piece ``tp`` on its "model"
+        device ``tp`` (the whole leaf there with ``whole``)."""
+        sh = self._sharded.get(name)
+        if sh is None:
+            return self._parameters[name]
+        cur = partition.current()
+        if cur is None:
+            raise RuntimeError(f"{name} is placed on a mesh: use it inside "
+                               "a mesh run (MeshRun.on)")
+        run, i = cur
+        return run.weight(sh, (id(self), name), i, tp, whole, dtype)
+
+    def w(self, name: str, dt: torch.dtype, tp: int | None = None,
+          whole: bool = False) -> torch.Tensor:
         """Parameter ``name`` in dtype ``dt`` (the reference's
         ``params[name].astype(dt)``).  With gradients enabled the cast is
         made at each use, in the graph; otherwise it is made once and
-        kept (``drop_casts`` forgets it after the parameter changes)."""
-        p = getattr(self, name)
+        kept (``drop_casts`` forgets it after the parameter changes).  A
+        placed parameter is gathered and cast at each use (inside a
+        layer, once for every batch shard)."""
+        if name in self._sharded:
+            return self.p(name, tp, whole, dt)
+        p = self._parameters[name]
         if p.dtype == dt:
             return p
         if torch.is_grad_enabled():
@@ -93,7 +132,7 @@ class RMSNorm(ParamModule):
         self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(self.scale, x)
+        return rmsnorm(self.p("scale"), x)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -136,9 +175,19 @@ class MLP(ParamModule):
 
 def apply_mlp(mlp: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = x @ mlp.w("wi", dt)
-    g = x @ mlp.w("wg", dt) if hasattr(mlp, "wg") else None
-    return act_fn(cfg.act, h, g) @ mlp.w("wo", dt)
+    devs = partition.tp_devices(mlp.leaf("wi"))
+    if devs is None:
+        h = x @ mlp.w("wi", dt)
+        g = x @ mlp.w("wg", dt) if mlp.has("wg") else None
+        return act_fn(cfg.act, h, g) @ mlp.w("wo", dt)
+    # tensor parallel: column-parallel wi/wg, row-parallel wo
+    pos = partition.tp_positions()
+    parts = []
+    for j, xj in enumerate(partition.broadcast(x, devs, pos, pos[0])):
+        h = xj @ mlp.w("wi", dt, j)
+        g = xj @ mlp.w("wg", dt, j) if mlp.has("wg") else None
+        parts.append(act_fn(cfg.act, h, g) @ mlp.w("wo", dt, j))
+    return partition.reduce_sum(parts, x.device, pos, pos[0])
 
 
 class Embed(ParamModule):
@@ -158,19 +207,58 @@ def embed_tokens(embed: Embed, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """Rows of the table, then the cast (the reference's ``take`` then
     ``astype``): the gradient sums repeated tokens in the table's dtype,
-    and ``F.embedding``'s backward is deterministic on the card."""
-    return F.embedding(tokens.long(), embed.tok).to(dtype)
+    and ``F.embedding``'s backward is deterministic on the card.  With
+    the table split over "model" on the vocabulary, each shard looks up
+    the tokens in its range (zeros elsewhere) and the rows are summed:
+    exactly one term is not zero."""
+    sh = embed.leaf("tok")
+    devs = partition.tp_devices(sh)
+    if devs is None or sh.model_dim() != 0:
+        return F.embedding(tokens.long(), embed.p("tok")).to(dtype)
+    pos = partition.tp_positions()
+    vs = sh.shape[0] // len(devs)
+    parts = []
+    for j, tj in enumerate(partition.broadcast(tokens, devs, pos, pos[0])):
+        t = tj.long() - j * vs
+        inr = (t >= 0) & (t < vs)
+        e = F.embedding(torch.where(inr, t, 0), embed.p("tok", j))
+        parts.append(torch.where(inr[..., None], e, 0))
+    return partition.reduce_sum(parts, tokens.device, pos,
+                                pos[0]).to(dtype)
 
 
-def unembed(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        logits = x @ embed.w("tok", x.dtype).T
-    else:
-        logits = x @ embed.w("head", x.dtype)
+def _softcap(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(div(logits.float(), c))
     return logits
+
+
+def unembed_parts(embed: Embed, cfg: ModelConfig,
+                  x: torch.Tensor) -> list[torch.Tensor]:
+    """The logits as vocabulary blocks in order: one a "model" device
+    when the output table is split over "model" on the vocabulary, else
+    one block on ``x``'s device."""
+    name = "tok" if cfg.tie_embeddings else "head"
+    vdim = 0 if cfg.tie_embeddings else 1
+    sh = embed.leaf(name)
+    devs = partition.tp_devices(sh)
+    if devs is None or sh.model_dim() != vdim:
+        w = embed.w(name, x.dtype)
+        return [_softcap(cfg, x @ (w.T if cfg.tie_embeddings else w))]
+    pos = partition.tp_positions()
+    out = []
+    for j, xj in enumerate(partition.broadcast(x, devs, pos, pos[0])):
+        w = embed.w(name, x.dtype, j)
+        out.append(_softcap(cfg, xj @ (w.T if cfg.tie_embeddings else w)))
+    return out
+
+
+def unembed(embed: Embed, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    parts = unembed_parts(embed, cfg, x)
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(partition.to_home(parts, x.device), dim=-1)
 
 
 def repeat_heads(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
@@ -215,11 +303,38 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 # Chunked cross-entropy: never stores the full (B, S, V) logits
 # --------------------------------------------------------------------------
 
-def _chunk_loss(embed: Embed, cfg: ModelConfig, xi: torch.Tensor,
+def chunk_loss(embed: Embed, cfg: ModelConfig, xi: torch.Tensor,
                 li: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
-    logits = unembed(embed, cfg, xi).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+    parts = unembed_parts(embed, cfg, xi)
+    if len(parts) == 1:
+        logits = parts[0].float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.long()[..., None])[..., 0]
+        return torch.sum((lse - gold) * mi)
+    # vocabulary-parallel: each shard's max, sum of exponentials under
+    # it and gold logit (in range on one shard), combined on the home
+    # device; the maxima are constants of the gradient, as in logsumexp
+    pos = partition.tp_positions()
+    maxes, sums, golds = [], [], []
+    v0 = 0
+    for j, (lj, lab) in enumerate(zip(parts, partition.broadcast(
+            li, [p.device for p in parts], pos, pos[0]))):
+        lf = lj.float()
+        m = torch.amax(lf, dim=-1).detach()
+        t = lab.long() - v0
+        inr = (t >= 0) & (t < lf.shape[-1])
+        g = torch.gather(lf, -1, torch.where(inr, t, 0)[..., None])[..., 0]
+        maxes.append(m)
+        sums.append(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+        golds.append(torch.where(inr, g, 0.0))
+        v0 += lf.shape[-1]
+    maxes = partition.to_home(maxes, xi.device)
+    m = torch.amax(torch.stack(maxes), dim=0)
+    total = partition.reduce_sum(
+        [s * torch.exp(mj.to(s.device) - m.to(s.device))
+         for s, mj in zip(sums, maxes)], xi.device, pos, pos[0])
+    lse = m + torch.log(total)
+    gold = partition.reduce_sum(golds, xi.device, pos, pos[0])
     return torch.sum((lse - gold) * mi)
 
 
@@ -236,14 +351,25 @@ def chunked_xent(
     (``torch.utils.checkpoint``); chunk losses are summed in order and
     the total divided by ``max(sum(mask), 1)``, as the reference does."""
     b, s, d = x.shape
-    n_chunks = max(s // chunk, 1)
-    chunk = s // n_chunks
+    n_chunks, chunk = xent_chunks(s, chunk)
     xc = x.reshape(b, n_chunks, chunk, d)
     lc = labels.reshape(b, n_chunks, chunk)
-    mc = (mask.reshape(b, n_chunks, chunk) if mask is not None
-          else torch.ones(lc.shape, dtype=torch.float32, device=x.device))
+    mc = loss_mask(x, labels, mask).reshape(b, n_chunks, chunk)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
-        total = total + checkpoint(_chunk_loss, embed, cfg, xc[:, i],
+        total = total + checkpoint(chunk_loss, embed, cfg, xc[:, i],
                                    lc[:, i], mc[:, i], use_reentrant=False)
     return total / torch.clamp_min(torch.sum(mc), 1.0)
+
+
+def loss_mask(x, labels, mask):
+    """The loss's token mask: ``mask``, or float32 ones like ``labels``."""
+    return (mask if mask is not None
+            else torch.ones(labels.shape, dtype=torch.float32,
+                            device=x.device))
+
+
+def xent_chunks(s: int, chunk: int = 512) -> tuple[int, int]:
+    """(number of chunks, chunk length) of a length-``s`` sequence."""
+    n_chunks = max(s // chunk, 1)
+    return n_chunks, s // n_chunks

@@ -3,7 +3,12 @@
 Torch twin of ``repro.models.moe``: top-k routing with a static
 per-group capacity (groups are sequences); overflow tokens are dropped
 and their residual stream passes through unchanged.  Expert parallelism
-is not ported (one device holds every expert).
+is not ported: on a mesh the experts are gathered whole onto each batch
+shard's home device, and a mesh whose "model" axis is wider than one
+refuses the family (ROADMAP Queue 1 item 4).  ``aux`` also carries the
+router statistics as sums (``me_sum``, ``ce_sum``, ``z_sum``, ``n``), so
+a batch split over "data" gets the load-balance loss of the whole batch
+(:func:`moe_loss`).
 """
 from __future__ import annotations
 
@@ -78,7 +83,7 @@ def apply_moe(moe: MoE, cfg: ModelConfig, x: torch.Tensor
 
     xe = torch.einsum("bsd,bsec->becd", x, disp.to(dt))      # (B, E, C, D)
     h = torch.einsum("becd,edf->becf", xe, moe.w("wi", dt))
-    if "wg" in moe._parameters:
+    if moe.has("wg"):
         g = torch.einsum("becd,edf->becf", xe, moe.w("wg", dt))
         h = act_fn(cfg.act, h, g)
     else:
@@ -89,9 +94,32 @@ def apply_moe(moe: MoE, cfg: ModelConfig, x: torch.Tensor
     # --- aux losses (Switch §2.2) ---------------------------------------
     me = torch.mean(onehot[:, :, 0, :], dim=(0, 1))          # router top-1 frac
     ce = torch.mean(probs, dim=(0, 1))
+    z2 = torch.logsumexp(logits, dim=-1) ** 2
     aux = {
         "load_balance": e * torch.sum(me * ce),
-        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+        "router_z": torch.mean(z2),
         "drop_frac": 1.0 - torch.mean(keep.to(f32)),
+        "me_sum": torch.sum(onehot[:, :, 0, :], dim=(0, 1)),
+        "ce_sum": torch.sum(probs, dim=(0, 1)),
+        "z_sum": torch.sum(z2),
+        "n": b * s,
     }
     return y, aux
+
+
+def moe_loss(auxes: list[dict], device) -> torch.Tensor:
+    """One layer's router loss, 0.01 load balance + 0.001 router z, from
+    the aux of each batch shard: one shard's own means, or the
+    statistics of every shard summed in order on ``device``."""
+    if len(auxes) == 1:
+        a = auxes[0]
+        return 0.01 * a["load_balance"] + 0.001 * a["router_z"]
+    n = sum(a["n"] for a in auxes)
+    tot = {k: None for k in ("me_sum", "ce_sum", "z_sum")}
+    for a in auxes:
+        for k in tot:
+            t = a[k].to(device)
+            tot[k] = t if tot[k] is None else tot[k] + t
+    e = tot["me_sum"].shape[0]
+    lb = e * torch.sum(tot["me_sum"] / n * (tot["ce_sum"] / n))
+    return 0.01 * lb + 0.001 * (tot["z_sum"] / n)

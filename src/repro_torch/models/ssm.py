@@ -141,7 +141,7 @@ def apply_ssm(
     bsz, s, _ = u.shape
     dt_ = u.dtype
 
-    if "in_proj" in ssm._parameters:
+    if ssm.has("in_proj"):
         zxbcdt = u @ ssm.w("in_proj", dt_)
         z = zxbcdt[..., :di]
         xbc = zxbcdt[..., di: 2 * di + 2 * g * n]
@@ -152,8 +152,8 @@ def apply_ssm(
             [u @ ssm.w("x_proj", dt_), u @ ssm.w("b_proj", dt_),
              u @ ssm.w("c_proj", dt_)], dim=-1)
         dt_raw = u @ ssm.w("dt_proj", dt_)
-    dt = F.softplus(dt_raw.float() + ssm.dt_bias)
-    a = -torch.exp(ssm.a_log)                            # (H,) negative
+    dt = F.softplus(dt_raw.float() + ssm.p("dt_bias"))
+    a = -torch.exp(ssm.p("a_log"))                       # (H,) negative
 
     conv_state = state["conv"] if state is not None else None
     xbc, new_conv = _causal_conv(

@@ -18,12 +18,24 @@ parameters; here each layer is a module and the loop runs in Python,
 each layer's body under the config's remat policy while gradients are
 on.  The decode cache is one preallocated ``(L, B, T, KV, dh)`` tensor a
 field, written in place.
+
+On a mesh (:func:`place_model`, :mod:`repro_torch.sharding.partition`)
+every parameter is a :class:`Sharded` laid out by ``param_specs``, and
+:func:`mesh_loss`, :func:`mesh_forward` and :func:`mesh_decode_step`
+run the same layer bodies over the batch shards: the layer loop runs
+per device (each layer's gathers made once for every shard, inside its
+remat), and the loss is normalized by the global token count.  A mesh
+whose "model" axis is wider than one takes the dense, vlm and
+encoder-decoder families (attention and MLP tensor parallel); the MoE,
+SSM and hybrid families raise ``NotImplementedError`` there (ROADMAP
+Queue 1 item 4).
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.utils._pytree as pytree
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -38,16 +50,23 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     MLP,
     Embed,
+    ParamModule,
     RMSNorm,
     apply_mlp,
+    chunk_loss,
     chunked_xent,
     drop_casts,
     embed_tokens,
+    loss_mask,
     rope_freqs,
     torch_dtype,
     unembed,
+    unembed_parts,
+    xent_chunks,
 )
 from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding import partition
+from repro_torch.sharding import specs as specs_lib
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
@@ -94,6 +113,7 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None          # the DeviceMesh once placed
         kind = _layer_kind(cfg)
         self.embed = Embed(cfg, device)
         self.layers = nn.ModuleList(
@@ -106,7 +126,25 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
+        """The model's device (a placed model's: the mesh's first)."""
+        if self.mesh is not None:
+            return self.mesh.devices.flat[0]
         return self.final_norm.scale.device
+
+
+def _named_leaves(model: LM):
+    """(dotted name, tensor or Sharded) of every parameter."""
+    for mname, m in model.named_modules():
+        if isinstance(m, ParamModule):
+            for n in list(m._parameters) + list(m._sharded):
+                yield f"{mname}.{n}", m, n
+
+
+def _leaf_key(dotted: str) -> str:
+    parts = dotted.split(".")
+    if parts[0] in ("layers", "encoder"):
+        return "/".join([parts[0]] + parts[2:])
+    return "/".join(parts)
 
 
 def param_leaves(model: LM) -> dict:
@@ -114,15 +152,53 @@ def param_leaves(model: LM) -> dict:
     their path (``"layers/attn/wq"``) in ``jax.tree.leaves`` order
     (sorted keys at every level).  A layer stack (``layers``,
     ``encoder``) is one leaf there, stacked on axis 0; here it maps to
-    the list of its layers' tensors, in layer order."""
+    the list of its layers' tensors, in layer order.  A placed model's
+    leaves are :class:`repro_torch.sharding.partition.Sharded`."""
     out: dict = {}
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] in ("layers", "encoder"):
-            out.setdefault("/".join([parts[0]] + parts[2:]), []).append(p)
+    for name, m, n in _named_leaves(model):
+        key, p = _leaf_key(name), m.leaf(n)
+        if name.split(".")[0] in ("layers", "encoder"):
+            out.setdefault(key, []).append(p)
         else:
-            out["/".join(parts)] = p
+            out[key] = p
     return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}
+
+
+_MODEL_AXIS_FAMILIES = ("dense", "vlm", "encdec", "audio")
+
+
+def check_mesh_family(cfg: ModelConfig, mesh) -> None:
+    """Raise for a family whose "model"-axis sharding is not ported."""
+    if mesh.shape.get("model", 1) > 1 and \
+            cfg.family not in _MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
+            f"{mesh.shape['model']} (MoE experts, the SSM's in_proj and "
+            "split projections, hybrid layers) is not ported to "
+            "repro_torch (ROADMAP Queue 1 item 4); use a D x 1 mesh")
+
+
+@torch.no_grad()
+def place_model(mesh, model: LM, specs: dict | None = None) -> LM:
+    """Lay ``model``'s parameters out on ``mesh`` by ``specs`` (default
+    ``param_specs`` on the stacked leaves), in place, one parameter at a
+    time (each original is freed once its shards are made).  Returns
+    the model."""
+    if model.mesh is not None:
+        raise ValueError("the model is already placed on a mesh")
+    check_mesh_family(model.cfg, mesh)
+    if specs is None:
+        specs = specs_lib.param_specs(model.cfg, param_leaves(model), mesh)
+    for name, m, n in list(_named_leaves(model)):
+        p = m._parameters.pop(n)
+        spec = specs_lib.layer_spec(_leaf_key(name), specs[_leaf_key(name)],
+                                    p.ndim)
+        m._sharded[n] = partition.Sharded.place(mesh, p.detach(), spec,
+                                                requires_grad=True)
+        del p
+        m._casts.clear()
+    model.mesh = mesh
+    return model
 
 
 def resolve_device(device) -> torch.device:
@@ -141,6 +217,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator | None = None,
     ``jax.random`` draws are not reproduced: parity with it goes through
     :func:`repro_torch.convert.lm_params_from_numpy`."""
     device = resolve_device(device)
+    if device.type == "meta":     # shapes and dtypes only (the dry run)
+        return LM(cfg, device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     model = LM(cfg, device)
@@ -166,8 +244,9 @@ def layer_windows(cfg: ModelConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def _block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block):
-    """One layer: (x, aux loss) — the aux loss is the MoE router's, None
-    for the other kinds (the reference adds a float32 zero)."""
+    """One layer: (x, aux) — the MoE router's aux (see
+    ``moe.moe_loss``), None for the other kinds (the reference adds a
+    float32 zero)."""
     kind = lp.kind
     if kind == "ssm":
         h, _ = ssm_lib.apply_ssm(lp.ssm, cfg, lp.ln1(x))
@@ -185,8 +264,7 @@ def _block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block):
     x = x + a
     if kind == "moe":
         m, aux = moe_lib.apply_moe(lp.moe, cfg, lp.ln2(x))
-        moe_loss = 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
-        return x + m, moe_loss
+        return x + m, aux
     return x + apply_mlp(lp.mlp, cfg, lp.ln2(x)), None
 
 
@@ -230,6 +308,50 @@ def _remat(cfg: ModelConfig, body):
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
+def _mesh_remat(cfg: ModelConfig, fn):
+    """:func:`_remat` for a region of a mesh program (a layer, a loss
+    chunk): it spans the mesh's devices, and the autograd engine runs
+    each device's part of the backward on that device's thread, where
+    the non-reentrant checkpoint's recomputation is not thread safe.
+    So the reentrant checkpoint, one autograd node, which recomputes and
+    runs the region's backward once; it takes tensors as positional
+    arguments, so the region's nested arguments and results are
+    flattened, and a tensor that needs a gradient rides along, so the
+    region's outputs need one even where its inputs do not (the
+    encoder's: its parameters are not arguments).  The "dots" policy
+    needs the non-reentrant variant and is not ported over a mesh."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat {cfg.remat!r} over a mesh is not ported to repro_torch "
+            "(ROADMAP Queue 1 item 4); use 'full' or 'none'")
+
+    def region(*args):
+        leaves, spec = pytree.tree_flatten(args)
+        tensor = [isinstance(x, torch.Tensor) for x in leaves]
+        static = {}
+
+        def inner(_, *tensors):
+            it = iter(tensors)
+            out = fn(*pytree.tree_unflatten(
+                [next(it) if t else x for x, t in zip(leaves, tensor)],
+                spec))
+            o_leaves, static["spec"] = pytree.tree_flatten(out)
+            static["leaves"] = o_leaves
+            return tuple(x for x in o_leaves if isinstance(x, torch.Tensor))
+
+        needs_grad = torch.ones((), requires_grad=True)
+        outs = iter(checkpoint(inner, needs_grad,
+                               *(x for x, t in zip(leaves, tensor) if t),
+                               use_reentrant=True))
+        return pytree.tree_unflatten(
+            [next(outs) if isinstance(x, torch.Tensor) else x
+             for x in static["leaves"]], static["spec"])
+
+    return region
+
+
 def _stack(cfg, layers, x, windows, body):
     """Run ``body`` over the layers; returns (x, summed aux loss or
     None), the aux summed in layer order as the reference's scan does."""
@@ -239,6 +361,7 @@ def _stack(cfg, layers, x, windows, body):
     for lp, w in zip(layers, windows):
         x, a = body(lp, x, w)
         if a is not None:
+            a = moe_lib.moe_loss([a], x.device)
             aux = a if aux is None else aux + a
         # sequence-parallel storage of the saved residual (sharding/ctx.py)
         x = shard_ctx.constrain(x, "residual")
@@ -304,6 +427,153 @@ def loss_fn(model: LM, batch: dict, q_block: int = 512) -> torch.Tensor:
     xent = chunked_xent(x, model.embed, cfg, batch["labels"],
                         batch.get("mask"))
     return xent + aux
+
+
+# ---------------------------------------------------------------------------
+# Forward and loss on a mesh
+# ---------------------------------------------------------------------------
+
+def _store(run, i: int, x: torch.Tensor, split: int):
+    """Batch shard ``i``'s carry as stored between layers: whole, or in
+    ``split`` sequence pieces on its "model" devices (the "residual"
+    spec)."""
+    if split == 1:
+        return x
+    return [partition.move(p, run.device(i, j), run.position(i),
+                           run.position(i, j))
+            for j, p in enumerate(x.chunk(split, dim=1))]
+
+
+def _unstore(run, i: int, x) -> torch.Tensor:
+    if not isinstance(x, list):
+        return x
+    return torch.cat([partition.move(p, run.device(i), run.position(i, j),
+                                     run.position(i))
+                      for j, p in enumerate(x)], dim=1)
+
+
+def _mesh_stack(cfg, run, layers, xs, windows, body, side=None):
+    """:func:`_stack` over the batch shards: each layer's body runs for
+    every shard in turn, its weights gathered once for all of them;
+    ``side[i]`` (the encoder's output for a decoder) is passed to shard
+    i's body as an argument of the remat region, never captured.
+    Returns (carries, summed aux loss or None)."""
+    split = shard_ctx.residual_split(run)
+    side = side or [None] * run.n
+
+    def layer(lp, xs, w, side):
+        with run.scope():
+            outs = []
+            for i, (x, si) in enumerate(zip(xs, side)):
+                with run.on(i):
+                    outs.append(body(lp, _unstore(run, i, x), w, si))
+        auxes = [a for _, a in outs]
+        aux = (None if auxes[0] is None
+               else moe_lib.moe_loss(auxes, run.device(0)))
+        return [_store(run, i, x, split) for i, (x, _) in enumerate(outs)], aux
+
+    layer = _mesh_remat(cfg, layer)
+    aux = None
+    xs = [_store(run, i, x, split) for i, x in enumerate(xs)]
+    for lp, w in zip(layers, windows):
+        xs, a = layer(lp, xs, w, side)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return [_unstore(run, i, x) for i, x in enumerate(xs)], aux
+
+
+def _each(run, fn, *lists):
+    """``fn`` for every batch shard under ``run.on(i)``, its parameter
+    gathers shared."""
+    with run.scope():
+        out = []
+        for i, args in enumerate(zip(*lists)):
+            with run.on(i):
+                out.append(fn(*args))
+    return out
+
+
+def mesh_encode(model: LM, run, src_embeds: list, q_block: int = 512):
+    cfg = model.cfg
+
+    def body(lp, x, w, _):
+        return _block(cfg, lp, x, w, rope_freqs(cfg, x.device), q_block)
+
+    xs, _ = _mesh_stack(cfg, run, model.encoder, src_embeds,
+                        [0] * cfg.enc_layers, body)
+    return _each(run, model.enc_norm, xs)
+
+
+def mesh_forward(model: LM, run, batches: list, q_block: int = 512,
+                 return_aux: bool = False):
+    """:func:`forward` of a placed model over the batch shards
+    (``batches[i]``: shard i's inputs on its home device); returns the
+    final hidden states of each shard (and the summed aux loss, a
+    float32 zero for the families without one)."""
+    cfg = model.cfg
+    dt = torch_dtype(cfg.dtype)
+
+    def embed(b):
+        x = embed_tokens(model.embed, b["tokens"], dt)
+        if b.get("frontend") is not None and cfg.family == "vlm":
+            x[:, : b["frontend"].shape[1]] = b["frontend"].to(dt)
+        return x
+
+    xs = _each(run, embed, batches)
+    windows = layer_windows(cfg)
+    encs = None
+    if _layer_kind(cfg) == "dec":
+        encs = mesh_encode(model, run, [b["src_embeds"] for b in batches],
+                           q_block)
+
+        def body(lp, x, w, enc_out):
+            return _dec_block(cfg, lp, x, w, rope_freqs(cfg, x.device),
+                              q_block, enc_out)
+    else:
+        def body(lp, x, w, _):
+            return _block(cfg, lp, x, w, rope_freqs(cfg, x.device), q_block)
+    xs, aux = _mesh_stack(cfg, run, model.layers, xs, windows, body, encs)
+    xs = _each(run, model.final_norm, xs)
+    if not return_aux:
+        return xs
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=run.device(0))
+    return xs, aux
+
+
+def mesh_loss(model: LM, run, batches: list, q_block: int = 512
+              ) -> torch.Tensor:
+    """:func:`loss_fn` of a placed model over the batch shards: the
+    masked cross-entropy summed over every shard, divided by the global
+    token count (the sum of every shard's), plus the aux loss of the
+    whole batch; on the first shard's home device."""
+    cfg = model.cfg
+    home = run.device(0)
+    xs, aux = mesh_forward(model, run, batches, q_block, return_aux=True)
+    labels = [b["labels"] for b in batches]
+    masks = [loss_mask(x, lab, b.get("mask"))
+             for x, lab, b in zip(xs, labels, batches)]
+    n = partition.reduce_sum([torch.sum(m) for m in masks], home,
+                             [run.position(i) for i in range(run.n)],
+                             run.position(0))
+    s = xs[0].shape[1]
+    n_chunks, chunk = xent_chunks(s)
+
+    def chunk_sum(xcs, lcs, mcs):
+        parts = _each(run, lambda x, lab, m: chunk_loss(
+            model.embed, cfg, x, lab, m), xcs, lcs, mcs)
+        return partition.reduce_sum(parts, home,
+                                    [run.position(i) for i in range(run.n)],
+                                    run.position(0))
+
+    chunk_sum = _mesh_remat(cfg.replace(remat="full"), chunk_sum)
+    total = torch.zeros((), dtype=torch.float32, device=home)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + chunk_sum(
+            [x[:, sl] for x in xs], [lab[:, sl] for lab in labels],
+            [m[:, sl] for m in masks])
+    return total / torch.clamp_min(n, 1.0) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -417,3 +687,88 @@ def decode_step(
     x = model.final_norm(x)
     logits = unembed(model.embed, cfg, x)[:, 0, :]
     return logits, cache
+
+
+def _cache_blocks(sh, i: int, li: int, tp: int) -> tuple[list, str]:
+    """Batch shard ``i``'s blocks of layer ``li`` of a placed cache field
+    (one a "model" block), and how ``cache_specs`` split it."""
+    spec = sh.spec
+    md = sh.model_dim()
+    layout = {None: "whole", 2: "seq", 3: "kv"}.get(md)
+    if layout is None:
+        raise NotImplementedError(f"a cache split over 'model' on dim {md}")
+    blocks = []
+    for j in range(tp if md is not None else 1):
+        c = [0] * len(spec)
+        if spec[1] is not None:
+            c[1] = i
+        if md is not None:
+            c[md] = j
+        blocks.append(sh.shards[tuple(c)][li])
+    return blocks, layout
+
+
+@torch.no_grad()
+def mesh_decode_step(model: LM, run, tokens: list, pos: int,
+                     cache: dict) -> list:
+    """:func:`decode_step` of a placed model over the batch shards:
+    ``tokens[i]`` (B_i, 1) on shard i's home device, ``cache`` a field ->
+    :class:`Sharded` laid out by ``cache_specs`` (written in place).
+    Returns each shard's logits (B_i, V) on its home device."""
+    cfg = model.cfg
+    dt = torch_dtype(cfg.dtype)
+    pos = int(pos)
+    kind = _layer_kind(cfg)
+    xs = _each(run, lambda t: embed_tokens(model.embed, t, dt), tokens)
+    kv_names = [kk for kk in ("k", "v", "k_scale", "v_scale") if kk in cache]
+
+    def layer(li, lp, w, i, x):
+        freqs = rope_freqs(cfg, x.device)
+        if kind in ("ssm", "hybrid"):
+            h_blk = _cache_blocks(cache["ssm_h"], i, li, run.tp)[0][0]
+            c_blk = _cache_blocks(cache["ssm_conv"], i, li, run.tp)[0][0]
+            st_in = {"h": h_blk, "conv": c_blk}
+        if kind == "ssm":
+            h, st = ssm_lib.apply_ssm(lp.ssm, cfg, lp.ln1(x), state=st_in)
+            h_blk.copy_(st["h"])
+            c_blk.copy_(st["conv"])
+            return x + h
+        blocks, layout = {}, "whole"
+        for kk in kv_names:
+            blocks[kk], layout = _cache_blocks(cache[kk], i, li, run.tp)
+        if kind == "hybrid":
+            hn = lp.ln1(x)
+            a = attn_lib.attend_mesh_decode(lp.attn, cfg, hn, freqs=freqs,
+                                            window=w, cache=blocks, pos=pos,
+                                            layout=layout)
+            s, st = ssm_lib.apply_ssm(lp.ssm, cfg, hn, state=st_in)
+            x = x + 0.5 * (a + s)
+            x = x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
+            h_blk.copy_(st["h"])
+            c_blk.copy_(st["conv"])
+            return x
+        x = x + attn_lib.attend_mesh_decode(
+            lp.attn, cfg, lp.ln1(x), freqs=freqs, window=w, cache=blocks,
+            pos=pos, layout=layout)
+        if kind == "dec":
+            xk, lay = _cache_blocks(cache["xk"], i, li, run.tp)
+            xv, _ = _cache_blocks(cache["xv"], i, li, run.tp)
+            x = x + attn_lib.attend_mesh_decode(
+                lp.cross, cfg, lp.lnx(x), freqs=None, window=0,
+                cache={"k": xk, "v": xv}, pos=None, layout=lay)
+        if kind == "moe":
+            m, _ = moe_lib.apply_moe(lp.moe, cfg, lp.ln2(x))
+            return x + m
+        return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
+
+    for li, (lp, w) in enumerate(zip(model.layers, layer_windows(cfg))):
+        xs = _each(run, lambda i, x: layer(li, lp, w, i, x),
+                   range(run.n), xs)
+
+    def head(x):
+        parts = unembed_parts(model.embed, cfg, model.final_norm(x))
+        if len(parts) > 1:
+            parts = partition.to_home(parts, x.device)
+        return torch.cat(parts, dim=-1)[:, 0, :]
+
+    return _each(run, head, xs)

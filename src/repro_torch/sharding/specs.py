@@ -1,29 +1,322 @@
-"""Lane sharding of the posterior query service over a device mesh.
+"""Sharding rules of the port: parameter, optimizer, batch and cache
+specs for the LM trainer and server, and lane sharding of the posterior
+query service.  Torch twin of ``repro.sharding.specs``.
 
-The serving half of the JAX package's ``repro.sharding.specs``.  The
-engine's state is ``(n_queries * chains_per_query, ...)``: pure
-chain-lane parallelism, so the lane axis shards over the serve mesh's
-leading "batch" axis and every colour update's gathers stay on the
-shard's device.  The reference keeps the flat log-CPT bank and the
-sparse site axis replicated below two thresholds and shards them over a
-trailing "model" axis above them.  The port keeps them whole on each
-batch shard's device (the replicated layout) and refuses the sharded
-one: above the thresholds, on a mesh whose "model" axis is wider than
-one, :func:`check_serve_cpt` and :func:`check_serve_sites` raise
-``NotImplementedError`` (ROADMAP Queue 1 item 4, "model"-axis sharding).
+A spec is a tuple with one entry per dim: ``None``, a mesh axis name, or
+a tuple of names (the dim split over their product, the first axis
+major) — ``tuple(jax.sharding.PartitionSpec(...))``, so the two packages'
+specs compare entry for entry.  ``()`` is the reference's ``P()``
+(replicated).  The rules are the reference's, copied as pure functions:
 
-A sharded state is a :class:`LaneShards`: contiguous lane blocks, one a
-batch device, in global lane order.  Shard ``s`` holds global lanes
-``[lo_s, hi_s)``, and its colour updates draw the bits of those global
-lanes (``lane0 = lo_s``), so a sharded group equals the unsharded one
-bit for bit.
+* tensor-parallel ("model") on a semantic axis when it divides the mesh
+  axis — attention heads, kv heads, ffn, experts, vocab;
+* otherwise FSDP over "data": the weight is stored sharded on its largest
+  data-divisible dim and gathered at use;
+* leaves of at least ``FSDP_THRESHOLD`` elements that took a "model" dim
+  also shard over "data" on a free dim;
+* DP batch over ("pod", "data");
+* KV caches: kv heads on "model" when divisible, else the sequence dim,
+  else replicated.
+
+Parameter specs are computed on the reference's stacked leaf shape
+``(L, ...)`` (its ``skip={0}`` and the threshold count the whole stack);
+:func:`layer_spec` drops the leading ``None`` for the port's one tensor
+a layer.  :mod:`repro_torch.sharding.partition` lays tensors out by
+these specs.
+
+The serving half: the engine's state is ``(n_queries *
+chains_per_query, ...)``, pure chain-lane parallelism, so the lane axis
+shards over the serve mesh's leading "batch" axis and every colour
+update's gathers stay on the shard's device.  The reference keeps the
+flat log-CPT bank and the sparse site axis replicated below two
+thresholds and shards them over a trailing "model" axis above them.  The
+port keeps them whole on each batch shard's device (the replicated
+layout) and refuses the sharded one: above the thresholds, on a mesh
+whose "model" axis is wider than one, :func:`check_serve_cpt` and
+:func:`check_serve_sites` raise ``NotImplementedError`` (ROADMAP Queue 1
+item 4, "model"-axis sharding).
+
+A sharded serving state is a :class:`LaneShards`: contiguous lane
+blocks, one a batch device, in global lane order.  Shard ``s`` holds
+global lanes ``[lo_s, hi_s)``, and its colour updates draw the bits of
+those global lanes (``lane0 = lo_s``), so a sharded group equals the
+unsharded one bit for bit.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import DeviceMesh
+
+Spec = tuple
+
+
+def _axis(mesh: DeviceMesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1
+
+
+def dp_axes(mesh: DeviceMesh) -> tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def dp_size(mesh: DeviceMesh) -> int:
+    s = 1
+    for a in dp_axes(mesh):
+        s *= mesh.shape[a]
+    return s
+
+
+def batch_spec_axis(mesh: DeviceMesh, batch: int):
+    """Largest dp prefix that divides the batch (pods first)."""
+    axes = dp_axes(mesh)
+    full = dp_size(mesh)
+    if batch % full == 0:
+        return axes if len(axes) > 1 else axes[0]
+    if "data" in axes and batch % mesh.shape["data"] == 0:
+        return "data"
+    return None
+
+
+def _fsdp_dim(shape, mesh: DeviceMesh, skip: set[int]) -> int | None:
+    d = _axis(mesh, "data")
+    if d == 1:
+        return None
+    best = None
+    for i, s in enumerate(shape):
+        if i in skip or s % d != 0:
+            continue
+        if best is None or s > shape[best]:
+            best = i
+    return best
+
+
+# Leaves at or above this many elements additionally shard over "data"
+# (FSDP x TP hybrid); smaller leaves stay TP-only or replicated.
+FSDP_THRESHOLD = 1 << 22
+
+
+def _spec(shape, mesh: DeviceMesh, tp_dim_candidates, *,
+          layer_stacked: bool) -> Spec:
+    """TP on the first candidate dim that divides "model"; large leaves
+    are additionally FSDP-sharded over "data" on a free dim."""
+    tp = _axis(mesh, "model")
+    out = [None] * len(shape)
+    skip = {0} if layer_stacked else set()
+    placed_tp = False
+    for dim in tp_dim_candidates:
+        if dim < len(shape) and dim not in skip and shape[dim] % tp == 0 \
+                and tp > 1:
+            out[dim] = "model"
+            placed_tp = True
+            break
+    big = math.prod(shape) >= FSDP_THRESHOLD
+    if placed_tp and big:
+        d = _axis(mesh, "data")
+        for i, s in enumerate(shape):
+            if i in skip or out[i] is not None:
+                continue
+            if d > 1 and s % d == 0 and s >= d:
+                out[i] = "data"
+                break
+    if not placed_tp:
+        f = _fsdp_dim(shape, mesh, skip)
+        if f is not None:
+            out[f] = "data"
+    return tuple(out)
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    """A leaf's reference shape: a list of layer tensors is stacked."""
+    if isinstance(leaf, (list, tuple)) and leaf and not isinstance(
+            leaf[0], int):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(getattr(leaf, "shape", leaf))
+
+
+def param_rule(keys: list[str], shp: tuple[int, ...],
+               mesh: DeviceMesh) -> Spec:
+    """The spec of the leaf at key path ``keys`` with stacked shape
+    ``shp``."""
+    name = keys[-1]
+    stacked = "layers" in keys or "encoder" in keys
+    off = 1 if stacked else 0
+    if name == "tok":                            # (V, D)
+        return _spec(shp, mesh, (0, 1), layer_stacked=False)
+    if name == "head":                           # (D, V)
+        return _spec(shp, mesh, (1,), layer_stacked=False)
+    if name in ("wq", "wk", "wv"):               # (L, D, H|KV, dh)
+        return _spec(shp, mesh, (off + 1,), layer_stacked=stacked)
+    if name == "wo" and len(shp) == off + 3:     # attn out (L, H, dh, D)
+        return _spec(shp, mesh, (off + 0,), layer_stacked=stacked)
+    if name in ("bq", "bk", "bv"):               # (L, H, dh)
+        return _spec(shp, mesh, (off + 0,), layer_stacked=stacked)
+    if name in ("wi", "wg") and len(shp) == off + 2:   # mlp (L, D, F)
+        return _spec(shp, mesh, (off + 1,), layer_stacked=stacked)
+    if name == "wo" and len(shp) == off + 2:     # mlp out (L, F, D)
+        return _spec(shp, mesh, (off + 0,), layer_stacked=stacked)
+    if name in ("wi", "wg") and len(shp) == off + 3:   # moe (L, E, D, F)
+        return _spec(shp, mesh, (off + 0, off + 2), layer_stacked=stacked)
+    if name == "wo" and len(shp) == off + 3 and "moe" in keys:
+        return _spec(shp, mesh, (off + 0, off + 1), layer_stacked=stacked)
+    if name in ("in_proj", "z_proj", "x_proj", "b_proj", "c_proj",
+                "dt_proj"):                      # ssm (L, D, Z)
+        return _spec(shp, mesh, (off + 1,), layer_stacked=stacked)
+    if name == "out_proj":                       # ssm (L, di, D)
+        return _spec(shp, mesh, (off + 0,), layer_stacked=stacked)
+    # norms, the router and the SSM's small leaves are replicated
+    return ()
+
+
+def param_specs(cfg: ModelConfig, params: dict, mesh: DeviceMesh) -> dict:
+    """Spec of every leaf of ``params`` — a mapping from the reference's
+    key path (``"layers/attn/wq"``, as
+    :func:`repro_torch.models.transformer.param_leaves` gives it) to a
+    tensor, a list of layer tensors, or a shape — on its stacked shape."""
+    return {k: param_rule(k.split("/"), _shape(v), mesh)
+            for k, v in params.items()}
+
+
+def layer_spec(key: str, spec: Spec, ndim: int) -> Spec:
+    """The spec of one layer's tensor (``ndim`` dims) of a leaf: the
+    stacked spec less its leading ``None``, padded to ``ndim``."""
+    keys = key.split("/")
+    parts = tuple(spec)
+    if "layers" in keys or "encoder" in keys:
+        if parts and parts[0] is not None:
+            raise ValueError(f"{key}: the layer dim is sharded ({spec})")
+        parts = parts[1:]
+    return parts + (None,) * (ndim - len(parts))
+
+
+def batch_specs(cfg: ModelConfig, mesh: DeviceMesh, batch: dict) -> dict:
+    out = {}
+    for k, v in batch.items():
+        shp = _shape(v)
+        bdim = batch_spec_axis(mesh, shp[0])
+        out[k] = (bdim,) + (None,) * (len(shp) - 1)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, mesh: DeviceMesh, cache: dict,
+                batch: int) -> dict:
+    tp = _axis(mesh, "model")
+    bdim = batch_spec_axis(mesh, batch)
+    out = {}
+    for name, v in cache.items():
+        shp = _shape(v)
+        if name in ("k", "v", "xk", "xv"):           # (L, B, T, KV, dh)
+            _, _, t, kv, _ = shp
+            if tp > 1 and kv % tp == 0:
+                out[name] = (None, bdim, None, "model", None)
+            elif tp > 1 and t % tp == 0:
+                out[name] = (None, bdim, "model", None, None)
+            else:
+                out[name] = (None, bdim, None, None, None)
+        elif name in ("k_scale", "v_scale"):          # (L, B, T, KV)
+            _, _, t, kv = shp
+            if tp > 1 and kv % tp == 0:
+                out[name] = (None, bdim, None, "model")
+            elif tp > 1 and t % tp == 0:
+                out[name] = (None, bdim, "model", None)
+            else:
+                out[name] = (None, bdim, None, None)
+        elif name == "ssm_h":                         # (L, B, H, N, P)
+            if tp > 1 and shp[2] % tp == 0:
+                out[name] = (None, bdim, "model", None, None)
+            else:
+                out[name] = (None, bdim, None, None, None)
+        elif name == "ssm_conv":                      # (L, B, K-1, C)
+            if tp > 1 and shp[-1] % tp == 0:
+                out[name] = (None, bdim, None, "model")
+            else:
+                out[name] = (None, bdim, None, None)
+        else:
+            out[name] = (None,) * len(shp)
+    return out
+
+
+def zero_extend(spec: Spec, shape, mesh: DeviceMesh) -> Spec:
+    """ZeRO: additionally shard optimizer state over "data" on a free
+    dim."""
+    d = _axis(mesh, "data")
+    if d == 1 or "data" in spec:
+        return tuple(spec)
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, s in enumerate(shape):
+        if parts[i] is None and s % d == 0 and s >= d:
+            parts[i] = "data"
+            return tuple(parts)
+    return tuple(spec)
+
+
+def match_spec(pspec: Spec | None, shape, mesh: DeviceMesh,
+               field: str = "") -> Spec:
+    """An optimizer-state leaf's spec (the reference's ``_match_spec``):
+    its parameter's spec where the shapes match (AdamW ``m``/``v``), less
+    the last dim for Adafactor's ``vr`` and the second-to-last for
+    ``vc``; entries that do not divide the leaf are dropped, then
+    ZeRO-extended over "data"."""
+    if pspec is None:
+        return ()
+    node = tuple(pspec)
+    parts = node + (None,) * 8
+    nd = len(shape)
+    if field == "vr" and nd >= 1:       # param spec minus last dim
+        cand = parts[:nd]
+    elif field == "vc" and nd >= 1:     # param spec minus second-to-last
+        full = node + (None,) * max(0, nd + 1 - len(node))
+        cand = full[: nd - 1] + (full[nd],)
+    else:
+        if len(node) > nd:
+            return ()
+        cand = parts[:nd]
+    out = []
+    for i, ax in enumerate(cand):
+        if ax is None:
+            out.append(None)
+            continue
+        size = mesh.shape[ax] if isinstance(ax, str) else 1
+        out.append(ax if shape[i] % max(size, 1) == 0 else None)
+    return zero_extend(tuple(out), shape, mesh)
+
+
+def opt_specs(opt_shapes, pspecs: dict, mesh: DeviceMesh):
+    """Specs of an optimizer state (the reference's ``_opt_specs``):
+    ``opt_shapes`` is the state's NamedTuple with a shape for ``step``
+    and a key -> shape mapping for every other field."""
+    out = {}
+    for f in opt_shapes._fields:
+        sub = getattr(opt_shapes, f)
+        if f == "step":
+            out[f] = ()
+        else:
+            out[f] = {k: match_spec(pspecs.get(k), shp, mesh, f)
+                      for k, shp in sub.items()}
+    return type(opt_shapes)(**out)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (the reference's ``jax.sharding.NamedSharding``)."""
+
+    mesh: DeviceMesh
+    spec: Spec
+
+
+def named(mesh: DeviceMesh, tree_specs: Any):
+    """Every spec of a tree (dicts and NamedTuples) as a
+    :class:`NamedSharding` on ``mesh``."""
+    if isinstance(tree_specs, tuple) and not hasattr(tree_specs, "_fields"):
+        return NamedSharding(mesh, tree_specs)
+    if isinstance(tree_specs, dict):
+        return {k: named(mesh, v) for k, v in tree_specs.items()}
+    return type(tree_specs)(*(named(mesh, v) for v in tree_specs))
 
 # Flat log-CPT banks at or above this many elements shard over "model" in
 # the reference (an all-gather at use for at-rest memory).

@@ -17,7 +17,11 @@ stacked on axis 0.
 
 ``restore`` writes into the tensors of the state it is given (the
 in-place counterpart of the reference's rebuilt tree: a restored state
-never needs a second copy on the device).  ``AsyncCheckpointer`` copies
+never needs a second copy on the device).  A state placed on a mesh
+(:mod:`repro_torch.sharding.partition`) is saved gathered, in the same
+layout and keys, and restored block by block into its shards, whatever
+mesh it was saved from: ``restore(..., mesh=)`` first places an
+unplaced state on ``mesh``, so a checkpoint can be resharded.  ``AsyncCheckpointer`` copies
 the state to host memory before ``save`` returns, so the next in-place
 update cannot reach the snapshot, and writes it on a background thread.
 """
@@ -32,8 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import param_leaves
+from repro_torch.sharding import partition
 from repro_torch.training.optimizer import copy_into
-from repro_torch.training.train_step import StateTree, TrainState
+from repro_torch.training.train_step import (
+    StateTree, TrainState, place_train_state)
 
 
 def _flatten(tree, prefix: tuple = ()) -> dict:
@@ -67,14 +73,19 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+@torch.no_grad()
 def host_snapshot(tree) -> dict:
     """Leaf path -> (host array, dtype name): a copy of every leaf, made
-    before returning."""
+    before returning (a placed leaf gathered whole)."""
     out = {}
+    cpu = torch.device("cpu")
     for key, leaf in _flatten(tree).items():
-        if isinstance(leaf, list):
+        if isinstance(leaf, list) and isinstance(leaf[0], torch.Tensor):
             out[key] = (np.stack([_host(t) for t in leaf]),
                         _dtype_name(leaf[0]))
+        elif isinstance(leaf, (list, partition.Sharded)):
+            t = partition.gather(leaf, cpu)
+            out[key] = (_host(t), _dtype_name(t))
         else:
             leaf = torch.as_tensor(leaf)
             out[key] = (_host(leaf), _dtype_name(leaf))
@@ -133,14 +144,24 @@ def _load(ckpt_dir: str, step: int) -> dict:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, like, *, step: int | None = None):
+def restore(ckpt_dir: str, like, *, step: int | None = None, mesh=None):
     """Write checkpoint ``step`` (default: the latest) into the tensors of
-    ``like`` — a :class:`TrainState` or a tree of tensors — cast to
-    their dtypes and on their devices.  Returns ``(like, step)``; every
-    leaf of ``like`` must be in the checkpoint with its shape."""
+    ``like`` — a :class:`TrainState` (placed on a mesh or not) or a tree
+    of tensors — cast to their dtypes and on their devices.  With
+    ``mesh``, an unplaced ``like`` state is first placed on ``mesh``.
+    Returns ``(like, step)``; every leaf of ``like`` must be in the
+    checkpoint with its shape."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    if mesh is not None:
+        if not isinstance(like, TrainState):
+            raise TypeError("restore(mesh=) places a TrainState")
+        if like.model.mesh is None:
+            like = place_train_state(mesh, like)
+        elif like.model.mesh is not mesh:
+            raise ValueError("the state is placed on another mesh: pass an "
+                             "unplaced state to restore onto this one")
     data = _load(ckpt_dir, step)
     for key, leaf in _flatten(like).items():
         if key not in data:

@@ -3,7 +3,7 @@
 Torch twin of ``repro.training.elastic``.
 
 * :class:`StepGuard` — runs the train step with bounded retries and a
-  checkpoint reload.  It catches only the device's runtime errors
+  checkpoint reload (a state placed on a mesh reloads into its shards).  It catches only the device's runtime errors
   (``torch.AcceleratorError``, the counterpart of
   ``jax.errors.JaxRuntimeError``); a step that failed after its first
   in-place write (``TrainState.dirty``) is reloaded, never retried.
@@ -49,10 +49,12 @@ class StragglerDetector:
 
 
 def _block_until_ready(metrics: dict) -> None:
-    """Wait for the step: its device faults surface here, not later."""
+    """Wait for the step on every card (a mesh step runs on several):
+    its device faults surface here, not later."""
     loss = metrics["loss"]
     if torch.is_tensor(loss) and loss.device.type == "cuda":
-        torch.cuda.synchronize(loss.device)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 class StepGuard:

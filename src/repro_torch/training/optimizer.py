@@ -15,6 +15,19 @@ shape a leaf.  AdamW is elementwise, so it runs layer by layer on views
 of its moments.  Adafactor is not: a stacked ``(L, d)`` norm scale is a
 matrix to it (factored over the layers), and its update clip takes one
 RMS over the whole stack, so it runs on the stacked leaf.
+
+On a mesh a parameter is a :class:`repro_torch.sharding.partition.
+Sharded` (a list of them for a layer stack) and the optimizer state is
+placed as the reference's builders place it: each moment's spec is its
+parameter's (``specs.match_spec``), ZeRO-extended over "data".  Every
+leaf is handled as its stored blocks with their boxes in the stacked
+shape (``partition.pieces``): AdamW updates each overlap of a moment's
+block and a parameter's block on the moment's device, element by
+element — the same arithmetic as on one device; ``global_norm`` adds
+each block's sum of squares in a fixed order; Adafactor gathers each
+stacked leaf and its factored moments whole onto the mesh's first device
+(the factored row and column means sum across the shards of a split
+dim there), updates it as on one device and writes the blocks back.
 """
 from __future__ import annotations
 
@@ -24,8 +37,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.fixedpoint import div, sqrt
+from repro_torch.sharding import partition
+from repro_torch.sharding import specs as specs_lib
 
-Leaf = torch.Tensor | list[torch.Tensor]
+Leaf = torch.Tensor | list[torch.Tensor] | partition.Sharded
 
 
 class AdamWState(NamedTuple):
@@ -47,39 +62,55 @@ def leaf_shape(p: Leaf) -> tuple[int, ...]:
     return tuple(p.shape)
 
 
-def layer_views(t: torch.Tensor, like: Leaf) -> list[torch.Tensor]:
-    """A stacked state tensor as views of its layers, matching ``like``."""
-    return list(t.unbind(0)) if isinstance(like, list) else [t]
-
-
 def as_list(p: Leaf) -> list[torch.Tensor]:
-    return p if isinstance(p, list) else [p]
+    """A leaf's stored tensors: itself, its layers' tensors, a placed
+    leaf's shards (layer by layer)."""
+    if isinstance(p, list):
+        return [t for x in p for t in as_list(x)]
+    if isinstance(p, partition.Sharded):
+        return [p.shards[c] for c in p.coords()]
+    return [p]
 
 
-def stacked(p: Leaf) -> torch.Tensor:
-    """A leaf as one tensor of the reference's shape (a copy if stacked)."""
-    return torch.stack(p) if isinstance(p, list) else p
+def map_leaf(p: Leaf, fn) -> Leaf:
+    """A leaf of the same structure holding ``fn`` of each stored
+    tensor."""
+    if isinstance(p, list):
+        return [map_leaf(t, fn) for t in p]
+    if isinstance(p, partition.Sharded):
+        return p.map(fn)
+    return fn(p)
 
 
 def copy_into(leaf: Leaf, src: torch.Tensor, where: str) -> None:
-    """Write ``src`` (the reference's shape) into a leaf's tensors, a row
-    a layer for a stacked leaf, cast to their dtype."""
+    """Write ``src`` (the reference's shape) into a leaf's stored
+    tensors, each its block, cast to their dtype."""
     if tuple(src.shape) != leaf_shape(leaf):
         raise ValueError(f"{where}: {tuple(src.shape)} for the state's "
                          f"{leaf_shape(leaf)}")
-    for t, row in zip(as_list(leaf),
-                      src if isinstance(leaf, list) else [src]):
-        t.copy_(row)
+    for box, t in partition.pieces(leaf):
+        t.copy_(src[tuple(slice(a, b) for a, b in box)])
 
 
-def _zeros(params: dict, dtype, shape_fn=leaf_shape) -> dict:
-    return {k: torch.zeros(shape_fn(p), dtype=dtype,
-                           device=as_list(p)[0].device)
-            for k, p in params.items()}
+def _zeros(params: dict, dtype, shape_fn=leaf_shape, field: str = "") -> dict:
+    """Zeros of ``shape_fn(p)`` a leaf; on a mesh, placed by the spec the
+    reference's builders give the optimizer-state ``field``."""
+    out = {}
+    for k, p in params.items():
+        shp = shape_fn(p)
+        mesh = partition.leaf_mesh(p)
+        if mesh is None:
+            out[k] = torch.zeros(shp, dtype=dtype,
+                                 device=partition.leaf_device(p))
+        else:
+            spec = specs_lib.match_spec(partition.stacked_spec(p), shp,
+                                        mesh, field)
+            out[k] = partition.Sharded.zeros(mesh, spec, shp, dtype)
+    return out
 
 
 def _step0(params: dict) -> torch.Tensor:
-    dev = as_list(next(iter(params.values())))[0].device
+    dev = partition.leaf_device(next(iter(params.values())))
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
@@ -99,8 +130,8 @@ class AdamW:
 
     def init(self, params: dict) -> AdamWState:
         return AdamWState(step=_step0(params),
-                          m=_zeros(params, self.state_dtype),
-                          v=_zeros(params, self.state_dtype))
+                          m=_zeros(params, self.state_dtype, field="m"),
+                          v=_zeros(params, self.state_dtype, field="v"))
 
     @torch.no_grad()
     def update(self, grads: dict, state: AdamWState, params: dict):
@@ -114,23 +145,38 @@ class AdamW:
                                    device=stepf.device)
         c1 = 1 - torch.pow(f32(self.b1), stepf)
         c2 = 1 - torch.pow(f32(self.b2), stepf)
+        consts = {}
         for key, g in grads.items():
-            p = params[key]
-            for gi, mi, vi, pi in zip(as_list(g), layer_views(state.m[key], p),
-                                      layer_views(state.v[key], p),
-                                      as_list(p)):
-                g32 = gi.float() * scale
-                # .float() of a float32 tensor is the tensor: the moments
-                # are then updated in place, and the copies below are no-ops
-                m2 = mi.float().mul_(self.b1).add_(g32 * (1 - self.b1))
-                v2 = vi.float().mul_(self.b2).add_(g32 * (1 - self.b2) * g32)
-                del g32
-                delta = div(m2, c1).div_(sqrt(div(v2, c2)).add_(self.eps))
-                p32 = pi.float()
-                delta.add_(p32 * self.wd).mul_(self.lr)
-                pi.copy_(p32.sub_(delta))
-                mi.copy_(m2)
-                vi.copy_(v2)
+            pp = list(zip(partition.pieces(params[key]),
+                          partition.pieces(g)))
+            for (bo, mo), (_, vo) in zip(partition.pieces(state.m[key]),
+                                         partition.pieces(state.v[key])):
+                dev = mo.device
+                if dev not in consts:
+                    consts[dev] = (scale.to(dev), c1.to(dev), c2.to(dev))
+                sc, k1, k2 = consts[dev]
+                for (bp, pt), (_, gt) in pp:
+                    box = partition.intersect(bo, bp)
+                    if box is None:
+                        continue
+                    mi = mo[partition.rel(box, bo)]
+                    vi = vo[partition.rel(box, bo)]
+                    pi = pt[partition.rel(box, bp)]
+                    g32 = gt[partition.rel(box, bp)].to(dev).float() * sc
+                    # .float() of a float32 tensor is the tensor: the
+                    # moments (and a parameter on the moment's device) are
+                    # then updated in place, and the copies below are
+                    # no-ops
+                    m2 = mi.float().mul_(self.b1).add_(g32 * (1 - self.b1))
+                    v2 = vi.float().mul_(self.b2).add_(
+                        g32 * (1 - self.b2) * g32)
+                    del g32
+                    delta = div(m2, k1).div_(sqrt(div(v2, k2)).add_(self.eps))
+                    p32 = pi.to(dev).float()
+                    delta.add_(p32 * self.wd).mul_(self.lr)
+                    pi.copy_(p32.sub_(delta).to(pi.device))
+                    mi.copy_(m2)
+                    vi.copy_(v2)
         return params, AdamWState(step=step, m=state.m, v=state.v), gnorm
 
 
@@ -161,9 +207,10 @@ class Adafactor:
         self.grad_clip = grad_clip
 
     def init(self, params: dict) -> AdafactorState:
-        return AdafactorState(step=_step0(params),
-                              vr=_zeros(params, torch.float32, _vr_shape),
-                              vc=_zeros(params, torch.float32, _vc_shape))
+        return AdafactorState(
+            step=_step0(params),
+            vr=_zeros(params, torch.float32, _vr_shape, "vr"),
+            vc=_zeros(params, torch.float32, _vc_shape, "vc"))
 
     @torch.no_grad()
     def update(self, grads: dict, state: AdafactorState, params: dict):
@@ -172,11 +219,13 @@ class Adafactor:
         beta = 1.0 - torch.pow(step.float(), -self.decay)
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, self.grad_clip)
+        dev = step.device
         for key, g in grads.items():
             p = params[key]
-            vr, vc = state.vr[key], state.vc[key]
-            g = stacked(g).float() * scale
-            p32 = stacked(p).float()
+            vr = partition.gather(state.vr[key], dev)
+            vc = partition.gather(state.vc[key], dev)
+            g = partition.gather(g, dev).float() * scale
+            p32 = partition.gather(p, dev).float()
             g2 = g * g + self.eps
             if g.ndim >= 2:
                 vr2 = beta * vr + (1 - beta) * _mean(g2, -1)
@@ -194,20 +243,22 @@ class Adafactor:
             rms = sqrt(_mean(u * u) + 1e-30)
             u = div(u, torch.clamp_min(rms, 1.0))
             p2 = p32 - self.lr * (u + self.wd * p32)
-            for pi, row in zip(as_list(p), layer_views(p2, p)):
-                pi.copy_(row)
-            vr.copy_(vr2)
-            vc.copy_(vc2)
+            copy_into(p, p2, key)
+            copy_into(state.vr[key], vr2, key)
+            copy_into(state.vc[key], vc2, key)
         return params, AdafactorState(step=step, vr=state.vr,
                                       vc=state.vc), gnorm
 
 
 def global_norm(grads: dict) -> torch.Tensor:
     """sqrt of the sum of squares, summed leaf by leaf in the order of
-    ``grads`` (the reference's ``jax.tree.leaves`` order)."""
+    ``grads`` (the reference's ``jax.tree.leaves`` order), each leaf's
+    stored blocks in order, on the first leaf's device."""
     total = None
+    dev = partition.leaf_device(next(iter(grads.values())))
     for g in grads.values():
-        s = sum(torch.sum(torch.square(x.float())) for x in as_list(g))
+        s = sum(torch.sum(torch.square(x.float())).to(dev)
+                for x in as_list(g))
         total = s if total is None else total + s
     return sqrt(total)
 

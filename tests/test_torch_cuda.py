@@ -888,3 +888,51 @@ def test_train_state_checkpoint_round_trip_on_the_card(cuda_device,
     for k in a:
         np.testing.assert_array_equal(a[k][0], b[k][0], err_msg=k)
     assert fs.fused_gibbs_sample.launches + kys.ky_sampler.launches == before
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("phi4-mini-3.8b", (2, 2)),
+                                             ("granite-20b", (4, 2))])
+def test_mesh_train_step_on_the_card_repeated_equals_one_device(
+        cuda_device, arch, mesh_shape):
+    """The sharded train step over the card repeated (4 or 8 x cuda:0)
+    against the card's one-device step, in float32: loss within 1e-5
+    relative, parameters within 5e-4; a second run is bitwise equal; no
+    kernel of the port launched."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding import partition
+    from repro_torch.training import DataConfig, TokenDataset
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step, place_train_state)
+
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               microbatch=2)
+    model = tt.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          device=cuda_device)
+    ds = TokenDataset(DataConfig(cfg.vocab, 16, 8))
+    batch = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in ds.batch_at(0).items()}
+    before = fs.fused_gibbs_sample.launches + kys.ky_sampler.launches
+    one, m1 = make_train_step(cfg, q_block=8)[0](
+        init_train_state(cfg, copy.deepcopy(model)), batch)
+    d, m = mesh_shape
+    mesh = make_lm_mesh(d, m, devices=[cuda_device] * (d * m))
+    runs = []
+    for _ in range(2):
+        st = place_train_state(mesh, init_train_state(
+            cfg, copy.deepcopy(model)))
+        st, m2 = make_train_step(cfg, q_block=8, mesh=mesh)[0](st, batch)
+        runs.append((float(m2["loss"]), {
+            k: partition.gather(v, "cpu").detach()
+            for k, v in tt.param_leaves(st.model).items()}))
+    assert abs(runs[0][0] - float(m1["loss"])) <= 1e-5 * abs(runs[0][0])
+    want = {k: partition.gather(v, "cpu").detach()
+            for k, v in tt.param_leaves(one.model).items()}
+    for k, w in want.items():
+        assert float((runs[0][1][k] - w).abs().max()) < 5e-4, k
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
+    assert runs[0][0] == runs[1][0]
+    assert fs.fused_gibbs_sample.launches + kys.ky_sampler.launches == before

@@ -31,6 +31,8 @@ print("MODULES", sorted(n for n in sys.modules
 # the mesh path's and the LM serving path's modules, which must be among
 # those imported
 MESH_MODULES = ("repro_torch.launch.mesh", "repro_torch.sharding.specs",
+                "repro_torch.sharding.partition",
+                "repro_torch.launch.builders",
                 "repro_torch.pgm.mesh_gibbs", "repro_torch.pgm.metropolis")
 LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.phi4_mini",
               "repro_torch.configs.mamba2_130m",
