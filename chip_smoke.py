@@ -153,13 +153,26 @@ line is printed:
    equal; a 2 x 2 checkpoint restored onto 4 x 1 and 1 x 1 bit for bit,
    the restored next step bitwise, two mesh steps bitwise.  No kernel of
    the port: every launch count must stay 0.
+22. lm_dryrun — the planning tools (``launch/dryrun.py``,
+   ``launch/roofline.py``) held against phase 21's step: the dry run of
+   the same configuration (phi4-mini-3.8b at full width, 2 x 2, batch 8 x
+   128, microbatch 2, remat "full", AdamW) over four ``meta`` devices,
+   one layer traced and scaled, must count the bytes between mesh
+   positions phase 21 counted within 0.01 % (the layout's reckoning
+   printed beside them), and its argument bytes summed over positions
+   must equal the bytes of the placed state's shards counted from the
+   tensors; its transient bytes are printed beside the measured peak
+   less that state (no gate).  Then phi4-mini's four production cells
+   on the 16 x 16 mesh of ``meta`` devices: status, GB a device,
+   bottleneck and roofline fraction at H100 constants.  No kernel
+   launches; at most 120 s.
 
-Phases 4, 7, 8 and 10-21 each zero their kernel's launch count (phases
-19-21: every kernel's) just before their main path and read it just
+Phases 4, 7, 8 and 10-22 each zero their kernel's launch count (phases
+19-22: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
-``lm_train`` and ``lm_mesh`` with 0 launches, every kernel's count
-beside them).  Then
+``lm_train``, ``lm_mesh`` and ``lm_dryrun`` with 0 launches, every
+kernel's count beside them).  Then
 the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
@@ -339,6 +352,9 @@ LM_TRAIN_MB_TOL = 5e-5
 # family's smoke on 4 x 1, the builders' train, prefill and decode cells
 # on 2 x 2); checkpoints across meshes
 LM_MESH = dict(shape=(2, 2), steps=4, ident_layers=2)
+# the dry run of lm_mesh's step: its bytes between mesh positions within
+# this relative distance of the counted ones; the phase's time limit
+LM_DRYRUN = dict(bytes_rtol=1e-4, seconds=120)
 LM_MESH_TOL = dict(loss_rtol=1e-5, grad_tol=1e-4, param_tol=5e-4)
 LM_MESH_BF16 = dict(loss_rtol=1e-2, grad_tol=5e-2, param_tol=2 * 2.1 * 3e-4)
 LM_MESH_FAMILIES = (("dense", "phi4-mini-3.8b", {}),
@@ -2889,6 +2905,7 @@ def lm_mesh_full_width(card_name: str, devices, kind: str,
     state = init_train_state(cfg, model)
     del model
     place_s = time.perf_counter() - t0
+    state_bytes = placed_bytes(state)
     step_fn, _ = make_train_step(cfg, q_block=min(run["seq_len"], 512),
                                  mesh=mesh)
     ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
@@ -2948,6 +2965,9 @@ def lm_mesh_full_width(card_name: str, devices, kind: str,
            "state_gb_reckoned": n * LM_TRAIN_STATE_BYTES / 1e9,
            "crossed_bytes_counted": recs[-1]["crossed_bytes"],
            "crossed_bytes_reckoned": reckoned,
+           "state_bytes_counted": state_bytes,
+           "peak_memory_bytes": max(torch.cuda.max_memory_allocated(c)
+                                    for c in cards),
            "profiled_step": {
                "wall_ms": prof_wall * 1e3, "busy_ms": busy_ms,
                "busy_share": busy_ms / (prof_wall * 1e3 * len(cards)),
@@ -2956,6 +2976,20 @@ def lm_mesh_full_width(card_name: str, devices, kind: str,
     del state, step_fn, batch, mt
     torch.cuda.empty_cache()
     return out
+
+
+def placed_bytes(state) -> int:
+    """Bytes of every tensor a placed training state holds: the
+    parameters' and moments' shards and the step counters."""
+    from repro_torch.models.transformer import param_leaves
+    from repro_torch.training.optimizer import as_list
+
+    leaves = list(param_leaves(state.model).values())
+    leaves += [v for f in state.opt for v in (
+        f.values() if isinstance(f, dict) else [f])]
+    leaves.append(state.step)
+    return sum(t.numel() * t.element_size()
+               for leaf in leaves for t in as_list(leaf))
 
 
 def lm_mesh_small_cases(devices1) -> dict:
@@ -3181,7 +3215,88 @@ def phase_lm_mesh(card_name: str, one: dict) -> dict:
             "one_device_median_step_ms": full["one_device_median_step_ms"],
             "peak_memory_gb": full["peak_memory_gb"],
             "crossed_bytes_counted": full["crossed_bytes_counted"],
+            "crossed_bytes_reckoned": full["crossed_bytes_reckoned"]["total"],
+            "state_bytes_counted": full["state_bytes_counted"],
+            "peak_memory_bytes": full["peak_memory_bytes"],
             "busy_share": full["profiled_step"]["busy_share"]}
+
+
+def phase_lm_dryrun(card_name: str, mesh_run: dict) -> dict:
+    """The dry run of lm_mesh's configuration over four ``meta``
+    devices against what phase lm_mesh measured in this process: the
+    bytes between mesh positions (within LM_DRYRUN["bytes_rtol"]), the
+    arguments' bytes (equal to the placed state's), the transients
+    beside the measured peak less the state (printed); then phi4-mini's
+    production cells on 16 x 16.  No kernel launches."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    zero_kernel_launch_counts()                      # the main path
+    t0 = time.perf_counter()
+    cfg = get_config(LM_TRAIN_FULL)
+    run = LM_TRAIN_RUN
+    d, m = LM_MESH["shape"]
+    mesh = make_lm_mesh(d, m, devices=[torch.device("meta")] * (d * m))
+    rec = dryrun.trace_cell(
+        cfg, mesh, ShapeCfg("lm_mesh", run["seq_len"], run["batch"], "train"),
+        trainer=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"lm_dryrun: {rec}")
+    counted = mesh_run["crossed_bytes_counted"]
+    traced = rec["traffic"]["crossed_bytes"]
+    bytes_err = abs(traced - counted) / counted
+    args_sum = rec["memory"]["argument_bytes_sum"]
+    state = mesh_run["state_bytes_counted"]
+    out = {"phase": "lm_dryrun", "arch": cfg.name, "card": card_name,
+           "mesh": dict(mesh.shape), "trace_s": rec["t_trace_s"],
+           "crossed_bytes_traced": traced,
+           "crossed_bytes_counted": counted,
+           "crossed_bytes_reckoned": mesh_run["crossed_bytes_reckoned"],
+           "bytes_rel_err": bytes_err,
+           "collectives": rec["collectives"], "scale": rec["scale"],
+           "argument_bytes_sum": args_sum, "state_bytes_counted": state,
+           "argument_bytes_max": rec["memory"]["argument_bytes"],
+           "temp_bytes_max": rec["memory"]["temp_bytes"],
+           "temp_bytes_sum": rec["memory"]["temp_bytes_sum"],
+           "measured_peak_bytes": mesh_run["peak_memory_bytes"],
+           "measured_peak_less_state": mesh_run["peak_memory_bytes"] - state}
+    if bytes_err > LM_DRYRUN["bytes_rtol"]:
+        raise AssertionError(f"lm_dryrun: traced {traced} bytes between "
+                             f"mesh positions, the step counted {counted}")
+    if args_sum != state:
+        raise AssertionError(f"lm_dryrun: argument bytes {args_sum} != the "
+                             f"placed state's {state}")
+    cells = {}
+    for shape in SHAPES:
+        r = dryrun.run_cell(cfg.name, shape.name, multi_pod=False,
+                            out_dir=None)
+        cells[shape.name] = {"status": r["status"]}
+        if r["status"] == "ok":
+            cells[shape.name].update(
+                gb_per_device=r["memory"]["total_per_device"] / 1e9,
+                fits_80gb=r["memory"]["fits_80gb"],
+                bottleneck=r["roofline"]["bottleneck"],
+                roofline_fraction=r["roofline"]["roofline_fraction"],
+                trace_s=r["t_trace_s"])
+        elif r["status"] == "skipped":
+            cells[shape.name]["reason"] = r["reason"]
+        else:
+            raise AssertionError(f"lm_dryrun {shape.name}: {r['error']}")
+    out["production_16x16"] = cells
+    launches = kernel_launch_counts()
+    out["kernel_launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    if any(launches.values()):
+        raise AssertionError(f"lm_dryrun launched a kernel: {launches}")
+    if out["seconds"] > LM_DRYRUN["seconds"]:
+        raise AssertionError(f"lm_dryrun took {out['seconds']:.1f} s")
+    return {"launches": 0, "kernel_launches": launches,
+            "bytes_rel_err": bytes_err, "seconds": out["seconds"]}
 
 
 def kernel_entry(name: str, source: str, replaces: str, res: dict) -> dict:
@@ -3255,6 +3370,7 @@ def main() -> int:
     paths["lm_generate"] = phase_lm_generate(card_name)
     paths["lm_train"] = phase_lm_train(card_name)
     paths["lm_mesh"] = phase_lm_mesh(card_name, paths["lm_train"])
+    paths["lm_dryrun"] = phase_lm_dryrun(card_name, paths["lm_mesh"])
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",

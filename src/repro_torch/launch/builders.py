@@ -15,7 +15,11 @@ NamedSharding` trees; ``fn`` runs on arguments placed by them
   :class:`Sharded` split over the batch;
 * decode: ``fn(model, key, token, pos, cache) -> (token, cache)``, the
   cache written in place (donated), tokens sampled by
-  ``ky_sample_tokens`` on the whole batch's logits (as the reference's).
+  ``ky_sample_tokens`` on the whole batch's logits (as the reference's);
+  ``pos`` is a Python int or a 0-d tensor.  ``build_decode(...,
+  sampler=None)`` returns those float32 logits in place of the tokens:
+  the dry run traces up to them (a KY walk's length depends on the bits
+  it draws, and reading a ``meta`` tensor's value is impossible).
 """
 from __future__ import annotations
 
@@ -181,12 +185,15 @@ def build_decode(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
     @torch.no_grad()
     def decode_fn(model, key, token, pos, cache):
         (run, shards), = split_batch(mesh, {"tokens": token}, 1)
+        pos = pos if isinstance(pos, int) else int(pos)
         logits = mesh_decode_step(model, run, [s["tokens"] for s in shards],
-                                  int(pos), cache)
+                                  pos, cache)
         home = run.device(0)
         full = torch.cat([partition.move(x, home, run.position(i),
                                          run.position(0))
                           for i, x in enumerate(logits)]).float()
+        if sampler is None:
+            return full, cache
         if sampler == "ky":
             tok = ky_sample_tokens(key, full).token
         else:

@@ -85,7 +85,9 @@ def attend_blockwise(
     kv_block: int = 1024,
 ) -> torch.Tensor:
     """Online-softmax blockwise attention with flat heads: GQA kv heads
-    are expanded to full heads one kv block at a time."""
+    are expanded to full heads one kv block at a time.  Under the dry
+    run's trace one block pair is computed (every pair has its shapes)
+    and the other query blocks' outputs are made empty."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -95,8 +97,14 @@ def attend_blockwise(
     nq, nk = sq // q_block, sk // kv_block
     assert sq % q_block == 0 and sk % kv_block == 0
     dev = q.device
+    traced = partition.tracing()
+    if traced:
+        nk = 1
     blocks = []
     for iq in range(nq):
+        if traced and iq:
+            blocks.append(torch.empty_like(blocks[0]))
+            continue
         qblk = q[:, iq * q_block:(iq + 1) * q_block].float()
         pos_q = iq * q_block + torch.arange(q_block, device=dev)
         m_run = torch.full((b, h, q_block), _NEG_INF, device=dev)
@@ -370,11 +378,11 @@ def attend_mesh_decode(attn: Attention, cfg: ModelConfig, x, *, freqs,
         if not cross and t0 <= pos < t0 + tb:
             _write(cache, j, pos - t0, k, v, d, pos_[0], pos_[j])
         kd, vd = _dequant(cache, j, dt)
-        qj = partition.move(q, d, pos_[0], pos_[j])
+        qj = partition.move(q, d, pos_[0], pos_[j], "broadcast")
         p = decode_partial(qj, kd, vd, tb - 1 + t0 if cross else pos, t0,
                            window=window)
-        partials.append(tuple(partition.move(t, x.device, pos_[j], pos_[0])
-                              for t in p))
+        partials.append(tuple(partition.move(t, x.device, pos_[j], pos_[0],
+                                             "partial sum") for t in p))
         t0 += tb
     out = merge_partials(partials, q)
     return _out_project(out, attn.w("wo", dt))
@@ -403,8 +411,8 @@ def _qkv_decode(attn, cfg, x, j, freqs, pos, cross):
 
 def _write(cache, j, at, k, v, device, src_pos, dst_pos):
     """The new token's K/V written at block ``j``'s position ``at``."""
-    k = partition.move(k, device, src_pos, dst_pos)
-    v = partition.move(v, device, src_pos, dst_pos)
+    k = partition.move(k, device, src_pos, dst_pos, "broadcast")
+    v = partition.move(v, device, src_pos, dst_pos, "broadcast")
     if "k_scale" in cache:
         kq, ks = _quantize(k)
         vq, vs = _quantize(v)

@@ -5,7 +5,7 @@ per-group capacity (groups are sequences); overflow tokens are dropped
 and their residual stream passes through unchanged.  Expert parallelism
 is not ported: on a mesh the experts are gathered whole onto each batch
 shard's home device, and a mesh whose "model" axis is wider than one
-refuses the family (ROADMAP Queue 1 item 4).  ``aux`` also carries the
+refuses the family (ROADMAP Queue 1 item 4a).  ``aux`` also carries the
 router statistics as sums (``me_sum``, ``ce_sum``, ``z_sum``, ``n``), so
 a batch split over "data" gets the load-balance loss of the whole batch
 (:func:`moe_loss`).

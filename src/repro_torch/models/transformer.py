@@ -28,7 +28,7 @@ remat), and the loss is normalized by the global token count.  A mesh
 whose "model" axis is wider than one takes the dense, vlm and
 encoder-decoder families (attention and MLP tensor parallel); the MoE,
 SSM and hybrid families raise ``NotImplementedError`` there (ROADMAP
-Queue 1 item 4).
+Queue 1 item 4a).
 """
 from __future__ import annotations
 
@@ -175,7 +175,7 @@ def check_mesh_family(cfg: ModelConfig, mesh) -> None:
             f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
             f"{mesh.shape['model']} (MoE experts, the SSM's in_proj and "
             "split projections, hybrid layers) is not ported to "
-            "repro_torch (ROADMAP Queue 1 item 4); use a D x 1 mesh")
+            "repro_torch (ROADMAP Queue 1 item 4a); use a D x 1 mesh")
 
 
 @torch.no_grad()
@@ -325,7 +325,7 @@ def _mesh_remat(cfg: ModelConfig, fn):
     if cfg.remat != "full":
         raise NotImplementedError(
             f"remat {cfg.remat!r} over a mesh is not ported to repro_torch "
-            "(ROADMAP Queue 1 item 4); use 'full' or 'none'")
+            "(ROADMAP Queue 1 item 4b); use 'full' or 'none'")
 
     def region(*args):
         leaves, spec = pytree.tree_flatten(args)
@@ -452,25 +452,35 @@ def _unstore(run, i: int, x) -> torch.Tensor:
                       for j, p in enumerate(x)], dim=1)
 
 
-def _mesh_stack(cfg, run, layers, xs, windows, body, side=None):
+def _layer_shards(run) -> range:
+    """The batch shards a layer computes: every one, or under the dry
+    run's trace the first alone (the others do the same work on their
+    own devices; its weights are gathered for all of them)."""
+    return range(1 if partition.tracing() else run.n)
+
+
+def _mesh_stack(cfg, run, layers, xs, windows, body, side=None,
+                seg: str = "layer"):
     """:func:`_stack` over the batch shards: each layer's body runs for
     every shard in turn, its weights gathered once for all of them;
     ``side[i]`` (the encoder's output for a decoder) is passed to shard
-    i's body as an argument of the remat region, never captured.
-    Returns (carries, summed aux loss or None)."""
+    i's body as an argument of the remat region, never captured.  A
+    layer's copies are counted under segment ``seg``.  Returns
+    (carries, summed aux loss or None)."""
     split = shard_ctx.residual_split(run)
     side = side or [None] * run.n
 
     def layer(lp, xs, w, side):
-        with run.scope():
-            outs = []
-            for i, (x, si) in enumerate(zip(xs, side)):
+        outs, auxes = list(xs), []
+        with partition.segment(seg), run.scope():
+            for i in _layer_shards(run):
                 with run.on(i):
-                    outs.append(body(lp, _unstore(run, i, x), w, si))
-        auxes = [a for _, a in outs]
+                    y, a = body(lp, _unstore(run, i, xs[i]), w, side[i])
+                outs[i] = _store(run, i, y, split)
+                auxes.append(a)
         aux = (None if auxes[0] is None
                else moe_lib.moe_loss(auxes, run.device(0)))
-        return [_store(run, i, x, split) for i, (x, _) in enumerate(outs)], aux
+        return outs, aux
 
     layer = _mesh_remat(cfg, layer)
     aux = None
@@ -500,7 +510,7 @@ def mesh_encode(model: LM, run, src_embeds: list, q_block: int = 512):
         return _block(cfg, lp, x, w, rope_freqs(cfg, x.device), q_block)
 
     xs, _ = _mesh_stack(cfg, run, model.encoder, src_embeds,
-                        [0] * cfg.enc_layers, body)
+                        [0] * cfg.enc_layers, body, seg="encoder")
     return _each(run, model.enc_norm, xs)
 
 
@@ -560,15 +570,17 @@ def mesh_loss(model: LM, run, batches: list, q_block: int = 512
     n_chunks, chunk = xent_chunks(s)
 
     def chunk_sum(xcs, lcs, mcs):
-        parts = _each(run, lambda x, lab, m: chunk_loss(
-            model.embed, cfg, x, lab, m), xcs, lcs, mcs)
-        return partition.reduce_sum(parts, home,
-                                    [run.position(i) for i in range(run.n)],
-                                    run.position(0))
+        with partition.segment("chunk"):
+            parts = _each(run, lambda x, lab, m: chunk_loss(
+                model.embed, cfg, x, lab, m), xcs, lcs, mcs)
+            return partition.reduce_sum(
+                parts, home, [run.position(i) for i in range(run.n)],
+                run.position(0))
 
     chunk_sum = _mesh_remat(cfg.replace(remat="full"), chunk_sum)
     total = torch.zeros((), dtype=torch.float32, device=home)
-    for c in range(n_chunks):
+    # the dry run traces one chunk: every chunk has its shapes
+    for c in range(1 if partition.tracing() else n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
         total = total + chunk_sum(
             [x[:, sl] for x in xs], [lab[:, sl] for lab in labels],
@@ -761,9 +773,12 @@ def mesh_decode_step(model: LM, run, tokens: list, pos: int,
             return x + m
         return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
 
+    xs = list(xs)
     for li, (lp, w) in enumerate(zip(model.layers, layer_windows(cfg))):
-        xs = _each(run, lambda i, x: layer(li, lp, w, i, x),
-                   range(run.n), xs)
+        with partition.segment("layer"), run.scope():
+            for i in _layer_shards(run):
+                with run.on(i):
+                    xs[i] = layer(li, lp, w, i, xs[i])
 
     def head(x):
         parts = unembed_parts(model.embed, cfg, model.final_norm(x))

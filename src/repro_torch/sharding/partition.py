@@ -27,7 +27,14 @@ device a tensor is on returns the tensor itself (``Tensor.to``), so a
 gathered or copied tensor is never written in place.  Every copy is
 counted in :data:`TRAFFIC` (bytes and calls moved between two mesh
 devices that differ, and those that would cross on a mesh of distinct
-devices).
+devices), and again in :data:`KINDS` by kind and by the region of the
+program that made it (:func:`segment`).
+
+The dry run (:mod:`repro_torch.launch.dryrun`) runs these programs on a
+mesh of ``meta`` devices under a tracer (:data:`TRACER`): there every
+copy between positions is made (on ``meta``, without memory) and charged
+to its destination, and :func:`tracing` tells the layer loops to compute
+one batch shard (the others are the same work on other devices).
 """
 from __future__ import annotations
 
@@ -46,24 +53,71 @@ from repro_torch.sharding import specs as specs_lib
 # between two different mesh positions (what distinct devices would
 # move), "moved" only those between different torch devices
 TRAFFIC = {"crossed_bytes": 0, "crossed_copies": 0, "moved_bytes": 0}
+# the crossed copies and bytes again, (segment, kind) -> [copies, bytes].
+# Kinds: "gather" (a parameter's all-gather at use) and "reduce-scatter"
+# (its gradient back to the shards) move weights; "broadcast" (an
+# activation from a shard's home device to its "model" devices),
+# "partial sum" (partial results brought home to be added), "reshard"
+# (an activation's pieces moved between a shard's devices: the
+# sequence-split carry, vocabulary blocks, a decode's logits) and
+# "input" (the batch to the shards) move activations.
+KINDS: dict = {}
+WEIGHT_KINDS = ("gather", "reduce-scatter")
+_BACKWARD = {"broadcast": "partial sum", "partial sum": "broadcast",
+             "reshard": "reshard", "input": "input"}
+# the region of the program a copy is counted under; a copy made in the
+# backward pass is counted under its forward's
+_SEGMENT: ContextVar = ContextVar("traffic_segment", default="step")
+# the dry run's tracer while it traces a program on a meta mesh
+TRACER = None
 
 
 def reset_traffic() -> None:
     for k in TRAFFIC:
         TRAFFIC[k] = 0
+    KINDS.clear()
 
 
-def _count(t: torch.Tensor, src_pos, dst_pos, device) -> None:
+@contextlib.contextmanager
+def segment(name: str):
+    """Copies made in this block (and in its backward pass) are counted
+    under ``name`` in :data:`KINDS`."""
+    tok = _SEGMENT.set(name)
+    try:
+        yield
+    finally:
+        _SEGMENT.reset(tok)
+
+
+def tracing() -> bool:
+    """Whether the dry run traces the running program."""
+    return TRACER is not None
+
+
+def _count(t: torch.Tensor, src_pos, dst_pos, device, kind: str,
+           seg: str | None = None) -> None:
     if src_pos != dst_pos:
         n = t.numel() * t.element_size()
-        _add(n, n if t.device != torch.device(device) else 0)
+        _add(n, n if t.device != torch.device(device) else 0, kind, seg)
 
 
-def _add(crossed: int, moved: int) -> None:
+def _add(crossed: int, moved: int, kind: str, seg: str | None = None) -> None:
     if crossed:
         TRAFFIC["crossed_bytes"] += crossed
         TRAFFIC["crossed_copies"] += 1
         TRAFFIC["moved_bytes"] += moved
+        slot = KINDS.setdefault((seg or _SEGMENT.get(), kind), [0, 0])
+        slot[0] += 1
+        slot[1] += crossed
+
+
+def _to(t: torch.Tensor, device, pos, copy: bool = False) -> torch.Tensor:
+    """``t.to(device, copy=copy)`` for a tensor that lands at mesh position
+    ``pos`` (under a trace, a copy made there: a ``meta`` mesh repeats
+    one device)."""
+    if TRACER is not None:
+        return TRACER.copy(t, pos)
+    return t.to(device, copy=copy)
 
 
 def _counted(t: torch.Tensor, crossed: int, moved: int) -> torch.Tensor:
@@ -71,8 +125,10 @@ def _counted(t: torch.Tensor, crossed: int, moved: int) -> torch.Tensor:
     counted again when its gradient comes back (the reduce-scatter of a
     gather's backward)."""
     if crossed and t.requires_grad and torch.is_grad_enabled():
+        seg = _SEGMENT.get()
         t = t.view_as(t)
-        t.register_hook(lambda g: _add(crossed, moved))
+        t.register_hook(
+            lambda g: _add(crossed, moved, "reduce-scatter", seg))
     return t
 
 
@@ -238,6 +294,20 @@ class Sharded:
         return gather_region(self, [(torch.device(device), None, None)])[0]
 
 
+def position_bytes(mesh: DeviceMesh, spec, shape, itemsize: int) -> dict:
+    """Bytes each mesh position stores of a tensor of ``shape`` laid out
+    by ``spec``, as :class:`Sharded` stores it (a replica once, at index
+    0 of the axes the spec leaves out)."""
+    shape = tuple(int(s) for s in shape)
+    lay = _Layout(mesh, tuple(spec) + (None,) * (len(shape) - len(spec)),
+                  shape)
+    out: dict = {}
+    for c in lay.coords:
+        n = math.prod(b - a for a, b in lay.box[c]) * itemsize
+        out[lay.position[c]] = out.get(lay.position[c], 0) + n
+    return out
+
+
 def gather(leaf, device) -> torch.Tensor:
     """A leaf whole on ``device``: a :class:`Sharded` gathered, a list of
     layer tensors (or of :class:`Sharded`) stacked on axis 0, a tensor
@@ -284,7 +354,7 @@ class _Gather(torch.autograd.Function):
                     continue
                 sl = tuple(slice(a - r0, b - r0)
                            for (a, b), (r0, _) in zip(sh.box(c), reg))
-                piece = g[sl].to(dev).float()
+                piece = _to(g[sl], dev, sh.position(c)).float()
                 acc = piece if acc is None else acc + piece
             out.append(None if acc is None
                        else acc.to(sh.shards[c].dtype).contiguous())
@@ -317,10 +387,11 @@ class _Broadcast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, devices, positions, src_pos):
         ctx.src, ctx.src_pos, ctx.positions = x.device, src_pos, positions
+        ctx.seg = _SEGMENT.get()
         outs = []
         for d, p in zip(devices, positions):
-            _count(x, src_pos, p, d)
-            outs.append(x.to(d, copy=True))
+            _count(x, src_pos, p, d, "broadcast")
+            outs.append(_to(x, d, p, copy=True))
         return tuple(outs)
 
     @staticmethod
@@ -329,8 +400,8 @@ class _Broadcast(torch.autograd.Function):
         for g, p in zip(grads, ctx.positions):
             if g is None:
                 continue
-            _count(g, p, ctx.src_pos, ctx.src)
-            g = g.to(ctx.src)
+            _count(g, p, ctx.src_pos, ctx.src, "partial sum", ctx.seg)
+            g = _to(g, ctx.src, ctx.src_pos)
             acc = g if acc is None else acc + g
         return acc, None, None, None
 
@@ -340,7 +411,8 @@ def broadcast(x: torch.Tensor, devices, positions, src_pos) -> list:
     device is ``x``'s own, the copies are ``x`` itself (its gradient the
     sum of theirs, made on one device in graph order)."""
     if all(torch.device(d) == x.device for d in devices):
-        return [move(x, d, src_pos, p) for d, p in zip(devices, positions)]
+        return [move(x, d, src_pos, p, "broadcast")
+                for d, p in zip(devices, positions)]
     return list(_Broadcast.apply(x, list(devices), list(positions), src_pos))
 
 
@@ -349,36 +421,40 @@ def reduce_sum(parts, device, positions, dst_pos) -> torch.Tensor:
     in their order."""
     acc = None
     for t, p in zip(parts, positions):
-        t = move(t, device, p, dst_pos)
+        t = move(t, device, p, dst_pos, "partial sum")
         acc = t if acc is None else acc + t
     return acc
 
 
 class _Move(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, device, src_pos, dst_pos):
+    def forward(ctx, x, device, src_pos, dst_pos, kind):
         ctx.src, ctx.src_pos, ctx.dst_pos = x.device, src_pos, dst_pos
-        _count(x, src_pos, dst_pos, device)
-        y = x.to(device)
+        ctx.kind, ctx.seg = kind, _SEGMENT.get()
+        _count(x, src_pos, dst_pos, device, kind)
+        y = _to(x, device, dst_pos)
         return y.view_as(y) if y is x else y
 
     @staticmethod
     def backward(ctx, g):
-        _count(g, ctx.dst_pos, ctx.src_pos, ctx.src)
-        return g.to(ctx.src), None, None, None
+        _count(g, ctx.dst_pos, ctx.src_pos, ctx.src, _BACKWARD[ctx.kind],
+               ctx.seg)
+        return _to(g, ctx.src, ctx.src_pos), None, None, None, None
 
 
-def move(t: torch.Tensor, device, src_pos, dst_pos) -> torch.Tensor:
+def move(t: torch.Tensor, device, src_pos, dst_pos,
+         kind: str = "reshard") -> torch.Tensor:
     """``t`` copied from mesh position ``src_pos`` to ``device`` at
     ``dst_pos`` (``t`` itself if it is there), counted in :data:`TRAFFIC`
-    both ways (the gradient's copy back too)."""
+    both ways (the gradient's copy back too) and in :data:`KINDS` as
+    ``kind`` (its gradient as the kind that undoes it)."""
     device = torch.device(device)
     if src_pos == dst_pos:
         return t.to(device)
     if t.requires_grad and torch.is_grad_enabled():
-        return _Move.apply(t, device, src_pos, dst_pos)
-    _count(t, src_pos, dst_pos, device)
-    return t.to(device)
+        return _Move.apply(t, device, src_pos, dst_pos, kind)
+    _count(t, src_pos, dst_pos, device, kind)
+    return _to(t, device, dst_pos)
 
 
 # ---------------------------------------------------------------------------
@@ -483,9 +559,13 @@ class MeshRun:
                 c, mv = sh.crossing(fixed, self.position(a, j), t[0])
                 cross[index[t]][0] += c
                 cross[index[t]][1] += mv
-            outs = gather_region(sh, targets, dtype)
+            if TRACER is None:
+                outs = gather_region(sh, targets, dtype)
+            else:
+                with TRACER.gather(targets[0][2]):
+                    outs = gather_region(sh, targets, dtype)
             for c, mv in cross:
-                _add(c, mv)
+                _add(c, mv, "gather")
             outs = [_counted(o, c, mv) for o, (c, mv) in zip(outs, cross)]
             got = (index, outs)
             if cache is not None:

@@ -34,7 +34,7 @@ port keeps them whole on each batch shard's device (the replicated
 layout) and refuses the sharded one: above the thresholds, on a mesh
 whose "model" axis is wider than one, :func:`check_serve_cpt` and
 :func:`check_serve_sites` raise ``NotImplementedError`` (ROADMAP Queue 1
-item 4, "model"-axis sharding).
+item 4c, "model"-axis sharding).
 
 A sharded serving state is a :class:`LaneShards`: contiguous lane
 blocks, one a batch device, in global lane order.  Shard ``s`` holds
@@ -327,7 +327,7 @@ SERVE_CPT_SHARD_ELEMS = 1 << 22
 SERVE_SITE_SHARD_ELEMS = 1 << 20
 
 _MODEL_AXIS_ITEM = ("sharding over the serve mesh's 'model' axis is not "
-                    "ported to repro_torch (ROADMAP Queue 1 item 4)")
+                    "ported to repro_torch (ROADMAP Queue 1 item 4c)")
 
 
 def serve_batch_axis(mesh: DeviceMesh) -> str:

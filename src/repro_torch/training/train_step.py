@@ -136,8 +136,8 @@ def split_batch(mesh, batch: dict, nmb: int) -> list[tuple]:
         for i in range(run.n):
             lo = m * rows + i * per
             shards.append({k: partition.move(
-                v[lo:lo + per], run.device(i), None, run.position(i))
-                for k, v in full.items()})
+                v[lo:lo + per], run.device(i), None, run.position(i),
+                "input") for k, v in full.items()})
         out.append((run, shards))
     return out
 
@@ -193,7 +193,8 @@ def _update(opt, compress: bool, state: TrainState, params: dict,
     if compress:
         grads = compress_grads_int8(grads)
     state.dirty = True
-    _, state.opt, gnorm = opt.update(grads, state.opt, params)
+    with partition.segment("optimizer"):
+        _, state.opt, gnorm = opt.update(grads, state.opt, params)
     state.step = state.step + 1
     del grads
     _zero_grads(params)

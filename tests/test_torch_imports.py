@@ -46,6 +46,9 @@ TRAIN_MODULES = ("repro_torch.training", "repro_torch.training.data",
                  "repro_torch.training.train_step",
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.elastic", "repro_torch.launch.train")
+# the planning tools: roofline, dry run over meta devices, hill-climb
+PLAN_MODULES = ("repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                "repro_torch.launch.hillclimb")
 
 
 def test_port_imports_no_jax_networkx_or_reference():
@@ -59,7 +62,7 @@ def test_port_imports_no_jax_networkx_or_reference():
     files = list(Path(REPO, "src", "repro_torch").rglob("*.py"))
     assert n == len(files) - 1 >= 63, out
     modules = out.split("MODULES ")[-1]
-    for name in MESH_MODULES + LM_MODULES + TRAIN_MODULES:
+    for name in MESH_MODULES + LM_MODULES + TRAIN_MODULES + PLAN_MODULES:
         assert repr(name) in modules, name
 
 

@@ -8,9 +8,11 @@ one device, the 1 x 1 baseline) and then its ``lm_mesh`` phase in one
 process: the 2 x 2 mesh over ``cuda:0..3`` on a host with four cards,
 else over ``cuda:0`` four times; the identities against one device at
 full width cut to 2 layers (float32 and bf16), the small cases, the
-builders' cells and the checkpoints.  Prints each phase's JSON lines
-after the card's name and power limit; any failed identity exits
-non-zero.  Imports torch and the port only.
+builders' cells and the checkpoints; then its ``lm_dryrun`` phase (the
+dry run of the same step over ``meta`` devices held against what
+``lm_mesh`` counted).  Prints each phase's JSON lines after the card's
+name and power limit; any failed identity exits non-zero.  Imports
+torch and the port only.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ def main() -> int:
     out = cs.phase_lm_mesh(card, one)
     cs.emit({"phase": "lm_mesh_seconds", "s": time.perf_counter() - t0,
              **out})
+    cs.phase_lm_dryrun(card, out)
     return 0
 
 
