@@ -153,8 +153,30 @@ line is printed:
    equal; a 2 x 2 checkpoint restored onto 4 x 1 and 1 x 1 bit for bit,
    the restored next step bitwise, two mesh steps bitwise.  No kernel of
    the port: every launch count must stay 0.
-22. lm_dryrun — the planning tools (``launch/dryrun.py``,
-   ``launch/roofline.py``) held against phase 21's step: the dry run of
+   Phase 21 also holds, against one device, a train step of the MoE with
+   its experts over "model" (llama4 and grok-1 smoke on 2 x 2) and with
+   its expert ffn over "model" (grok-1 smoke on 1 x 4) and of the hybrid
+   (hymba smoke on 2 x 2), and hymba smoke's builders' cells.
+22. lm_mesh_families — the MoE, SSM and hybrid families on a "model"
+   axis of 2 (LM_FAMILIES_MESH), over ``mesh_devices(4)``:
+   hymba-1.5b at full width and depth with its config's training
+   settings, batch 8 x 128, 1 warm-up and 2 timed steps on 1 x 1 and on
+   2 x 2 (median ms beside the 8 N T bound, peak memory, the bytes a step
+   copied between positions counted and reckoned from the layout, one
+   profiled mesh step's launches and busy share), then prefill 4 x 512
+   and 32 greedy decode steps on 2 x 2 (its SSM state split on 50 heads
+   and 3,232 conv channels; tok/s, ms a step beside its bytes bound);
+   llama4-scout-17b-a16e at full width cut to 4 layers served the same
+   way on 1 x 1 and on 2 x 2 (8 experts a "model" position), and at 2
+   layers in float32 2 x 2 against 1 x 1 (prefill and first-step logits
+   within LM_SERVE_MESH_TOL of the largest, greedy tokens equal over 8
+   steps); mamba2-130m at full width, a train step and the serving on 1
+   x 1 and 2 x 2 in bf16 (loss within 1e-2 relative, logits within
+   LM_SSM_MESH_LOGIT_BF16); hymba's 2 x 2 step against 1 x 1 at 2 layers
+   in float32 and bf16 (LM_MESH_TOL, LM_MESH_BF16).  No kernel of the
+   port: every launch count must stay 0.
+23. lm_dryrun — the planning tools (``launch/dryrun.py``,
+   ``launch/roofline.py``) held against phases 21 and 22: the dry run of
    the same configuration (phi4-mini-3.8b at full width, 2 x 2, batch 8 x
    128, microbatch 2, remat "full", AdamW) over four ``meta`` devices,
    one layer traced and scaled, must count the bytes between mesh
@@ -162,17 +184,18 @@ line is printed:
    printed beside them), and its argument bytes summed over positions
    must equal the bytes of the placed state's shards counted from the
    tensors; its transient bytes are printed beside the measured peak
-   less that state (no gate).  Then phi4-mini's four production cells
-   on the 16 x 16 mesh of ``meta`` devices: status, GB a device,
-   bottleneck and roofline fraction at H100 constants.  No kernel
-   launches; at most 120 s.
+   less that state (no gate); the same two checks for hymba-1.5b's 2 x 2
+   step of phase 22.  Then phi4-mini's four production cells on the 16 x
+   16 mesh of ``meta`` devices: status, GB a device, bottleneck and
+   roofline fraction at H100 constants.  No kernel launches; at most 120
+   s.
 
-Phases 4, 7, 8 and 10-22 each zero their kernel's launch count (phases
-19-22: every kernel's) just before their main path and read it just
+Phases 4, 7, 8 and 10-23 each zero their kernel's launch count (phases
+19-23: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
-``lm_train``, ``lm_mesh`` and ``lm_dryrun`` with 0 launches, every
-kernel's count beside them).  Then
+``lm_train``, ``lm_mesh``, ``lm_mesh_families`` and ``lm_dryrun`` with 0
+launches, every kernel's count beside them).  Then
 the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
@@ -364,6 +387,44 @@ LM_MESH_FAMILIES = (("dense", "phi4-mini-3.8b", {}),
                     ("encdec", "seamless-m4t-medium", {"family": "encdec"}),
                     ("audio", "seamless-m4t-medium", {}),
                     ("moe_adafactor", "grok-1-314b", {}))
+# the small cases on a "model" axis wider than one: the MoE with its
+# experts over "model" (llama4 smoke's 4, grok-1 smoke's 2 on 2 x 2) and
+# with its expert ffn over "model" (grok-1 smoke's 2 experts on 1 x 4),
+# and the hybrid (attention heads, MLP and SSM projections), a train step
+# each against one device
+LM_MESH_TP_CASES = (("moe", "llama4-scout-17b-a16e", (2, 2)),
+                    ("moe_adafactor", "grok-1-314b", (2, 2)),
+                    ("hybrid", "hymba-1.5b", (2, 2)),
+                    ("moe_ffn", "grok-1-314b", (1, 4)))
+
+# The MoE, SSM and hybrid families on a 2 x 2 ("data", "model") mesh over
+# mesh_devices(4) at full width (lm_mesh_families): hymba-1.5b
+# (src/repro/configs/hymba_1_5b.py: 32 layers, d_model 1600, 25 heads on 5
+# kv heads, d_ff 5504, 50 SSM heads of 64, vocab 32,001; 1.64 B
+# parameters) trained with its config's settings (AdamW, float32 state,
+# remat "full", microbatch 2) at lm_train's batch 8 x 128, 1 warm-up and 2
+# timed steps on 1 x 1 and on 2 x 2 (16 B a parameter, 26.3 GB: no depth
+# cut), then served on 2 x 2 (prefill 4 x 512, 32 greedy decode steps);
+# llama4-scout-17b-a16e (48 layers, d_model 5120, 40 heads on 8, 16
+# experts of ffn 8192, vocab 202,048) served on 1 x 1 and 2 x 2 with its
+# depth cut to 4 layers: 4 x 2.08 B + 2.07 B float32 parameters (41.5 GB)
+# and the 1 x 1 run's kept bf16 casts (20.7 GB) fill most of the card's 80
+# GB, and a fifth layer would leave too little for the run; mamba2-130m at
+# full width and depth, a train step and the same serving on 1 x 1 and 2 x
+# 2; identities at 2 layers
+LM_FAMILIES_MESH = dict(shape=(2, 2), hybrid="hymba-1.5b",
+                        moe="llama4-scout-17b-a16e", moe_layers=4,
+                        ssm="mamba2-130m", timed_steps=2, serve_batch=4,
+                        prompt_len=512, decode_steps=32, ident_layers=2,
+                        ident_decode_steps=8)
+# llama4 at 2 layers in float32 compute, 2 x 2 against 1 x 1: prefill and
+# first-step logits within this share of the 1 x 1 run's largest |logit|,
+# the greedy tokens equal over 8 steps; mamba2 in its config's bf16: the
+# train step's loss within LM_MESH_BF16's 1e-2 relative, prefill and
+# first-step logits within LM_SSM_MESH_LOGIT_BF16 of the largest |logit|
+# (the row-parallel out_proj's partial sums round in bf16)
+LM_SERVE_MESH_TOL = 1e-4
+LM_SSM_MESH_LOGIT_BF16 = 5e-2
 
 
 def emit(obj) -> None:
@@ -2262,17 +2323,14 @@ def lm_full_width(arch: str, card_name: str) -> dict:
             "launches": int(sum(e.count for e in kernels)),
             "wall_ms": wall * 1e3,
             "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
-    nbytes = lm_step_bytes(model, b, s + n_new)
-    mat = sum(p.numel() for p in model.parameters() if p.ndim >= 2)
-    bound_ms, bound_by = roofline(nbytes, 2 * b * mat, BF16_OPS_PER_S)
+    bound = serve_bound(cfg, b, s + n_new)
     peak = torch.cuda.max_memory_allocated()
     out = {"phase": "lm_generate", "arch": arch, "card": card_name,
            "params": sum(p.numel() for p in model.parameters()),
            "batch": b, "prompt_len": s, "max_new": n_new,
            "init_s": init_s, "first_step_logit_std": t_std, "runs": runs,
            "decode_step_ms": step_ms, "sample_ms": sample_ms,
-           "step_bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-           "step_over_bound": step_ms / bound_ms,
+           **bound, "step_over_bound": step_ms / bound["bound_ms"],
            "launches_per_step": sum(p["launches"] for p in profiled.values()),
            "profiled": profiled,
            "peak_memory_gb": peak / 1e9}
@@ -2393,37 +2451,47 @@ def lm_train_bound(cfg, tokens: int) -> dict:
             "bytes_with_grads_32b_ms": 32 * n / HBM_BYTES_PER_S * 1e3}
 
 
-def lm_train_steps(cfg, steps: int, dev, seed: int = 0):
+def lm_train_steps(cfg, steps: int, dev, seed: int = 0, mesh=None):
     """``launch/train.py``'s loop on the card: a state from a seeded
-    generator, ``TokenDataset`` batches, each step through ``StepGuard``
-    and timed on the host clock to its synchronize.  Returns (state,
-    step function, per-step records, dataset); fails on a loss or norm
-    that is not finite, and on any retry or reload."""
+    generator on ``dev`` (placed on ``mesh`` by ``place_model`` when one
+    is given), ``TokenDataset`` batches, each step through ``StepGuard``
+    and timed on the host clock to a synchronize of every card, with the
+    bytes it copied between mesh positions.  Returns (state, step
+    function, per-step records, dataset); fails on a loss or norm that
+    is not finite, and on any retry or reload."""
     import torch
 
-    from repro_torch.models.transformer import init_model
+    from repro_torch.models.transformer import init_model, place_model
+    from repro_torch.sharding import partition
     from repro_torch.training import DataConfig, StepGuard, TokenDataset
     from repro_torch.training.train_step import (
         init_train_state, make_train_step)
 
     run = LM_TRAIN_RUN
+    cards = [dev] if mesh is None else sorted(set(mesh.devices.flat), key=str)
     model = init_model(cfg, torch.Generator(dev).manual_seed(seed),
                        device=dev)
+    if mesh is not None:
+        place_model(mesh, model)
     state = init_train_state(cfg, model)
-    step_fn, _ = make_train_step(cfg, q_block=min(run["seq_len"], 512))
+    del model
+    step_fn, _ = make_train_step(cfg, q_block=min(run["seq_len"], 512),
+                                 mesh=mesh)
     ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
     guard = StepGuard()
     recs = []
     for i in range(steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in ds.batch_at(i).items()}
-        torch.cuda.synchronize()
+        partition.reset_traffic()
+        sync_cards(cards)
         t0 = time.perf_counter()
         state, m = guard.run(step_fn, state, batch)
-        torch.cuda.synchronize()
+        sync_cards(cards)
         recs.append({"ms": (time.perf_counter() - t0) * 1e3,
                      "loss": float(m["loss"]),
-                     "grad_norm": float(m["grad_norm"])})
+                     "grad_norm": float(m["grad_norm"]),
+                     "crossed_bytes": partition.TRAFFIC["crossed_bytes"]})
     if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
         raise AssertionError(f"lm_train {cfg.name}: a loss or grad norm "
                              f"is not finite: {recs}")
@@ -2431,6 +2499,13 @@ def lm_train_steps(cfg, steps: int, dev, seed: int = 0):
         raise AssertionError(f"lm_train {cfg.name}: {guard.retries} "
                              f"retries, {guard.reloads} reloads")
     return state, step_fn, recs, ds
+
+
+def sync_cards(cards) -> None:
+    import torch
+
+    for c in cards:
+        torch.cuda.synchronize(c)
 
 
 def lm_train_full_width(card_name: str) -> dict:
@@ -2993,11 +3068,13 @@ def placed_bytes(state) -> int:
 
 
 def lm_mesh_small_cases(devices1) -> dict:
-    """granite-20b smoke in float32 on 4 x 2 (the reference's own case) and
-    every family's smoke on 4 x 1 against one device, a train step each
-    (loss and parameters, as the reference's test); the builders'
-    train, prefill and decode cells on 2 x 2 against 1 x 1 for granite
-    smoke (a cache split on the sequence) and phi4 smoke (on kv heads)."""
+    """granite-20b smoke in float32 on 4 x 2 (the reference's own case),
+    every family's smoke on 4 x 1 and LM_MESH_TP_CASES against one
+    device, a train step each (loss and parameters, as the reference's
+    test); the builders' train, prefill and decode cells on 2 x 2
+    against 1 x 1 for granite smoke (a cache split on the sequence), phi4
+    smoke (on kv heads) and hymba smoke (on kv heads, and its SSM state
+    on heads and channels)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3006,7 +3083,9 @@ def lm_mesh_small_cases(devices1) -> dict:
     dev = devices1[0]
     out = {}
     cases = [("granite-20b", "granite-20b", (4, 2), {"dtype": "float32"})
-             ] + [(fam, arch, (4, 1), kw) for fam, arch, kw in LM_MESH_FAMILIES]
+             ] + [(fam, arch, (4, 1), kw) for fam, arch, kw in LM_MESH_FAMILIES
+                  ] + [(fam, arch, shape, {})
+                       for fam, arch, shape in LM_MESH_TP_CASES]
     for name, arch, shape, kw in cases:
         cfg = get_config(arch, smoke=True).replace(**kw)
         model = init_model(cfg, torch.Generator(dev).manual_seed(0),
@@ -3017,7 +3096,8 @@ def lm_mesh_small_cases(devices1) -> dict:
         out[f"{name}@{shape[0]}x{shape[1]}"] = mesh_identity(
             cfg, model, (shape, [dev] * n), batch, tol, grads=False)
     out["cells"] = {arch: lm_mesh_cells(arch, dev)
-                    for arch in ("granite-20b", "phi4-mini-3.8b")}
+                    for arch in ("granite-20b", "phi4-mini-3.8b",
+                                 "hymba-1.5b")}
     return out
 
 
@@ -3221,13 +3301,428 @@ def phase_lm_mesh(card_name: str, one: dict) -> dict:
             "busy_share": full["profiled_step"]["busy_share"]}
 
 
-def phase_lm_dryrun(card_name: str, mesh_run: dict) -> dict:
+def hybrid_reckoned_bytes(cfg, mesh, mb_rows: int, nmb: int,
+                          seq: int) -> dict:
+    """The bytes a hybrid train step must copy between mesh positions,
+    from the layout (``param_specs``) and the model's reading of it.
+    Weights (float32, as stored): a leaf split over "model" is read as
+    its pieces by every batch shard's "model" device j, any other (and
+    ``embed/tok``, whose "model" split falls on d_model, which the
+    lookup does not use) whole by each batch shard's home device; each
+    reader receives what its position does not store.  A layer's weights
+    are read three times a microbatch (forward, the remat's second
+    forward, the backward's reduce-scatter), the output head three (the
+    loss chunk's forward, its remat, the backward), the table and the
+    final norm twice.  Activations (compute dtype), per layer and batch
+    shard, in the same three passes: the MLP's input to the M - 1 other
+    "model" devices and their partial sums back; the SSM's input
+    likewise, its in_proj blocks home ((M - 1) / M of Z), its out_proj
+    input blocks out ((M - 1) / M of d_inner) and the partial sums home.
+    The attention, whose heads do not divide "model", moves nothing."""
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.models.transformer import init_model, param_leaves
+    from repro_torch.sharding import partition
+    from repro_torch.sharding import specs as specs_lib
+
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    if cfg.n_heads % m == 0:
+        raise ValueError("the reckoning takes the attention whole at home")
+    leaves = param_leaves(init_model(cfg, device="meta"))
+    pspecs = specs_lib.param_specs(cfg, leaves, mesh)
+    weights = 0
+    for k, p in leaves.items():
+        shape = specs_lib._shape(p)
+        spec = pspecs[k]
+        stored = partition.position_bytes(mesh, spec, shape, 4)
+        total = int(np.prod(shape)) * 4
+        pieces = k != "embed/tok" and any(
+            "model" in ((e,) if isinstance(e, str) else tuple(e or ()))
+            for e in spec)
+        if pieces:
+            got = sum(total // m - stored.get((i, j), 0)
+                      for i in range(d) for j in range(m))
+        else:
+            got = sum(total - stored.get((i, 0), 0) for i in range(d))
+        passes = {"embed/tok": 2, "final_norm/scale": 2}.get(k, 3)
+        weights += passes * got
+    b = torch_dtype(cfg.dtype).itemsize
+    tok = mb_rows // d * seq
+    act = tok * cfg.d_model * b
+    z = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + \
+        cfg.n_ssm_heads
+    per_layer = (2 * (m - 1) * act                     # MLP
+                 + 2 * (m - 1) * act                   # SSM in and out
+                 + (m - 1) * (z // m) * tok * b        # in_proj blocks
+                 + (m - 1) * (cfg.d_inner // m) * tok * b)  # out_proj in
+    activations = d * 3 * cfg.n_layers * per_layer
+    return {"weights": weights * nmb, "activations": activations * nmb,
+            "total": (weights + activations) * nmb}
+
+
+def family_serve(model, mesh, prompt, steps: int) -> dict:
+    """The serving path on ``model``: on a mesh the builders' prefill and
+    decode cells (``build_prefill``, ``build_decode(sampler=None)``), on
+    the card alone (``mesh`` None) ``forward`` + ``unembed`` and
+    ``decode_step`` (the weights' casts kept).  The prompt's prefill,
+    timed; then ``steps`` greedy decode steps at positions S ..
+    S + steps - 1 over a cache of S + steps positions, each timed to a
+    synchronize (the prefill cell, as the reference's, returns the last
+    position's logits and writes no cache).  Returns the times, the
+    prefill and first-step logits and the greedy tokens."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.core import rng
+    from repro_torch.launch.builders import build_decode, build_prefill
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.transformer import (
+        decode_step, forward, init_cache)
+    from repro_torch.sharding import partition
+
+    cfg = model.cfg
+    b, s = prompt.shape
+    dev = prompt.device
+    cards = [dev] if mesh is None else sorted(set(mesh.devices.flat), key=str)
+    cache = init_cache(cfg, b, s + steps, device=dev)
+    if mesh is None:
+        @torch.no_grad()
+        def prefill_fn():
+            x = forward(model, prompt)
+            return unembed(model.embed, cfg, x[:, -1:])[:, 0].float()
+
+        def step_fn(tok, p, cache):
+            logits, cache = decode_step(model, tok, p, cache)
+            return logits.float(), cache
+    else:
+        pre, _, _, _, _ = build_prefill(cfg, mesh,
+                                        ShapeCfg("p", s, b, "prefill"))
+        dec, _, insh, _, _ = build_decode(
+            cfg, mesh, ShapeCfg("d", s + steps, b, "decode"), sampler=None)
+        cache = partition.place(mesh, cache,
+                                {k: v.spec for k, v in insh[4].items()})
+
+        def prefill_fn():
+            return pre(model, {"tokens": prompt}).gather(dev)
+
+        def step_fn(tok, p, cache):
+            return dec(model, rng.PRNGKey(p), tok, p, cache)
+
+    sync_cards(cards)
+    t0 = time.perf_counter()
+    pre_logits = prefill_fn()
+    sync_cards(cards)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    tok = torch.argmax(pre_logits, -1).to(torch.int32)[:, None]
+    toks, ms, first = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = step_fn(tok, s + i, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        sync_cards(cards)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok[:, 0].tolist())
+        if first is None:
+            first = logits
+    logits_ok = bool(torch.isfinite(pre_logits).all() and
+                     torch.isfinite(first).all())
+    if not logits_ok or pre_logits.shape != (b, cfg.vocab):
+        raise AssertionError(f"lm_mesh_families {cfg.name}: bad logits")
+    return {"prefill_ms": prefill_ms,
+            "prefill_tok_s": b * s / prefill_ms * 1e3,
+            "decode_ms": ms, "decode_step_ms": float(np.median(ms[1:])),
+            "decode_tok_s": b * steps / sum(ms) * 1e3,
+            "tokens": toks, "prefill_logits": pre_logits,
+            "first_logits": first}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()) / \
+        float(want.float().abs().max())
+
+
+def serve_bound(cfg, batch: int, cache_len: int) -> dict:
+    """A decode step's bytes bound (``lm_step_bytes`` of the model's
+    shapes) and its matrix FLOPs at the bf16 peak."""
+    from repro_torch.models.transformer import init_model
+
+    meta = init_model(cfg, device="meta")
+    nbytes = lm_step_bytes(meta, batch, cache_len)
+    mat = sum(p.numel() for p in meta.parameters() if p.ndim >= 2)
+    bound_ms, bound_by = roofline(nbytes, 2 * batch * mat, BF16_OPS_PER_S)
+    return {"step_bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def brief(serve: dict) -> dict:
+    """A serving run's numbers without its tensors (the decode steps' ms
+    as their quartiles and extremes)."""
+    out = {k: v for k, v in serve.items() if k not in (
+        "prefill_logits", "first_logits", "tokens", "decode_ms")}
+    out["decode_ms_quantiles"] = np.quantile(
+        serve["decode_ms"], [0, 0.25, 0.5, 0.75, 1]).tolist()
+    return out
+
+
+def lm_families_hybrid(devices) -> dict:
+    """hymba-1.5b at full width: train steps on 1 x 1 and on 2 x 2 (times,
+    peak memory, bytes between positions counted and reckoned, one
+    profiled mesh step), then prefill and decode on 2 x 2 with the
+    trained weights."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    fam = LM_FAMILIES_MESH
+    cfg = get_config(fam["hybrid"])
+    run = LM_TRAIN_RUN
+    steps = 1 + fam["timed_steps"]
+    cards = sorted(set(devices), key=str)
+    mesh = make_lm_mesh(*fam["shape"], devices=devices)
+    peaks = {}
+    for label, m in (("one", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        if m is None:
+            state, _, recs1, _ = lm_train_steps(cfg, steps, devices[0])
+            del state
+        else:
+            state, step_fn, recs, ds = lm_train_steps(cfg, steps, devices[0],
+                                                      mesh=m)
+        peaks[label] = max(torch.cuda.max_memory_allocated(c)
+                           for c in cards) / 1e9
+    batch = {k: torch.from_numpy(v).to(devices[0])
+             for k, v in ds.batch_at(steps).items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        sync_cards(cards)
+        prof_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    nmb = max(cfg.microbatch, 1)
+    reckoned = hybrid_reckoned_bytes(cfg, mesh, run["batch"] // nmb, nmb,
+                                     run["seq_len"])
+    med = float(np.median([r["ms"] for r in recs[1:]]))
+    med1 = float(np.median([r["ms"] for r in recs1[1:]]))
+    counted = recs[-1]["crossed_bytes"]
+    out = {"arch": cfg.name, "mesh": mesh.shape, "params": cfg.param_count(),
+           "n_layers": cfg.n_layers, "depth_cut": None,
+           "batch": run["batch"], "seq_len": run["seq_len"],
+           "microbatch": cfg.microbatch, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "steps": recs,
+           "one_device_steps": recs1, "median_step_ms": med,
+           "one_device_median_step_ms": med1, "over_one_device": med / med1,
+           "tok_s": run["batch"] * run["seq_len"] / med * 1e3,
+           "bound": lm_train_bound(cfg, run["batch"] * run["seq_len"]),
+           "peak_memory_gb": peaks["mesh"],
+           "one_device_peak_memory_gb": peaks["one"],
+           "state_gb_reckoned": cfg.param_count() * LM_TRAIN_STATE_BYTES
+           / 1e9,
+           "state_bytes_counted": placed_bytes(state),
+           "crossed_bytes_counted": counted,
+           "crossed_bytes_reckoned": reckoned,
+           "counted_over_reckoned": counted / reckoned["total"],
+           "profiled_step": {
+               "wall_ms": prof_wall * 1e3, "busy_ms": busy_ms,
+               "busy_share": busy_ms / (prof_wall * 1e3 * len(cards)),
+               "launches": int(sum(e.count for e in kernels))}}
+    b, s = fam["serve_batch"], fam["prompt_len"]
+    prompt = rng.randint(rng.PRNGKey(1), (b, s), 0, cfg.vocab,
+                         device=devices[0])
+    serve = family_serve(state.model, mesh, prompt, fam["decode_steps"])
+    out["serve"] = dict(brief(serve), **serve_bound(cfg, b, s + fam[
+        "decode_steps"]))
+    out["serve"]["step_over_bound"] = serve["decode_step_ms"] / \
+        out["serve"]["bound_ms"]
+    del state, step_fn, serve
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families_moe(devices) -> dict:
+    """llama4-scout-17b-a16e served at full width, depth cut: on the card
+    alone, then placed in place on the 2 x 2 mesh (experts 8 a "model"
+    position); then the identity at 2 layers in float32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.layers import drop_casts
+    from repro_torch.models.transformer import init_model, place_model
+
+    fam = LM_FAMILIES_MESH
+    dev = devices[0]
+    b, s, n = fam["serve_batch"], fam["prompt_len"], fam["decode_steps"]
+    out = {}
+    for label, layers, kw, steps in (
+            ("served", fam["moe_layers"], {}, n),
+            ("identity", fam["ident_layers"], {"dtype": "float32"},
+             fam["ident_decode_steps"])):
+        cfg = get_config(fam["moe"]).replace(n_layers=layers, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = init_model(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        prompt = rng.randint(rng.PRNGKey(1), (b, s), 0, cfg.vocab,
+                             device=dev)
+        one = family_serve(model, None, prompt, steps)
+        peak1 = torch.cuda.max_memory_allocated(dev) / 1e9
+        drop_casts(model)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = make_lm_mesh(*fam["shape"], devices=devices)
+        place_model(mesh, model)
+        got = family_serve(model, mesh, prompt, steps)
+        res = {"n_layers": layers, "dtype": cfg.dtype,
+               "params": cfg.param_count(),
+               "one_device": brief(one), "mesh": brief(got),
+               "one_device_peak_gb": peak1,
+               "mesh_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "prefill_rel_err": rel_err(got["prefill_logits"],
+                                          one["prefill_logits"]),
+               "first_step_rel_err": rel_err(got["first_logits"],
+                                             one["first_logits"]),
+               "tokens_equal": got["tokens"] == one["tokens"],
+               "experts_a_position": cfg.n_experts // fam["shape"][1]}
+        if label == "served":
+            res.update(serve_bound(cfg, b, s + n))
+            res["step_over_bound"] = got["decode_step_ms"] / res["bound_ms"]
+        elif not (res["prefill_rel_err"] <= LM_SERVE_MESH_TOL
+                  and res["first_step_rel_err"] <= LM_SERVE_MESH_TOL
+                  and res["tokens_equal"]):
+            raise AssertionError(f"lm_mesh_families {cfg.name}: 2 x 2 != "
+                                 f"1 x 1 at {layers} layers: {res}")
+        out[label] = res
+        del model, one, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_families_ssm(devices) -> dict:
+    """mamba2-130m at full width and depth in its config's bf16: a train
+    step on 1 x 1 and on 2 x 2 from the same weights and batch, then the
+    serving path on the card alone and on 2 x 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rng
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.layers import drop_casts
+    from repro_torch.models.transformer import init_model, place_model
+
+    fam = LM_FAMILIES_MESH
+    cfg = get_config(fam["ssm"])
+    dev = devices[0]
+    st, _, recs1, _ = lm_train_steps(cfg, 1, dev)
+    del st
+    st, _, recs, _ = lm_train_steps(
+        cfg, 1, dev, mesh=make_lm_mesh(*fam["shape"], devices=devices))
+    del st
+    loss_err = abs(recs[0]["loss"] - recs1[0]["loss"]) / abs(recs1[0]["loss"])
+    b, s, n = fam["serve_batch"], fam["prompt_len"], fam["decode_steps"]
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    prompt = rng.randint(rng.PRNGKey(1), (b, s), 0, cfg.vocab, device=dev)
+    one = family_serve(model, None, prompt, n)
+    drop_casts(model)
+    place_model(make_lm_mesh(*fam["shape"], devices=devices), model)
+    got = family_serve(model, model.mesh, prompt, n)
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "microbatch": cfg.microbatch,
+           "step_ms": recs[0]["ms"], "one_device_step_ms": recs1[0]["ms"],
+           "loss": recs1[0]["loss"], "loss_rel_err": loss_err,
+           "crossed_bytes": recs[0]["crossed_bytes"],
+           "one_device": brief(one), "mesh": brief(got),
+           "prefill_rel_err": rel_err(got["prefill_logits"],
+                                      one["prefill_logits"]),
+           "first_step_rel_err": rel_err(got["first_logits"],
+                                         one["first_logits"]),
+           "tokens_agree": float(np.mean(np.array(got["tokens"]) ==
+                                         np.array(one["tokens"]))),
+           **serve_bound(cfg, b, s + n)}
+    out["step_over_bound"] = got["decode_step_ms"] / out["bound_ms"]
+    if not (loss_err <= LM_MESH_BF16["loss_rtol"]
+            and out["prefill_rel_err"] <= LM_SSM_MESH_LOGIT_BF16
+            and out["first_step_rel_err"] <= LM_SSM_MESH_LOGIT_BF16):
+        raise AssertionError(f"lm_mesh_families {cfg.name}: 2 x 2 != 1 x 1: "
+                             f"{out}")
+    del model, one, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_mesh_families(card_name: str) -> dict:
+    """The MoE, SSM and hybrid families on a "model" axis wider than one
+    (LM_FAMILIES_MESH), over ``mesh_devices(4)``.  No kernel of the port
+    is on this path: every launch count must stay 0 over it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_model
+
+    devices, kind = mesh_devices(int(np.prod(LM_FAMILIES_MESH["shape"])))
+    zero_kernel_launch_counts()                      # the main path
+    t0 = time.perf_counter()
+    hybrid = lm_families_hybrid(devices)
+    t1 = time.perf_counter()
+    moe = lm_families_moe(devices)
+    t2 = time.perf_counter()
+    ssm = lm_families_ssm(devices)
+    t3 = time.perf_counter()
+    launches = kernel_launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"lm_mesh_families launched a kernel: "
+                             f"{launches}")
+    dev = devices[0]
+    ident = {}
+    for name, kw, tol in (("float32", {"dtype": "float32"}, LM_MESH_TOL),
+                          ("bfloat16", {}, LM_MESH_BF16)):
+        cfg = get_config(LM_FAMILIES_MESH["hybrid"]).replace(
+            n_layers=LM_FAMILIES_MESH["ident_layers"], **kw)
+        model = init_model(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        batch = mesh_batch(cfg, 0, LM_TRAIN_RUN["batch"],
+                           LM_TRAIN_RUN["seq_len"], dev)
+        ident[name] = mesh_identity(
+            cfg, model, (LM_FAMILIES_MESH["shape"], devices), batch, tol)
+        del model
+        torch.cuda.empty_cache()
+    out = {"phase": "lm_mesh_families", "card": card_name,
+           "devices": [str(x) for x in devices], "kind": kind,
+           "hybrid": hybrid, "moe": moe, "ssm": ssm,
+           "hybrid_identity": ident, "kernel_launches": launches,
+           "seconds": {"hybrid": t1 - t0, "moe": t2 - t1, "ssm": t3 - t2,
+                       "identity": time.perf_counter() - t3,
+                       "total": time.perf_counter() - t0}}
+    emit(out)
+    return {"launches": 0, "kernel_launches": launches,
+            "arch": hybrid["arch"], "mesh": hybrid["mesh"],
+            "median_step_ms": hybrid["median_step_ms"],
+            "one_device_median_step_ms":
+                hybrid["one_device_median_step_ms"],
+            "crossed_bytes_counted": hybrid["crossed_bytes_counted"],
+            "crossed_bytes_reckoned":
+                hybrid["crossed_bytes_reckoned"]["total"],
+            "state_bytes_counted": hybrid["state_bytes_counted"],
+            "llama4_decode_step_ms": moe["served"]["mesh"]["decode_step_ms"],
+            "seconds": out["seconds"]["total"]}
+
+
+def phase_lm_dryrun(card_name: str, mesh_run: dict, families: dict) -> dict:
     """The dry run of lm_mesh's configuration over four ``meta``
     devices against what phase lm_mesh measured in this process: the
     bytes between mesh positions (within LM_DRYRUN["bytes_rtol"]), the
     arguments' bytes (equal to the placed state's), the transients
-    beside the measured peak less the state (printed); then phi4-mini's
-    production cells on 16 x 16.  No kernel launches."""
+    beside the measured peak less the state (printed); the same for
+    hymba-1.5b's 2 x 2 step against phase lm_mesh_families' count; then
+    phi4-mini's production cells on 16 x 16.  No kernel launches."""
     import torch
 
     from repro_torch.configs import SHAPES, get_config
@@ -3270,6 +3765,30 @@ def phase_lm_dryrun(card_name: str, mesh_run: dict) -> dict:
     if args_sum != state:
         raise AssertionError(f"lm_dryrun: argument bytes {args_sum} != the "
                              f"placed state's {state}")
+    hcfg = get_config(LM_FAMILIES_MESH["hybrid"])
+    rec = dryrun.trace_cell(
+        hcfg, mesh, ShapeCfg("lm_mesh_families", run["seq_len"],
+                             run["batch"], "train"), trainer=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"lm_dryrun {hcfg.name}: {rec}")
+    counted = families["crossed_bytes_counted"]
+    traced = rec["traffic"]["crossed_bytes"]
+    out["hybrid"] = {
+        "arch": hcfg.name, "trace_s": rec["t_trace_s"],
+        "crossed_bytes_traced": traced, "crossed_bytes_counted": counted,
+        "crossed_bytes_reckoned": families["crossed_bytes_reckoned"],
+        "bytes_rel_err": abs(traced - counted) / counted,
+        "collectives": rec["collectives"],
+        "argument_bytes_sum": rec["memory"]["argument_bytes_sum"],
+        "state_bytes_counted": families["state_bytes_counted"],
+        "temp_bytes_sum": rec["memory"]["temp_bytes_sum"]}
+    if out["hybrid"]["bytes_rel_err"] > LM_DRYRUN["bytes_rtol"]:
+        raise AssertionError(f"lm_dryrun {hcfg.name}: traced {traced} bytes "
+                             f"between mesh positions, the step counted "
+                             f"{counted}")
+    if rec["memory"]["argument_bytes_sum"] != families["state_bytes_counted"]:
+        raise AssertionError(f"lm_dryrun {hcfg.name}: argument bytes != the "
+                             f"placed state's: {out['hybrid']}")
     cells = {}
     for shape in SHAPES:
         r = dryrun.run_cell(cfg.name, shape.name, multi_pod=False,
@@ -3370,7 +3889,9 @@ def main() -> int:
     paths["lm_generate"] = phase_lm_generate(card_name)
     paths["lm_train"] = phase_lm_train(card_name)
     paths["lm_mesh"] = phase_lm_mesh(card_name, paths["lm_train"])
-    paths["lm_dryrun"] = phase_lm_dryrun(card_name, paths["lm_mesh"])
+    paths["lm_mesh_families"] = phase_lm_mesh_families(card_name)
+    paths["lm_dryrun"] = phase_lm_dryrun(card_name, paths["lm_mesh"],
+                                         paths["lm_mesh_families"])
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",

@@ -34,7 +34,6 @@ from repro_torch.core.token_sampler import (
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import (
-    check_mesh_family,
     init_cache,
     init_model,
     mesh_decode_step,
@@ -106,7 +105,6 @@ def _act_specs(cfg: ModelConfig, mesh: DeviceMesh, bdim, seq_len: int):
 
 
 def build_train(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg):
-    check_mesh_family(cfg, mesh)
     model_sds = _params_sds(cfg)
     params = param_leaves(model_sds)
     opt = make_optimizer(cfg)
@@ -138,7 +136,6 @@ def build_train(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg):
 
 
 def build_prefill(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg):
-    check_mesh_family(cfg, mesh)
     model_sds = _params_sds(cfg)
     pspecs = param_specs(cfg, param_leaves(model_sds), mesh)
     batch_sds = input_specs(cfg, shape)
@@ -170,7 +167,6 @@ def build_prefill(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg):
 
 def build_decode(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
                  *, sampler: str = "ky"):
-    check_mesh_family(cfg, mesh)
     b, t = shape.global_batch, shape.seq_len
     model_sds = _params_sds(cfg)
     pspecs = param_specs(cfg, param_leaves(model_sds), mesh)

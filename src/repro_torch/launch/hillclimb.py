@@ -17,9 +17,9 @@ analytic roofline terms at H100 constants
 between mesh positions by kind).  The hypotheses are the reference's,
 word for word: they were written about its TPU terms, and the port's
 numbers test them again on the H100's.  Where the port refuses a
-variant (cell C: the hybrid family on a "model" axis, ROADMAP Queue 1
-item 4a; B's ``mb4_dots``: the "dots" remat on a mesh, item 4b) its dry
-run is ``skipped`` with that item, and its roofline is still recorded.
+variant (B's ``mb4_dots``: the "dots" remat on a mesh, ROADMAP Queue 1
+item 4b) its dry run is ``skipped`` with that item, and its roofline is
+still recorded.
 Results → reports/torch/perf/<cell>.json.
 
 Usage:

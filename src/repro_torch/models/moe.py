@@ -2,13 +2,20 @@
 
 Torch twin of ``repro.models.moe``: top-k routing with a static
 per-group capacity (groups are sequences); overflow tokens are dropped
-and their residual stream passes through unchanged.  Expert parallelism
-is not ported: on a mesh the experts are gathered whole onto each batch
-shard's home device, and a mesh whose "model" axis is wider than one
-refuses the family (ROADMAP Queue 1 item 4a).  ``aux`` also carries the
-router statistics as sums (``me_sum``, ``ce_sum``, ``z_sum``, ``n``), so
-a batch split over "data" gets the load-balance loss of the whole batch
-(:func:`moe_loss`).
+and their residual stream passes through unchanged.  ``aux`` also
+carries the router statistics as sums (``me_sum``, ``ce_sum``,
+``z_sum``, ``n``), so a batch split over "data" gets the load-balance
+loss of the whole batch (:func:`moe_loss`).
+
+On a mesh (:mod:`repro_torch.sharding.partition`) the router, top-k,
+capacity, dispatch and combine run on each batch shard's home device,
+as on one device (the router is replicated by spec).  The experts'
+products take the layout ``param_specs`` gives ``wi``/``wg``/``wo``
+(:func:`_experts`): expert parallel where "model" splits the experts
+(``E % model == 0``), column parallel inside each expert where it splits
+the expert ffn, whole at home where it splits neither.  The reference
+lets XLA insert the token all-to-all under those specs; here the
+dispatched blocks move by counted copies ("reshard").
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamModule, act_fn, normal_
+from repro_torch.sharding import partition
 
 
 class MoE(ParamModule):
@@ -82,13 +90,7 @@ def apply_moe(moe: MoE, cfg: ModelConfig, x: torch.Tensor
                         onehot, pos_oh, gate_vals * keep)
 
     xe = torch.einsum("bsd,bsec->becd", x, disp.to(dt))      # (B, E, C, D)
-    h = torch.einsum("becd,edf->becf", xe, moe.w("wi", dt))
-    if moe.has("wg"):
-        g = torch.einsum("becd,edf->becf", xe, moe.w("wg", dt))
-        h = act_fn(cfg.act, h, g)
-    else:
-        h = act_fn(cfg.act, h)
-    ye = torch.einsum("becf,efd->becd", h, moe.w("wo", dt))
+    ye = _experts(moe, cfg, xe)
     y = torch.einsum("becd,bsec->bsd", ye, comb.to(dt))
 
     # --- aux losses (Switch §2.2) ---------------------------------------
@@ -105,6 +107,51 @@ def apply_moe(moe: MoE, cfg: ModelConfig, x: torch.Tensor
         "n": b * s,
     }
     return y, aux
+
+
+def _expert_ffn(moe: MoE, cfg: ModelConfig, xe: torch.Tensor,
+                tp: int | None) -> torch.Tensor:
+    """The experts' hidden activations on ``xe`` (B, E', C, D), from the
+    ``wi``/``wg`` of "model" piece ``tp`` (the whole leaves with
+    ``None``)."""
+    dt = xe.dtype
+    h = torch.einsum("becd,edf->becf", xe, moe.w("wi", dt, tp))
+    if moe.has("wg"):
+        g = torch.einsum("becd,edf->becf", xe, moe.w("wg", dt, tp))
+        return act_fn(cfg.act, h, g)
+    return act_fn(cfg.act, h)
+
+
+def _experts(moe: MoE, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
+    """The dispatched tokens ``xe`` (B, E, C, D) through their experts,
+    on ``xe``'s device.  Where "model" splits the experts, "model" device
+    j gets its experts' block of ``xe``, computes it on its own pieces of
+    ``wi``/``wg``/``wo``, and the blocks come home in expert order.
+    Where it splits the expert ffn of ``wi``/``wg``, they are column
+    parallel: every "model" device gets ``xe`` and computes its block of
+    the hidden activations, and the blocks are brought home and joined;
+    ``wo`` is then applied whole at home, since the specs never split
+    its ffn (the rule for a 3-dim ``wo`` tries the experts alone)."""
+    dt = xe.dtype
+    sh = moe.leaf("wi")
+    devs = partition.tp_devices(sh)
+    if devs is None:
+        return torch.einsum("becf,efd->becd", _expert_ffn(moe, cfg, xe, None),
+                            moe.w("wo", dt))
+    pos = partition.tp_positions()
+    if sh.model_dim() == 0:                     # experts over "model"
+        el = xe.shape[1] // len(devs)
+        parts = []
+        for j, d in enumerate(devs):
+            xj = partition.move(xe[:, j * el:(j + 1) * el], d, pos[0],
+                                pos[j])
+            parts.append(torch.einsum("becf,efd->becd", _expert_ffn(
+                moe, cfg, xj, j), moe.w("wo", dt, j)))
+        return torch.cat(partition.to_home(parts, xe.device), dim=1)
+    hs = [_expert_ffn(moe, cfg, xj, j) for j, xj in enumerate(
+        partition.broadcast(xe, devs, pos, pos[0]))]
+    h = torch.cat(partition.to_home(hs, xe.device), dim=-1)
+    return torch.einsum("becf,efd->becd", h, moe.w("wo", dt))
 
 
 def moe_loss(auxes: list[dict], device) -> torch.Tensor:

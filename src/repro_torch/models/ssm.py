@@ -9,6 +9,15 @@ float32 operands here.
 Layout: x is split into H heads of P dims (d_inner = H·P); B/C live in G
 groups of N state dims.  A is a per-head negative scalar, dt a per-head
 softplus rate.
+
+On a mesh (:mod:`repro_torch.sharding.partition`) the projections take
+the layout ``param_specs`` gives them.  Where "model" splits the fused
+``in_proj`` (on Z, in equal blocks that cut across the z/x/B/C/dt
+segments) or a split projection, it is column parallel: the input goes
+to the "model" devices, each computes its block, and the blocks are
+brought home and joined (:func:`_in_projections`).  The conv, the SSD
+scan and the gate then run whole on the home device.  ``out_proj``
+split on its rows is row parallel (:func:`_out_projection`).
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamModule, normal_, repeat_heads
+from repro_torch.sharding import partition
 
 
 class SSM(ParamModule):
@@ -142,16 +152,14 @@ def apply_ssm(
     dt_ = u.dtype
 
     if ssm.has("in_proj"):
-        zxbcdt = u @ ssm.w("in_proj", dt_)
+        zxbcdt, = _in_projections(ssm, ("in_proj",), u)
         z = zxbcdt[..., :di]
         xbc = zxbcdt[..., di: 2 * di + 2 * g * n]
         dt_raw = zxbcdt[..., 2 * di + 2 * g * n:]
     else:  # split projections (ssm_split_proj)
-        z = u @ ssm.w("z_proj", dt_)
-        xbc = torch.cat(
-            [u @ ssm.w("x_proj", dt_), u @ ssm.w("b_proj", dt_),
-             u @ ssm.w("c_proj", dt_)], dim=-1)
-        dt_raw = u @ ssm.w("dt_proj", dt_)
+        z, xp, bp, cp, dt_raw = _in_projections(
+            ssm, ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj"), u)
+        xbc = torch.cat([xp, bp, cp], dim=-1)
     dt = F.softplus(dt_raw.float() + ssm.p("dt_bias"))
     a = -torch.exp(ssm.p("a_log"))                       # (H,) negative
 
@@ -182,8 +190,44 @@ def apply_ssm(
 
     y = y + x * ssm.w("d_skip", dt_)[None, None, :, None]
     y = y.reshape(bsz, s, di) * F.silu(z)
-    out = y @ ssm.w("out_proj", dt_)
-    return out, new_state
+    return _out_projection(ssm, y), new_state
+
+
+def _in_projections(ssm: SSM, names, u: torch.Tensor) -> list:
+    """``u @ w`` for each projection of ``names``, whole on ``u``'s
+    device.  A projection the spec splits over "model" is column
+    parallel: ``u`` goes to the "model" devices (once for all of them),
+    each computes its block of columns, and the blocks are brought home
+    and joined in order."""
+    dt = u.dtype
+    devs = [partition.tp_devices(ssm.leaf(n)) for n in names]
+    split = next((d for d in devs if d is not None), None)
+    if split is not None:
+        pos = partition.tp_positions()
+        us = partition.broadcast(u, split, pos, pos[0])
+    out = []
+    for name, d in zip(names, devs):
+        if d is None:
+            out.append(u @ ssm.w(name, dt))
+            continue
+        parts = [uj @ ssm.w(name, dt, j) for j, uj in enumerate(us)]
+        out.append(torch.cat(partition.to_home(parts, u.device), dim=-1))
+    return out
+
+
+def _out_projection(ssm: SSM, y: torch.Tensor) -> torch.Tensor:
+    """``y @ out_proj`` on ``y``'s device; row parallel where the spec
+    splits ``out_proj``'s rows over "model": piece j of ``y`` goes to
+    "model" device j, and the partial products are added home in device
+    order."""
+    dt = y.dtype
+    devs = partition.tp_devices(ssm.leaf("out_proj"))
+    if devs is None:
+        return y @ ssm.w("out_proj", dt)
+    pos = partition.tp_positions()
+    parts = [partition.move(yj, d, pos[0], pos[j]) @ ssm.w("out_proj", dt, j)
+             for j, (d, yj) in enumerate(zip(devs, y.chunk(len(devs), -1)))]
+    return partition.reduce_sum(parts, y.device, pos, pos[0])
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -24,11 +24,14 @@ every parameter is a :class:`Sharded` laid out by ``param_specs``, and
 :func:`mesh_loss`, :func:`mesh_forward` and :func:`mesh_decode_step`
 run the same layer bodies over the batch shards: the layer loop runs
 per device (each layer's gathers made once for every shard, inside its
-remat), and the loss is normalized by the global token count.  A mesh
-whose "model" axis is wider than one takes the dense, vlm and
-encoder-decoder families (attention and MLP tensor parallel); the MoE,
-SSM and hybrid families raise ``NotImplementedError`` there (ROADMAP
-Queue 1 item 4a).
+remat), and the loss is normalized by the global token count.  On a
+"model" axis wider than one every family is tensor parallel where its
+specs split a leaf over "model": attention on heads, the MLP on its
+ffn, the MoE on experts or on the expert ffn (``moe.py``), the SSM's
+projections (``ssm.py``); the conv, the SSD scan and the hybrid's
+attention when its heads do not divide the axis run whole on each batch
+shard's home device.  The decode step brings a split SSM state home and
+writes its pieces back (:func:`_ssm_state`).
 """
 from __future__ import annotations
 
@@ -164,20 +167,6 @@ def param_leaves(model: LM) -> dict:
     return {k: out[k] for k in sorted(out, key=lambda k: k.split("/"))}
 
 
-_MODEL_AXIS_FAMILIES = ("dense", "vlm", "encdec", "audio")
-
-
-def check_mesh_family(cfg: ModelConfig, mesh) -> None:
-    """Raise for a family whose "model"-axis sharding is not ported."""
-    if mesh.shape.get("model", 1) > 1 and \
-            cfg.family not in _MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a 'model' axis of "
-            f"{mesh.shape['model']} (MoE experts, the SSM's in_proj and "
-            "split projections, hybrid layers) is not ported to "
-            "repro_torch (ROADMAP Queue 1 item 4a); use a D x 1 mesh")
-
-
 @torch.no_grad()
 def place_model(mesh, model: LM, specs: dict | None = None) -> LM:
     """Lay ``model``'s parameters out on ``mesh`` by ``specs`` (default
@@ -186,7 +175,6 @@ def place_model(mesh, model: LM, specs: dict | None = None) -> LM:
     the model."""
     if model.mesh is not None:
         raise ValueError("the model is already placed on a mesh")
-    check_mesh_family(model.cfg, mesh)
     if specs is None:
         specs = specs_lib.param_specs(model.cfg, param_leaves(model), mesh)
     for name, m, n in list(_named_leaves(model)):
@@ -701,23 +689,56 @@ def decode_step(
     return logits, cache
 
 
-def _cache_blocks(sh, i: int, li: int, tp: int) -> tuple[list, str]:
-    """Batch shard ``i``'s blocks of layer ``li`` of a placed cache field
-    (one a "model" block), and how ``cache_specs`` split it."""
-    spec = sh.spec
+def _cache_blocks(sh, i: int, li: int, tp: int) -> list:
+    """Batch shard ``i``'s blocks of layer ``li`` of a placed cache field,
+    one a "model" device in order (one block when "model" does not split
+    the field)."""
     md = sh.model_dim()
-    layout = {None: "whole", 2: "seq", 3: "kv"}.get(md)
-    if layout is None:
-        raise NotImplementedError(f"a cache split over 'model' on dim {md}")
     blocks = []
     for j in range(tp if md is not None else 1):
-        c = [0] * len(spec)
-        if spec[1] is not None:
+        c = [0] * len(sh.spec)
+        if sh.spec[1] is not None:
             c[1] = i
         if md is not None:
             c[md] = j
         blocks.append(sh.shards[tuple(c)][li])
-    return blocks, layout
+    return blocks
+
+
+def _kv_blocks(sh, i: int, li: int, tp: int) -> tuple[list, str]:
+    """:func:`_cache_blocks` of a KV field, and how ``cache_specs`` split
+    it: ``"whole"``, ``"seq"`` (positions) or ``"kv"`` (kv heads)."""
+    layout = {None: "whole", 2: "seq", 3: "kv"}[sh.model_dim()]
+    return _cache_blocks(sh, i, li, tp), layout
+
+
+def _ssm_state(run, cache: dict, i: int, li: int):
+    """Batch shard ``i``'s SSM state of layer ``li`` whole on its home
+    device, and a function that writes an updated state back.  Where
+    ``cache_specs`` splits a field over "model" (``ssm_h`` on heads,
+    ``ssm_conv`` on channels), its blocks are brought home and joined,
+    and each block is later written its piece of the update; both are
+    counted copies ("reshard")."""
+    pos = partition.tp_positions()
+    home = run.device(i)
+    fields = {}
+    for key, name in (("h", "ssm_h"), ("conv", "ssm_conv")):
+        sh = cache[name]
+        # the split dim of one layer's block (the stacked spec less L)
+        fields[key] = (_cache_blocks(sh, i, li, run.tp),
+                       (sh.model_dim() or 1) - 1)
+    state = {k: blocks[0] if len(blocks) == 1 else torch.cat(
+        [partition.move(b, home, pos[j], pos[0])
+         for j, b in enumerate(blocks)], dim)
+        for k, (blocks, dim) in fields.items()}
+
+    def write(new: dict) -> None:
+        for k, (blocks, dim) in fields.items():
+            for j, (b, piece) in enumerate(zip(
+                    blocks, new[k].chunk(len(blocks), dim))):
+                b.copy_(partition.move(piece, b.device, pos[0], pos[j]))
+
+    return state, write
 
 
 @torch.no_grad()
@@ -737,17 +758,14 @@ def mesh_decode_step(model: LM, run, tokens: list, pos: int,
     def layer(li, lp, w, i, x):
         freqs = rope_freqs(cfg, x.device)
         if kind in ("ssm", "hybrid"):
-            h_blk = _cache_blocks(cache["ssm_h"], i, li, run.tp)[0][0]
-            c_blk = _cache_blocks(cache["ssm_conv"], i, li, run.tp)[0][0]
-            st_in = {"h": h_blk, "conv": c_blk}
+            st_in, write_state = _ssm_state(run, cache, i, li)
         if kind == "ssm":
             h, st = ssm_lib.apply_ssm(lp.ssm, cfg, lp.ln1(x), state=st_in)
-            h_blk.copy_(st["h"])
-            c_blk.copy_(st["conv"])
+            write_state(st)
             return x + h
         blocks, layout = {}, "whole"
         for kk in kv_names:
-            blocks[kk], layout = _cache_blocks(cache[kk], i, li, run.tp)
+            blocks[kk], layout = _kv_blocks(cache[kk], i, li, run.tp)
         if kind == "hybrid":
             hn = lp.ln1(x)
             a = attn_lib.attend_mesh_decode(lp.attn, cfg, hn, freqs=freqs,
@@ -756,15 +774,14 @@ def mesh_decode_step(model: LM, run, tokens: list, pos: int,
             s, st = ssm_lib.apply_ssm(lp.ssm, cfg, hn, state=st_in)
             x = x + 0.5 * (a + s)
             x = x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
-            h_blk.copy_(st["h"])
-            c_blk.copy_(st["conv"])
+            write_state(st)
             return x
         x = x + attn_lib.attend_mesh_decode(
             lp.attn, cfg, lp.ln1(x), freqs=freqs, window=w, cache=blocks,
             pos=pos, layout=layout)
         if kind == "dec":
-            xk, lay = _cache_blocks(cache["xk"], i, li, run.tp)
-            xv, _ = _cache_blocks(cache["xv"], i, li, run.tp)
+            xk, lay = _kv_blocks(cache["xk"], i, li, run.tp)
+            xv, _ = _kv_blocks(cache["xv"], i, li, run.tp)
             x = x + attn_lib.attend_mesh_decode(
                 lp.cross, cfg, lp.lnx(x), freqs=None, window=0,
                 cache={"k": xk, "v": xv}, pos=None, layout=lay)

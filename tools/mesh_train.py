@@ -8,9 +8,12 @@ one device, the 1 x 1 baseline) and then its ``lm_mesh`` phase in one
 process: the 2 x 2 mesh over ``cuda:0..3`` on a host with four cards,
 else over ``cuda:0`` four times; the identities against one device at
 full width cut to 2 layers (float32 and bf16), the small cases, the
-builders' cells and the checkpoints; then its ``lm_dryrun`` phase (the
-dry run of the same step over ``meta`` devices held against what
-``lm_mesh`` counted).  Prints each phase's JSON lines after the card's
+builders' cells and the checkpoints; then its ``lm_mesh_families``
+phase (hymba-1.5b trained and served, llama4-scout served, mamba2-130m
+trained and served on the same mesh, with their identities); then its
+``lm_dryrun`` phase (the dry run of the phi4-mini and hymba steps over
+``meta`` devices held against what ``lm_mesh`` and ``lm_mesh_families``
+counted).  Prints each phase's JSON lines after the card's
 name and power limit; any failed identity exits non-zero.  Imports
 torch and the port only.
 """
@@ -43,7 +46,11 @@ def main() -> int:
     out = cs.phase_lm_mesh(card, one)
     cs.emit({"phase": "lm_mesh_seconds", "s": time.perf_counter() - t0,
              **out})
-    cs.phase_lm_dryrun(card, out)
+    t0 = time.perf_counter()
+    fam = cs.phase_lm_mesh_families(card)
+    cs.emit({"phase": "lm_mesh_families_seconds",
+             "s": time.perf_counter() - t0})
+    cs.phase_lm_dryrun(card, out, fam)
     return 0
 
 
