@@ -13,7 +13,9 @@ line is printed:
    PyTorch version on the card, on the same key and inputs; all four
    KYResult fields must be equal; lane shards (``lane0``) of one launch
    equal its rows, and a ``lane0`` past 2**32 words equals the plain
-   version.
+   version; a row map equal to the contiguous layout gives the unmapped
+   launch's rows, and a scattered one the rows it names and the plain
+   version's fields.
 4. serve — ``PosteriorEngine.answer_batch`` on hailfinder_scale (56
    nodes, engine defaults but a 32-sweep burn-in, budget 2048) with
    ``sampler="cuda"``: 64 synthetic queries
@@ -70,21 +72,33 @@ line is printed:
    bit; one 500 x 333 ``MrfQuery`` and one side-256 ``IsingQuery``
    sharded and unsharded, bitwise; a lane-padding case (6 chains a
    query) within 0.05 of exact.
-14. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
+14. serve_model_axis — the serve mesh's "model" axis on a 2 x 2
+   ``make_serve_mesh`` over ``cuda:0..3`` (else the card four times):
+   ``ising_torus(1024)`` (1,048,576 spins) and ``random_sparse_ising(
+   2**20)`` held as site blocks, IsingQuery traffic cold and warm with
+   ``sampler="cuda"``, one fused launch a (batch shard, block, colour)
+   with a row map, bitwise against the 1-D batch mesh and (the torus)
+   against ``sampler="torch"``; a random Bayes net whose 5,668,276-element
+   log-CPT bank splits into bank blocks and one whose odd bank stays
+   whole, bitwise against the 1-D mesh; the bytes a colour update copies
+   between "model" positions counted by ``partition.KINDS`` equal to the
+   plans' reckoning; the largest site-block launch re-run against its
+   recorded result and the plain version, timed beside its bound.
+15. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
    streams x 4 slices (``synthetic_stream_traffic``), replayed open-loop
    at 4x the measured one-at-a-time rate through the deadline scheduler:
    queries/s, p50/p99 ms, speedup, every later slice warm-started, the
    trace and metrics exports parsed; the card's busy share by
    torch.profiler over a second replay; a sprinkler stream within 0.03
    of exact slice by slice.
-15. serve_wire — a two-worker ``WorkerPool`` on the card behind
+16. serve_wire — a two-worker ``WorkerPool`` on the card behind
    ``ServeFrontEnd`` (127.0.0.1, ephemeral port): one /v2/batch of 16
    hailfinder_scale queries, a MAP query and a scribble-mask
    ``MrfQuery`` at 500 x 333, each response bitwise equal to the
    in-process ``answer_batch``; a WebSocket stream of 3 slices of one
    stream (slices 1-2 warm-started); a 429 on a quota overrun;
    ``/healthz``, ``/stats``, ``/metrics``.
-16. ky_sampler — the stand-alone kernel API's KY sampler,
+17. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
@@ -92,11 +106,11 @@ line is printed:
    equal to the plain version on the card; bits per sample beside
    ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
    call (``call_ms``) and of its bit words alone (``words_ms``).
-17. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+18. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
-18. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+19. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
    S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
    at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
    float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
@@ -104,7 +118,7 @@ line is printed:
    same inputs; the bfloat16 and float16 cases also per row, within 2e-2
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
-19. lm_generate — the LM serving path (``models.sampling.generate``, the
+20. lm_generate — the LM serving path (``models.sampling.generate``, the
    ``--arch`` half of ``launch/serve.py``) on the card at full width with
    random weights from a seeded generator: phi4-mini-3.8b (bf16, 32
    layers, vocab 200,064) and mamba2-130m, batch 4, prompt 16, 32 new
@@ -118,7 +132,7 @@ line is printed:
    bit for bit on the same integer weights.  No kernel of the port is on
    this path (the reference's models call no Pallas kernel, and its KY
    token walks are plain XLA): every launch count must stay 0 over it.
-20. lm_train — first every family at smoke size, the card against the
+21. lm_train — first every family at smoke size, the card against the
    CPU: loss and every gradient leaf, one train step for each optimizer
    kind, microbatch 2 against the full batch.  Then the training path
    (``launch/train.py``'s loop: ``init_train_state``, ``make_train_step``,
@@ -133,7 +147,7 @@ line is printed:
    once more, equal to the live state's next step bit for bit; zero
    retries.  No kernel of the port is on this path either: every launch
    count must stay 0 over it.
-21. lm_mesh — the training path on a ("data", "model") mesh
+22. lm_mesh — the training path on a ("data", "model") mesh
    (``launch/train.py --mesh 2x2``: ``place_model``, ``init_train_state``,
    ``make_train_step(mesh=)``, ``StepGuard``): phi4-mini-3.8b at full
    width with its config's settings on a 2 x 2 mesh over
@@ -153,11 +167,11 @@ line is printed:
    equal; a 2 x 2 checkpoint restored onto 4 x 1 and 1 x 1 bit for bit,
    the restored next step bitwise, two mesh steps bitwise.  No kernel of
    the port: every launch count must stay 0.
-   Phase 21 also holds, against one device, a train step of the MoE with
+   Phase 22 also holds, against one device, a train step of the MoE with
    its experts over "model" (llama4 and grok-1 smoke on 2 x 2) and with
    its expert ffn over "model" (grok-1 smoke on 1 x 4) and of the hybrid
    (hymba smoke on 2 x 2), and hymba smoke's builders' cells.
-22. lm_mesh_families — the MoE, SSM and hybrid families on a "model"
+23. lm_mesh_families — the MoE, SSM and hybrid families on a "model"
    axis of 2 (LM_FAMILIES_MESH), over ``mesh_devices(4)``:
    hymba-1.5b at full width and depth with its config's training
    settings, batch 8 x 128, 1 warm-up and 2 timed steps on 1 x 1 and on
@@ -175,23 +189,23 @@ line is printed:
    LM_SSM_MESH_LOGIT_BF16); hymba's 2 x 2 step against 1 x 1 at 2 layers
    in float32 and bf16 (LM_MESH_TOL, LM_MESH_BF16).  No kernel of the
    port: every launch count must stay 0.
-23. lm_dryrun — the planning tools (``launch/dryrun.py``,
-   ``launch/roofline.py``) held against phases 21 and 22: the dry run of
+24. lm_dryrun — the planning tools (``launch/dryrun.py``,
+   ``launch/roofline.py``) held against phases 22 and 23: the dry run of
    the same configuration (phi4-mini-3.8b at full width, 2 x 2, batch 8 x
    128, microbatch 2, remat "full", AdamW) over four ``meta`` devices,
    one layer traced and scaled, must count the bytes between mesh
-   positions phase 21 counted within 0.01 % (the layout's reckoning
+   positions phase 22 counted within 0.01 % (the layout's reckoning
    printed beside them), and its argument bytes summed over positions
    must equal the bytes of the placed state's shards counted from the
    tensors; its transient bytes are printed beside the measured peak
    less that state (no gate); the same two checks for hymba-1.5b's 2 x 2
-   step of phase 22.  Then phi4-mini's four production cells on the 16 x
+   step of phase 23.  Then phi4-mini's four production cells on the 16 x
    16 mesh of ``meta`` devices: status, GB a device, bottleneck and
    roofline fraction at H100 constants.  No kernel launches; at most 120
    s.
 
-Phases 4, 7, 8 and 10-23 each zero their kernel's launch count (phases
-19-23: every kernel's) just before their main path and read it just
+Phases 4, 7, 8 and 10-24 each zero their kernel's launch count (phases
+20-24: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
 ``lm_train``, ``lm_mesh``, ``lm_mesh_families`` and ``lm_dryrun`` with 0
@@ -229,6 +243,10 @@ KERNEL_SHAPES = ((7, 3), (300, 5), (4096, 16), (20000, 5), (65536, 2))
 LANE0_SHAPE = (20000, 5)
 LANE0_BLOCKS = ((0, 7000), (7000, 13000), (13000, 20000))
 LANE0_FAR = 1 << 40
+# row-map cases: 160 chains of a colour of 125 nodes, one launch; the
+# contiguous map, and 37 scattered columns from chain 0, from chain 23 and
+# from a chain whose counters pass 2**32
+ROW_MAP = dict(chains=160, nodes=125, cols=37, lane0=(0, 23, 1 << 36))
 # benchmarks/bench_ky_vs_cdf.py: 65536 rows, n in {4, 16, 64}, alpha 0.3
 KY_SHAPES = ((65536, 4), (65536, 16), (65536, 64))
 KY_RAGGED = (133, 7)
@@ -305,6 +323,23 @@ MESH_GIBBS = dict(rows=2, cols=2, identity_sweeps=10, sweeps=200,
 SHARD_WAYS = 4
 SHARDED_PAD = dict(chains_per_query=6, burn_in=64, max_rounds=48, seed=7,
                    n_samples=16384, tol=0.05)
+# The serve mesh's "model" axis: a 2 x 2 serve mesh over mesh_devices(4).
+# ising_torus at side 1024 (1,048,576 spins, the reference's
+# SERVE_SITE_SHARD_ELEMS exactly: site blocks of 524,288), 4 IsingQuery
+# over 2 clamp patterns, 2 chains a query; random_sparse_ising(2**20), 2
+# queries; random_bayesnet(64, max_parents=8, max_card=6) at seed 4 (a
+# log-CPT bank of 5,668,276 elements, past SERVE_CPT_SHARD_ELEMS =
+# 4,194,304 and even: two bank blocks) and at seed 7 (4,571,943, odd: kept
+# whole), 8 and 4 queries at the serve phases' cut depth.  The factor
+# graphs' depth is cut to 1 burn-in and 4 rounds of 1 sweep, so that the
+# sampler="torch" passes over 4,194,304 rows a sweep stay near 20 s.
+MODEL_AXIS = dict(shape=(2, 2), torus_side=1024, glass_n=1 << 20,
+                  torus_queries=4, torus_patterns=2, glass_queries=2,
+                  bn=dict(n_nodes=64, max_parents=8, max_card=6),
+                  bn_split_seed=4, bn_whole_seed=7, bn_queries=(8, 4),
+                  bn_patterns=2, seconds=180)
+MODEL_AXIS_DEPTH = dict(chains_per_query=2, burn_in=1, sweeps_per_round=1,
+                        max_rounds=4, seed=0)
 # Metropolis at full size on the card (penguin 500 x 333, 16 chains; the
 # 65,536-spin sparse glass, 8 chains), and the card against the CPU at a
 # reduced size, bit for bit
@@ -466,16 +501,17 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def fused_bound_ms(b: int, L: int, words_made: int, bits_total: int,
-                   lut_nodes: int) -> tuple[float, str]:
+                   lut_nodes: int, map_cols: int = 0) -> tuple[float, str]:
     """Least time the card could take for one fused launch, and what
     bounds it (see :func:`roofline`).  Bytes: each input the function
-    needs read once — the L log-weights and the card of every lane and
-    the LUT once — and the 13 output bytes of every lane written once
-    (the kernel makes its bit words, so none are read).  Ops: ~10 float32
-    per label for the weight tail, ~4 per label per DDG level walked (this
-    launch's bits), and one threefry per word the cursors reached
-    (``words_made``, from this launch's ``bits_used``)."""
-    nbytes = b * (4 * L + 4 + 13) + 4 * lut_nodes
+    needs read once — the L log-weights and the card of every lane, the
+    LUT once and a row map's ``map_cols`` int64 columns once — and the 13
+    output bytes of every lane written once (the kernel makes its bit
+    words, so none are read).  Ops: ~10 float32 per label for the weight
+    tail, ~4 per label per DDG level walked (this launch's bits), and one
+    threefry per word the cursors reached (``words_made``, from this
+    launch's ``bits_used``)."""
+    nbytes = b * (4 * L + 4 + 13) + 4 * lut_nodes + 8 * map_cols
     ops = b * L * 10 + bits_total * L * 4 + words_made * THREEFRY_OPS
     return roofline(nbytes, ops, FP32_OPS_PER_S)
 
@@ -550,9 +586,37 @@ def phase_kernel_vs_plain(device) -> dict:
         cases.append(dict(b=hi - lo, L=L, k=14, use_iu=True, lane0=lane0,
                           equal=eq_plain and eq_rows, max_abs_err=err,
                           ok_all=bool(got.ok.all())))
+    # row maps: the contiguous map (N, arange(N)) gives the unmapped
+    # launch's rows; a scattered map gives the rows it names of the whole
+    # launch and the plain version's fields, also where the counters pass
+    # 2**32 (the far case has no whole launch to name)
+    chains, nodes = ROW_MAP["chains"], ROW_MAP["nodes"]
+    key, logw, card = kernel_inputs(chains * nodes, L, 19, device)
+    full = fs.fused_gibbs_sample(key, logw, card, k=14)
+    scattered = torch.tensor(sorted(np.random.default_rng(0).choice(
+        nodes, ROW_MAP["cols"], replace=False)), device=device)
+    for lane0, colpos in [(0, torch.arange(nodes, device=device))] + [
+            (lane0, scattered) for lane0 in ROW_MAP["lane0"]]:
+        first = lane0 if lane0 < chains else 0     # the far case: chain 0
+        named = ((first + torch.arange(chains - first, device=device)[:, None])
+                 * nodes + colpos).reshape(-1)
+        got = fs.fused_gibbs_sample(key, logw[named], card[named], k=14,
+                                    lane0=lane0, row_map=(nodes, colpos))
+        want = fs.fused_gibbs_sample_ref(key, logw[named], card[named],
+                                         k=14, lane0=lane0,
+                                         row_map=(nodes, colpos))
+        torch.cuda.synchronize()
+        eq_plain, err = result_err(got, want)
+        eq_rows = (lane0 >= chains
+                   or result_err(got, [f[named] for f in full])[0])
+        cases.append(dict(b=len(named), L=L, k=14, use_iu=True, lane0=lane0,
+                          row_map=[nodes, colpos.numel()],
+                          equal=eq_plain and eq_rows, max_abs_err=err,
+                          ok_all=bool(got.ok.all())))
     bad = [c for c in cases if not c["equal"]]
     emit({"phase": "kernel_vs_plain", "cases": len(cases),
           "lane0_cases": sum("lane0" in c for c in cases),
+          "row_map_cases": sum("row_map" in c for c in cases),
           "all_equal": not bad, "failures": bad})
     if bad:
         raise AssertionError(f"fused kernel != plain version: {bad}")
@@ -583,7 +647,8 @@ def record_main_path(keep_all: bool = True):
     mods = (compile_mod, gibbs_mod, sparse_mod, mesh_mod)
     fused, step = fs.fused_gibbs_sample, GroupRun.step
     bit_words = rng.random_bit_words
-    rec = {"calls": [], "per_round": Counter(), "word_calls": 0}
+    rec = {"calls": [], "per_round": Counter(), "word_calls": 0,
+           "row_maps": Counter()}
     seen = set()
 
     def counting_bit_words(*args, **kw):
@@ -592,6 +657,9 @@ def record_main_path(keep_all: bool = True):
 
     def recording_fused(key, logw, card, **kw):
         res = fused(key, logw, card, **kw)
+        if kw.get("row_map") is not None:   # a site block's launch
+            stride, colpos = kw["row_map"]
+            rec["row_maps"][kw["lane0"], stride, colpos.data_ptr()] += 1
         if keep_all or tuple(logw.shape) not in seen:
             seen.add(tuple(logw.shape))
             rec["calls"].append((key, logw, card, kw, res))
@@ -634,24 +702,26 @@ def check_recorded(rec, path: str) -> None:
 
 
 def main_path_bound(rec) -> tuple[float, str]:
-    """Mean bound per launch over every launch of the main path, each from
-    its own shape and the bits its lanes used; a recorded call stands for
-    the launches of its shape that were not kept."""
+    """Mean bound per launch over every launch of the main path, each
+    from its own shape and the bits its lanes used; a recorded call
+    stands for the launches of its shape that were not kept."""
     import torch
 
+    calls = rec["calls"]
     per_call = torch.stack([torch.stack([
         ((res.bits_used.to(torch.int64) + 31) // 32).sum(),
-        res.bits_used.to(torch.int64).sum()]) for *_, res in rec["calls"]])
+        res.bits_used.to(torch.int64).sum()]) for *_, res in calls])
     per_call = per_call.cpu().tolist()
-    kept = Counter(tuple(c[1].shape) for c in rec["calls"])
+    kept = Counter(tuple(c[1].shape) for c in calls)
     total = weight = 0.0
     bys = Counter()
-    for (_, logw, _, kw, _), (words_made, bits) in zip(rec["calls"],
-                                                       per_call):
+    for (_, logw, _, kw, _), (words_made, bits) in zip(calls, per_call):
         b, L = logw.shape
         w = rec["shapes"][(b, L)] / kept[(b, L)]
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
-        bound, by = fused_bound_ms(b, L, words_made, bits, lut)
+        cols = (kw["row_map"][1].numel()
+                if kw.get("row_map") is not None else 0)
+        bound, by = fused_bound_ms(b, L, words_made, bits, lut, cols)
         total += bound * w
         weight += w
         bys[by] += w
@@ -660,10 +730,10 @@ def main_path_bound(rec) -> tuple[float, str]:
 
 def phase_main_path_kernel(rec) -> dict:
     """The kernel at the main path's own inputs: for each (b, L) the serve
-    passes launched, its first recorded call is launched again through
-    the wrapper and must equal both the recorded result and the plain
-    version; then timed.  ``ms`` is the kernel's device time per launch,
-    100 launches back to back on a held card (:func:`cold_device_ms`:
+    passes launched, its first recorded call is launched again through the wrapper and must equal
+    both the recorded result and the plain version; then timed.  ``ms``
+    is the kernel's device time per launch, 100 launches back to back on
+    a held card (:func:`cold_device_ms`:
     CUDA events, not torch.profiler, whose CUDA-only captures have come
     back without a record of the kernel after the serve phase; the gaps
     between launches on the card count),
@@ -687,19 +757,21 @@ def phase_main_path_kernel(rec) -> dict:
         lane_card = fs._lane_card(card, b, logw.device)
         logw_c = logw.contiguous()
         lane0 = kw.get("lane0", 0)     # a lane shard's first global row
+        row_map = kw.get("row_map")    # a site block's rows
         opts = dict(k=kw["k"], use_iu=kw.get("use_iu", True),
                     table=kw["table"], mask_value=fs.MASK_NEG)
 
         def launch():
             return fs._launch(logw_c, lane_card, key, max_attempts=32,
-                              block_b=256, lane0=lane0, **opts)
+                              block_b=256, lane0=lane0, row_map=row_map,
+                              **opts)
 
         eq_rec, err_rec = result_err(again, res)
         eq_plain, err_plain = result_err(again, plain)
         if not (eq_rec and eq_plain):
             bad.append(dict(b=b, L=L, equals_recorded=eq_rec,
                             equals_plain=eq_plain))
-        words = fs._words(key, b, 32, logw.device, lane0)
+        words = fs._words(key, b, 32, logw.device, lane0, row_map)
         with torch.cuda.device(logw.device):    # events on the call's card
             rows.append(dict(
                 n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
@@ -708,7 +780,7 @@ def phase_main_path_kernel(rec) -> dict:
                 plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
                                                    **opts), 5, warmup=1),
                 words_ms=time_ms(lambda: fs._words(key, b, 32, logw.device,
-                                                   lane0), 20)))
+                                                   lane0, row_map), 20)))
     emit({"phase": "kernel_vs_plain_main_path", "shapes": len(rows),
           "all_equal": not bad, "failures": bad})
     if bad:
@@ -2036,6 +2108,286 @@ def phase_serve_sharded(card_name: str, devices, kind: str, traffic,
     out["grids"] = dict(path_entry(rec_g, kern_g))
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def shared_compiles():
+    """Each (model, evidence pattern) compiled once for all the engines
+    made in the block: the compiled program is host numpy and the same on
+    every mesh (each engine still builds its own runners, and the plan
+    tensors they place).  A million-spin graph takes seconds of host time
+    to colour and pack, which would otherwise be paid per engine."""
+    from repro_torch.serve import families
+
+    fams = (families.BAYESNET_FAMILY, families.ISING_FAMILY)
+    memo = {}
+
+    def memoized(compile_):
+        def compile(model, pattern, **kw):
+            key = (id(model), pattern, tuple(sorted(kw.items())))
+            if key not in memo:
+                memo[key] = compile_(model, pattern, **kw)
+            return memo[key]
+        return compile
+
+    for fam in fams:
+        fam.compile = memoized(fam.compile)
+    try:
+        yield memo
+    finally:
+        for fam in fams:
+            del fam.compile
+
+
+def kinds_bytes(kind: str) -> int:
+    """Bytes ``partition.KINDS`` counted under ``kind``, all segments."""
+    from repro_torch.sharding import partition
+
+    return sum(v[1] for (_, k), v in partition.KINDS.items() if k == kind)
+
+
+def counted_round_bytes(engine, name: str, query, lanes: int, kind: str,
+                        seed: int) -> dict:
+    """One round of the runner ``engine`` built for ``query``'s group, on
+    a state of ``lanes`` lanes: the bytes counted under ``kind`` between
+    "model" positions, beside the plans' reckoning (each batch shard's
+    colour updates' halo sites or bank lookups, times the round's
+    sweeps)."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.pgm.compile import blocked_lookup_bytes
+    from repro_torch.pgm.sparse_compile import halo_bytes
+    from repro_torch.serve.families import family_of
+    from repro_torch.sharding import partition
+    from repro_torch.sharding.specs import lane_bounds
+
+    fam = family_of(engine.networks[name])
+    pattern = group_pattern(engine, name, query)
+    prog, runner, _ = engine._plan(name, pattern)
+    ev = (torch.zeros(len(pattern), dtype=torch.int32, device=engine.device)
+          if pattern else None)
+    x = runner.place(fam.init_states(rng.PRNGKey(seed), prog, lanes, ev,
+                                     device=engine.device))
+    partition.reset_traffic()
+    runner(rng.PRNGKey(seed), x, 0)
+    torch.cuda.synchronize()
+    per_colour = []
+    for run, (lo, hi) in zip(runner.runners,
+                             lane_bounds(lanes, len(runner.runners))):
+        per_colour.append(
+            [halo_bytes(c, hi - lo) for c in run.colours] if kind == "halo"
+            else [blocked_lookup_bytes(p, hi - lo, prog.max_card,
+                                       len(run.log_cpt.parts))
+                  for p in prog.plans])
+    per_colour = [sum(c) for c in zip(*per_colour)]
+    return {"counted": kinds_bytes(kind),
+            "reckoned": engine.sweeps_per_round * sum(per_colour),
+            "per_colour_update": per_colour,
+            "state_bytes": kinds_bytes("state")}
+
+
+def phase_serve_model_axis(card_name: str, devices, kind: str) -> dict:
+    """The serve mesh's "model" axis on a 2 x 2 ``make_serve_mesh`` over
+    ``devices``.  Site blocks: ``ising_torus(1024)``'s IsingQuery traffic
+    and ``random_sparse_ising(2**20)``'s, cold and warm with
+    ``sampler="cuda"`` (the main path: counts zeroed just before, read
+    just after), each fused launch a (batch shard, block, colour) with a
+    row map, equal bit for bit to the same passes on the 1-D batch mesh
+    and, for the torus, to ``sampler="torch"`` on the 2 x 2 mesh.  Bank
+    blocks: a random Bayes net whose log-CPT bank crosses
+    ``SERVE_CPT_SHARD_ELEMS`` split in two, and one whose bank is odd kept
+    whole, served 2 x 2 against 1-D, bitwise.  Then the bytes a colour
+    update copies between "model" positions, counted by
+    ``partition.KINDS`` in one round of each runner, against the plans'
+    reckoning (equal); the launches per (batch shard, block, colour); the
+    first launch of every shape each path launched re-run against its
+    recorded result and the plain version and timed with a cold L2 beside
+    its bound (:func:`phase_main_path_kernel`, weighted by launches, as
+    every other path); queries/s and the peak memory of each card."""
+    import torch
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.pgm import networks
+    from repro_torch.pgm.compile import compile_bayesnet
+    from repro_torch.serve import cli
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.sharding import specs
+
+    t_phase = time.perf_counter()
+    m = MODEL_AXIS
+    mesh = make_serve_mesh(m["shape"], devices=devices)
+    flat = make_serve_mesh(m["shape"][:1], devices=devices[:m["shape"][0]])
+    torus = networks.ising_torus(m["torus_side"])
+    glass = networks.random_sparse_ising(m["glass_n"])
+    if not (torus.n_vars == specs.SERVE_SITE_SHARD_ELEMS
+            and "model" in specs.serve_fg_state_spec(mesh, torus.n_vars)
+            and "model" in specs.serve_fg_state_spec(mesh, glass.n_vars)):
+        raise AssertionError("serve_model_axis: the graphs do not split")
+    reg = {"ising_torus": torus, "glass": glass}
+    torus_q = cli.synthetic_ising_traffic(
+        torus, "ising_torus", m["torus_queries"], m["torus_patterns"],
+        np.random.default_rng(3), 256)
+    glass_q = cli.synthetic_ising_traffic(
+        glass, "glass", m["glass_queries"], 1, np.random.default_rng(4), 256)
+    traffic = {"ising_torus": torus_q, "glass": glass_q}
+    n_queries = len(torus_q) + len(glass_q)
+    cards = sorted(set(devices), key=str)
+
+    def passes(engines):
+        """Cold, then warm: each network's traffic through its engine."""
+        out = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = {k: e.answer_batch(traffic[k]) for k, e in engines.items()}
+            torch.cuda.synchronize()
+            out.append((res, time.perf_counter() - t0))
+        return out
+
+    def engines_on(mesh_, names=tuple(reg), **kw):
+        return {k: PosteriorEngine({k: reg[k]}, mesh=mesh_,
+                                   **MODEL_AXIS_DEPTH, **kw) for k in names}
+
+    with shared_compiles():
+        engines = engines_on(mesh)
+        assert all(e.sampler == "cuda" for e in engines.values())
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        with record_main_path(keep_all=False) as rec:     # the main path
+            (cold, cold_s), (warm, warm_s) = passes(engines)
+        check_recorded(rec, "serve_model_axis")
+        peak = {str(d): torch.cuda.max_memory_allocated(d) for d in cards}
+        (one_cold, one_cold_s), (one_warm, one_warm_s) = passes(
+            engines_on(flat))
+        (plain_cold, plain_cold_s), (plain_warm, plain_warm_s) = passes(
+            engines_on(mesh, ("ising_torus",), sampler="torch"))
+        same = {f"{k}_1d_{w}": same_results(a[k], b[k])
+                for w, a, b in (("cold", cold, one_cold),
+                                ("warm", warm, one_warm)) for k in reg}
+        same.update(torch_cold=same_results(cold["ising_torus"],
+                                            plain_cold["ising_torus"]),
+                    torch_warm=same_results(warm["ising_torus"],
+                                            plain_warm["ising_torus"]))
+        for res in (cold, warm):
+            for k in reg:
+                check_marginals(res[k], "serve_model_axis")
+        lanes = MODEL_AXIS_DEPTH["chains_per_query"] * m["torus_queries"] \
+            // m["torus_patterns"]
+        halo = {k: counted_round_bytes(engines[k], k, traffic[k][0], lanes,
+                                       "halo", seed)
+                for k, seed in (("ising_torus", 5), ("glass", 6))}
+        # one launch a (batch shard, block, colour) with nodes a sweep,
+        # each group's keys launched as often as the others'
+        want_keys = sum(
+            len(bp.local) > 0 for k, e in engines.items()
+            for p in {group_pattern(e, k, q) for q in traffic[k]}
+            for run in e._plan(k, p)[1].runners
+            for colour in run.colours for bp in colour)
+
+        bn_kw = m["bn"]
+        bns = {"bn_split": networks.random_bayesnet(
+            **bn_kw, seed=m["bn_split_seed"]),
+            "bn_whole": networks.random_bayesnet(
+            **bn_kw, seed=m["bn_whole_seed"])}
+        bn_q = (cli.synthetic_traffic(bns["bn_split"], "bn_split",
+                                      m["bn_queries"][0], m["bn_patterns"],
+                                      np.random.default_rng(5), 256)
+                + cli.synthetic_traffic(bns["bn_whole"], "bn_whole",
+                                        m["bn_queries"][1], 1,
+                                        np.random.default_rng(6), 256))
+        bank_elems = {k: int(compile_bayesnet(v).log_cpt.size)
+                      for k, v in bns.items()}
+        if not (min(bank_elems.values()) >= specs.SERVE_CPT_SHARD_ELEMS
+                and specs.serve_cpt_spec(mesh, bank_elems["bn_split"])
+                and not specs.serve_cpt_spec(mesh, bank_elems["bn_whole"])):
+            raise AssertionError(f"serve_model_axis: banks {bank_elems}")
+        bn_engine = PosteriorEngine(bns, mesh=mesh, **SERVE_DEPTH)
+        with record_main_path(keep_all=False) as rec_bn:   # a main path
+            bn_cold, bn_cold_s = timed_pass(bn_engine, bn_q)
+            bn_warm, bn_warm_s = timed_pass(bn_engine, bn_q)
+        check_recorded(rec_bn, "serve_model_axis bn")
+        bn_one = PosteriorEngine(bns, mesh=flat, **SERVE_DEPTH)
+        bn_one_cold, _ = timed_pass(bn_one, bn_q)
+        bn_one_warm, _ = timed_pass(bn_one, bn_q)
+        bn_same = {"1d_cold": same_results(bn_cold, bn_one_cold),
+                   "1d_warm": same_results(bn_warm, bn_one_warm)}
+        check_marginals(bn_cold + bn_warm, "serve_model_axis bn")
+        banks = {}
+        for name, q in (("bn_split", bn_q[0]), ("bn_whole", bn_q[-1])):
+            runner = bn_engine._plan(
+                name, group_pattern(bn_engine, name, q))[1]
+            banks[name] = [[tuple(p.shape) for p in r.log_cpt.parts]
+                           if isinstance(r.log_cpt, specs.ModelBlocks)
+                           else [tuple(r.log_cpt.shape)]
+                           for r in runner.runners]
+        bank_bytes = counted_round_bytes(
+            bn_engine, "bn_split", bn_q[0],
+            SERVE_DEPTH["chains_per_query"] * m["bn_queries"][0]
+            // m["bn_patterns"], "bank", 7)
+    per_key = Counter(rec["row_maps"].values())
+    out = {"phase": "serve_model_axis", "card": card_name, "devices": kind,
+           "mesh": mesh.shape, "spins": {"ising_torus": torus.n_vars,
+                                         "glass": glass.n_vars},
+           "bank_elements": bank_elems, "bank_blocks": banks,
+           "queries": n_queries, "launches": rec["launches"],
+           "block_launch_keys": len(rec["row_maps"]),
+           "block_launch_keys_expected": want_keys,
+           "launches_per_block_key": sorted(per_key.items()),
+           "launches_per_round": sorted(rec["per_round"].items()),
+           "host_word_calls": rec["word_calls"],
+           "cold_s": cold_s, "warm_s": warm_s,
+           "warm_qps": n_queries / warm_s,
+           "flat_cold_s": one_cold_s, "flat_warm_s": one_warm_s,
+           "flat_warm_qps": n_queries / one_warm_s,
+           "torch_cold_s": plain_cold_s, "torch_warm_s": plain_warm_s,
+           "equal": same, "halo": halo,
+           "halo_share_of_allgather": {
+               name: sum(h["per_colour_update"]) / (
+                   len(h["per_colour_update"]) * lanes * n * 4
+                   * (mesh.shape["model"] - 1))
+               for (name, h), n in zip(halo.items(),
+                                       (torus.n_vars, glass.n_vars))},
+           "peak_memory_bytes": peak,
+           "bn": {"launches": rec_bn["launches"], "equal": bn_same,
+                  "bank_bytes": bank_bytes, "cold_s": bn_cold_s,
+                  "warm_s": bn_warm_s,
+                  "warm_qps": len(bn_q) / bn_warm_s},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if not all(same.values()) or not all(bn_same.values()):
+        raise AssertionError(f"serve_model_axis: 2 x 2 != 1-D or cuda != "
+                             f"torch: {same}, {bn_same}")
+    for name, h in list(halo.items()) + [("bank", bank_bytes)]:
+        if not h["counted"] == h["reckoned"] > 0:
+            raise AssertionError(f"serve_model_axis {name}: counted "
+                                 f"{h['counted']} != reckoned {h['reckoned']}")
+    if banks["bn_whole"][0] != [(bank_elems["bn_whole"],)] or any(
+            b != [(bank_elems["bn_split"] // 2,)] * 2
+            for b in banks["bn_split"]):
+        raise AssertionError(f"serve_model_axis: bank placement {banks}")
+    if len(per_key) != 1 or len(rec["row_maps"]) != want_keys:
+        raise AssertionError(f"serve_model_axis: launches per (shard, "
+                             f"block, colour) {sorted(per_key.items())}, "
+                             f"{len(rec['row_maps'])} of {want_keys} keys")
+    kern = phase_main_path_kernel(rec)
+    bn_kern = phase_main_path_kernel(rec_bn)
+    rec["calls"].clear()
+    rec_bn["calls"].clear()
+    del engines, bn_engine, bn_one
+    torch.cuda.empty_cache()
+    return (dict(path_entry(rec, kern), warm_qps=out["warm_qps"],
+                 flat_warm_qps=out["flat_warm_qps"]),
+            dict(path_entry(rec_bn, bn_kern),
+                 warm_qps=out["bn"]["warm_qps"]))
+
+
+def group_pattern(engine, name: str, query) -> tuple:
+    """The evidence pattern ``engine`` groups ``query`` under."""
+    from repro_torch.serve.families import family_of
+
+    model = engine.networks[name]
+    return family_of(model).normalize(model, query)[2]
 
 
 def first_difference(a, b):
@@ -3881,6 +4233,8 @@ def main() -> int:
     paths["serve_sharded"] = sharded["bn"]
     paths["serve_sharded_grids"] = sharded["grids"]
     del serve_cold
+    paths["serve_model_axis"], paths["serve_model_axis_bn"] = \
+        phase_serve_model_axis(card_name, devices, kind)
     paths["serve_stream"] = phase_serve_stream(card_name)
     paths["serve_wire"] = phase_serve_wire(card_name)
     ky = phase_ky_sampler(device)

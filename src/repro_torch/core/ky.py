@@ -136,6 +136,7 @@ def ky_sample(
     max_attempts: int = 32,
     bit_words: torch.Tensor | None = None,
     lane0: int = 0,
+    row_map=None,
 ) -> KYResult:
     """Draw one exact sample per lane from non-normalized int32 weights.
 
@@ -147,6 +148,9 @@ def ky_sample(
       bit_words: optional pre-generated (..., W) int32 bit stream.
       lane0: global index of the first lane: lane ``i`` reads the words
         of lane ``lane0 + i`` of the key's draw (a lane shard's rows).
+      row_map: optional ``(N, colpos)``: lane ``i`` reads the words of
+        global row ``(lane0 + i // n_loc) * N + colpos[i % n_loc]``
+        (:func:`repro_torch.core.rng.mapped_rows`; a site block's rows).
 
     Returns KYResult with ``sample`` shaped like ``weights[..., 0]``.
     """
@@ -159,7 +163,8 @@ def ky_sample(
     k_static = 31  # static per-attempt level cap (int32 weights)
     if bit_words is None:
         bit_words = rng_lib.random_bit_words(
-            key, (b,), k_static * max_attempts, device=w.device, lane0=lane0)
+            key, (b,), k_static * max_attempts, device=w.device, lane0=lane0,
+            row_map=row_map)
     else:
         bit_words = bit_words.reshape((b, -1))
 

@@ -87,14 +87,20 @@ def bits(key, shape: tuple, device=None, offset: int = 0) -> torch.Tensor:
     ``[0, 2**32)``, generated on ``device``.  ``offset`` starts the
     counters there: element ``i`` hashes counter ``offset + i``, so a
     slice of a larger draw is made without the rest of it."""
-    k0, k1 = _key_words(key)
     n = 1
     for s in shape:
         n *= int(s)
     idx = torch.arange(int(offset), int(offset) + n, dtype=torch.int64,
                        device=device)
+    return _counter_bits(key, idx).reshape(tuple(shape))
+
+
+def _counter_bits(key, idx: torch.Tensor) -> torch.Tensor:
+    """The words of the int64 counters ``idx`` (values in ``[0, 2**64)``
+    held below 2**63) under ``key``, as int64 values in ``[0, 2**32)``."""
+    k0, k1 = _key_words(key)
     a, b = _threefry2x32(k0, k1, idx >> 32, idx & _MASK)
-    return (a ^ b).reshape(tuple(shape))
+    return a ^ b
 
 
 def _as_int32_bits(w: torch.Tensor) -> torch.Tensor:
@@ -102,28 +108,66 @@ def _as_int32_bits(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
+def mapped_rows(n_rows: int, lane0: int, row_map, device=None
+                ) -> torch.Tensor:
+    """The global rows of ``n_rows`` rows under a row map ``(N, colpos)``:
+    row ``r`` is global row ``(lane0 + r // n_loc) * N + colpos[r %
+    n_loc]`` (``n_loc = len(colpos)``), as an int64 tensor on ``device``.
+    The rows of a colour update are (chain, node) pairs, chain-major, over
+    the colour's ``N`` nodes; a block that holds the nodes at positions
+    ``colpos`` of them names its rows so."""
+    stride, colpos = row_map
+    colpos = torch.as_tensor(colpos, dtype=torch.int64, device=device)
+    n_loc = colpos.numel()
+    if n_loc == 0 or n_rows % n_loc:
+        raise ValueError(f"{n_rows} rows are not whole chains of a row map "
+                         f"of {n_loc} columns")
+    r = torch.arange(n_rows, dtype=torch.int64, device=colpos.device)
+    return (int(lane0) + r // n_loc) * int(stride) + colpos[r % n_loc]
+
+
 def random_bit_words(key, shape: tuple, max_bits: int, device=None,
-                     lane0: int = 0) -> torch.Tensor:
+                     lane0: int = 0, row_map=None) -> torch.Tensor:
     """(*shape, words) random words supplying ``max_bits`` bits per lane,
     as int32 tensors holding the uint32 bit patterns.  ``lane0`` is the
     global index of the first lane: the words are rows ``[lane0,
     lane0 + lanes)`` of the draw over the global lane axis (a lane shard
-    reads the counters the unsharded draw gives its lanes)."""
+    reads the counters the unsharded draw gives its lanes).  With a
+    ``row_map`` ``(N, colpos)`` lane ``r`` reads global row
+    :func:`mapped_rows` names instead."""
     words = bit_budget_words(max_bits)
-    return _as_int32_bits(bits(key, tuple(shape) + (words,), device,
-                               offset=int(lane0) * words))
+    if row_map is None:
+        return _as_int32_bits(bits(key, tuple(shape) + (words,), device,
+                                   offset=int(lane0) * words))
+    n = 1
+    for s in shape:
+        n *= int(s)
+    rows = mapped_rows(n, lane0, row_map, device)
+    idx = rows[:, None] * words + torch.arange(words, dtype=torch.int64,
+                                               device=rows.device)
+    return _as_int32_bits(_counter_bits(key, idx)).reshape(
+        tuple(shape) + (words,))
 
 
 def lane_word(k0: int, k1: int, i: int, j: int, n_words: int,
-              lane0: int = 0) -> int:
+              lane0: int = 0, row_map=None) -> int:
     """Word ``j`` of lane ``i`` of a ``(lanes, n_words)`` draw under key
     ``(k0, k1)`` whose first lane is global lane ``lane0``, as a uint32
     Python int: threefry2x32 of the 64-bit counter ``(lane0 + i) *
-    n_words + j`` split into (hi, lo) words, ``x0 ^ x1``.  The scalar twin
-    of the word the fused sweep kernel makes in place
+    n_words + j`` split into (hi, lo) words, ``x0 ^ x1``.  With a
+    ``row_map`` ``(N, colpos)`` the counter is ``row * n_words + j`` of
+    the global row ``(lane0 + i // n_loc) * N + colpos[i % n_loc]``.  The
+    scalar twin of the word the fused sweep kernel makes in place
     (``kernels/csrc/fused_sweep.cu::lane_word``); it equals
-    ``random_bit_words(key, (lanes,), 32 * n_words, lane0=lane0)[i, j]``."""
-    idx = (int(lane0) + int(i)) * int(n_words) + int(j)
+    ``random_bit_words(key, (lanes,), 32 * n_words, lane0=lane0,
+    row_map=row_map)[i, j]``."""
+    row = int(lane0) + int(i)
+    if row_map is not None:
+        stride, colpos = row_map
+        colpos = [int(c) for c in colpos]
+        row = (int(lane0) + int(i) // len(colpos)) * int(stride) + colpos[
+            int(i) % len(colpos)]
+    idx = row * int(n_words) + int(j)
     x0, x1 = _threefry2x32(int(k0), int(k1), idx >> 32, idx & _MASK)
     return x0 ^ x1
 

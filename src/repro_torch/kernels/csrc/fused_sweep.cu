@@ -16,10 +16,19 @@
 // launch's bits.  A lane computes word j only when its cursor first reaches
 // it, so no word is written to or read from memory.
 //
+// Row map.  A site block of a colour holds the colour's nodes at positions
+// colpos (n_loc of the colour's N nodes, in the colour's order), which are
+// not contiguous.  With a map, launch row r is global row
+// (lane0 + r / n_loc) * N + colpos[r % n_loc], and its counters are that
+// row's: the blocks of a colour together draw the unsharded colour
+// update's bits.  Without one (colpos null) row r is lane0 + r, as before.
+// The map costs one int64 load a row, made only by rows that walk.
+//
 // Bound on an H100: bytes.  Per lane the function reads the L float32
 // log-weights and the int32 card and writes sample, bits and attempts
 // (int32) and ok (1 byte); the 4.1 kB LUT is read once: b * (4L + 4 + 13)
-// + 4100 bytes per launch, at 3.35 TB/s.  The arithmetic (a few dozen
+// + 4100 bytes per launch, at 3.35 TB/s, and with a row map its n_loc
+// int64 columns besides.  The arithmetic (a few dozen
 // flops a label, ~10 DDG levels of L-wide integer work and one 20-round
 // threefry per 32 bits walked) is far under the card's rates.  At serving
 // sizes (b of a few thousand lanes) that is well under a MB and under
@@ -81,6 +90,9 @@ struct Params {
   bool* ok;
   uint32_t k0, k1;  // the colour's key
   unsigned long long lane0;  // global row of this launch's first lane
+  const long long* colpos;   // row map columns (null: no map)
+  long long n_loc;           // columns of the map
+  unsigned long long stride; // the colour's node count N
   int b, L, W;      // lanes, labels, words of budget per lane
   float wscale;     // 2^k - 1
   int use_iu, n_seg;
@@ -160,8 +172,11 @@ __global__ void fused_gibbs_group_kernel(const Params p) {
   if (!done) {
     const int K = levels(total);
     const long long rej = (1LL << K) - total;
-    const unsigned long long base =
-        (p.lane0 + (unsigned long long)lane) * (unsigned long long)p.W;
+    unsigned long long row = p.lane0 + (unsigned long long)lane;
+    if (p.colpos != nullptr)
+      row = (p.lane0 + (unsigned long long)(lane / p.n_loc)) * p.stride +
+            (unsigned long long)p.colpos[lane % p.n_loc];
+    const unsigned long long base = row * (unsigned long long)p.W;
     const unsigned le = (2u << wl) - 1;  // lanemask_le (all ones at 31)
     long long d = 0;
     int c = 0, wj = -1;
@@ -223,24 +238,30 @@ int next_pow2(int x) {
 
 // block: threads per block, a multiple of 32.  k0, k1: the colour's key
 // words; lane0: the global row of lane 0 (0 unless the launch is a lane
-// shard); W: words of bit budget per lane.  The grid is b * next_pow2(L)
-// threads (at least 2 a lane), sized and indexed in 64 bits
-// (kernels/fused_sweep.py::launch_geometry is its Python twin).
+// shard), or with a row map its first chain; colpos, n_loc, row_stride: the
+// row map (colpos null for none; b a multiple of n_loc); W: words of bit
+// budget per lane.  The grid is b * next_pow2(L) threads (at least 2 a
+// lane), sized and indexed in 64 bits (kernels/fused_sweep.py::
+// launch_geometry is its Python twin).
 extern "C" int fused_gibbs_sample_launch(
     const void* logw, const void* card, uint32_t k0, uint32_t k1,
-    unsigned long long lane0, const void* table, void* sample, void* bits,
-    void* att, void* ok, int b,
+    unsigned long long lane0, const void* colpos, long long n_loc,
+    unsigned long long row_stride, const void* table, void* sample,
+    void* bits, void* att, void* ok, int b,
     int L, int W, float wscale, int use_iu, int n_seg, float lo, float scale,
     float mask_value, int block, void* stream) {
   if (b <= 0) return 0;
   if (L < 1 || L > 32 || W < 1 || block < 32 || block > 1024 || block % 32)
     return (int)cudaErrorInvalidValue;
+  if (colpos != nullptr && (n_loc < 1 || b % n_loc))
+    return (int)cudaErrorInvalidValue;
   const int g = L < 2 ? 2 : next_pow2(L);  // threads per lane
   const Params p{static_cast<const float*>(logw), static_cast<const int*>(card),
                  static_cast<const float*>(table), static_cast<int*>(sample),
                  static_cast<int*>(bits), static_cast<int*>(att),
-                 static_cast<bool*>(ok), k0, k1, lane0, b, L, W, wscale,
-                 use_iu, n_seg, lo, scale, mask_value};
+                 static_cast<bool*>(ok), k0, k1, lane0,
+                 static_cast<const long long*>(colpos), n_loc, row_stride,
+                 b, L, W, wscale, use_iu, n_seg, lo, scale, mask_value};
   auto s = static_cast<cudaStream_t>(stream);
   switch (g) {
     case 2: return launch_group<2>(p, block, s);

@@ -19,7 +19,12 @@ axis, the word ``random_bit_words(key, (b,), 31 * max_attempts,
 lane0=lane0)`` holds there (:func:`repro_torch.core.rng.lane_word` is its
 scalar twin).  ``lane0`` is 0 for an unsharded call; a lane shard whose
 first row is global row ``lane0`` passes it, and its rows then equal rows
-``[lane0, lane0 + b)`` of the unsharded call.  So
+``[lane0, lane0 + b)`` of the unsharded call.  A row map ``(N, colpos)``
+(``colpos`` an int64 tensor of ``n_loc`` columns on the launch's device)
+names rows that are not contiguous: lane ``i`` is global row ``(lane0 +
+i // n_loc) * N + colpos[i % n_loc]``, so a site block's launch over the
+nodes at positions ``colpos`` of a colour of ``N`` nodes draws the rows the
+unsharded colour update gives them.  So
 ``sampler="cuda"`` returns the same samples, bits, attempts and ok flags
 as ``sampler="torch"`` and as the reference's ``sampler="pallas"``/
 ``"xla"`` under the same key.  A group of ``next_pow2(L)`` threads (at
@@ -95,6 +100,23 @@ def _check_lane0(lane0: int) -> None:
         raise ValueError(f"lane0 must lie in [0, 2**58) (got {lane0})")
 
 
+def _check_row_map(b: int, lane0: int, row_map, device) -> None:
+    """A row map ``(N, colpos)`` the kernel takes: int64 columns on the
+    launch's device that cut ``b`` rows into whole chains, and a largest
+    global row, ``(lane0 + b // n_loc) * N - 1``, under 2**58."""
+    stride, colpos = row_map
+    if not (isinstance(colpos, torch.Tensor) and colpos.dtype == torch.int64
+            and colpos.ndim == 1 and colpos.device == device
+            and colpos.is_contiguous()):
+        raise ValueError("row map columns must be a contiguous 1-D int64 "
+                         f"tensor on {device}")
+    n_loc = colpos.numel()
+    if n_loc == 0 or b % n_loc or int(stride) < n_loc:
+        raise ValueError(f"row map of {n_loc} columns over N={stride} does "
+                         f"not cut {b} rows into whole chains")
+    _check_lane0((int(lane0) + b // n_loc) * int(stride) - 1)
+
+
 def _lane_card(card, b: int, device) -> torch.Tensor:
     if isinstance(card, int):   # a fill on the device, no host copy
         return torch.full((b,), card, dtype=torch.int32, device=device)
@@ -103,12 +125,14 @@ def _lane_card(card, b: int, device) -> torch.Tensor:
 
 
 def _words(key, b: int, max_attempts: int, device,
-           lane0: int = 0) -> torch.Tensor:
-    """The exact stream ``ky_sample(key, ..., lane0=lane0)`` draws for
-    rows ``[lane0, lane0 + b)`` of the global lane axis: the plain
-    version's input."""
+           lane0: int = 0, row_map=None) -> torch.Tensor:
+    """The exact stream ``ky_sample(key, ..., lane0=lane0,
+    row_map=row_map)`` draws for rows ``[lane0, lane0 + b)`` of the
+    global lane axis, or for the rows the map names: the plain version's
+    input."""
     return rng_lib.random_bit_words(key, (b,), 31 * max_attempts,
-                                    device=device, lane0=lane0)
+                                    device=device, lane0=lane0,
+                                    row_map=row_map)
 
 
 @functools.cache
@@ -119,7 +143,8 @@ def _entry():
 
     fn = _build.load("fused_sweep").fused_gibbs_sample_launch
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
-    fn.argtypes = ([p, p, u, u, ctypes.c_uint64] + [p] * 5
+    fn.argtypes = ([p, p, u, u, ctypes.c_uint64, p, ctypes.c_longlong,
+                    ctypes.c_uint64] + [p] * 5
                    + [i, i, i, f, i, i, f, f, f, i, p])
     fn.restype = i
     return fn
@@ -128,10 +153,10 @@ def _entry():
 def _launch(logw: torch.Tensor, card: torch.Tensor, key,
             table: interp_lib.InterpTable, *, k: int, use_iu: bool,
             mask_value: float, max_attempts: int, block_b: int,
-            lane0: int = 0) -> KYResult:
+            lane0: int = 0, row_map=None) -> KYResult:
     """One launch of the CUDA kernel on PyTorch's current stream; the
     kernel makes its bit words from ``key``, lane ``i`` those of global
-    row ``lane0 + i``."""
+    row ``lane0 + i`` (or of the row ``row_map`` names)."""
     b, L = logw.shape
     launch_geometry(b, L, block_b)
     dev = logw.device
@@ -140,6 +165,11 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, key,
     _common.check_input(card, torch.int32, (b,), dev, "fused kernel")
     if tab.numel() != (1 << table.m) + 1:
         raise ValueError("LUT must hold 2**m + 1 nodes")
+    colpos, n_loc, stride = 0, 0, 0
+    if row_map is not None:
+        _check_row_map(b, lane0, row_map, dev)
+        colpos = row_map[1].data_ptr()
+        n_loc, stride = row_map[1].numel(), int(row_map[0])
     k0, k1 = rng_lib._key_words(key)
     sample = torch.empty(b, dtype=torch.int32, device=dev)
     bits = torch.empty(b, dtype=torch.int32, device=dev)
@@ -149,8 +179,8 @@ def _launch(logw: torch.Tensor, card: torch.Tensor, key,
     # may sit on several cards of one process)
     with torch.cuda.device(dev):
         err = _entry()(
-            logw.data_ptr(), card.data_ptr(), k0, k1, int(lane0),
-            tab.data_ptr(), sample.data_ptr(), bits.data_ptr(),
+            logw.data_ptr(), card.data_ptr(), k0, k1, int(lane0), colpos,
+            n_loc, stride, tab.data_ptr(), sample.data_ptr(), bits.data_ptr(),
             att.data_ptr(), ok.data_ptr(), b, L,
             rng_lib.bit_budget_words(31 * max_attempts), float(2 ** k - 1),
             int(bool(use_iu)), 1 << table.m, float(table.lo),
@@ -190,6 +220,7 @@ def fused_gibbs_sample(
     max_attempts: int = 32,
     block_b: int = 256,
     lane0: int = 0,
+    row_map=None,
 ) -> KYResult:
     """Fused distribution-generation + KY sampling, one lane per row.
 
@@ -200,9 +231,11 @@ def fused_gibbs_sample(
     with identical results bit for bit.  ``block_b`` is the CUDA block
     size in threads (a multiple of 32); results do not depend on it.
     ``lane0`` is the global row of this call's first lane (0 unless the
-    call is a lane shard; see the module docstring).  CPU tensors run the
-    plain version; CUDA tensors launch the kernel, which makes its own bit
-    words from ``key``.  Returns a :class:`KYResult` with (b,) fields.
+    call is a lane shard), and ``row_map`` an optional ``(N, colpos)``
+    that names the call's rows instead (see the module docstring).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel, which
+    makes its own bit words from ``key``.  Returns a :class:`KYResult`
+    with (b,) fields.
     """
     _check_k(k)
     _check_lane0(lane0)
@@ -212,12 +245,15 @@ def fused_gibbs_sample(
     _common.check_device(dev, "fused_gibbs_sample")
     card = _lane_card(card, b, dev)
     table = table or interp_lib._EXP_DEFAULT
+    if row_map is not None:
+        _check_row_map(b, lane0, row_map, dev)
     if dev.type == "cpu":
-        return _plain(logw, card, _words(key, b, max_attempts, dev, lane0),
+        return _plain(logw, card,
+                      _words(key, b, max_attempts, dev, lane0, row_map),
                       table, k=k, use_iu=use_iu, mask_value=mask_value)
     return _launch(logw.contiguous(), card, key, table, k=k, use_iu=use_iu,
                    mask_value=mask_value, max_attempts=max_attempts,
-                   block_b=block_b, lane0=lane0)
+                   block_b=block_b, lane0=lane0, row_map=row_map)
 
 
 fused_gibbs_sample.launches = 0
@@ -235,13 +271,16 @@ def fused_gibbs_sample_ref(
     mask_value: float = MASK_NEG,
     max_attempts: int = 32,
     lane0: int = 0,
+    row_map=None,
 ) -> KYResult:
     """Plain PyTorch twin of :func:`fused_gibbs_sample` on any device:
     the shared helpers on the same bit words."""
     _check_lane0(lane0)
     logw = torch.as_tensor(logw, dtype=torch.float32)
     b = logw.shape[0]
+    if row_map is not None:
+        _check_row_map(b, lane0, row_map, logw.device)
     card = _lane_card(card, b, logw.device)
-    words = _words(key, b, max_attempts, logw.device, lane0)
+    words = _words(key, b, max_attempts, logw.device, lane0, row_map)
     return _plain(logw, card, words, table or interp_lib._EXP_DEFAULT, k=k,
                   use_iu=use_iu, mask_value=mask_value)

@@ -234,16 +234,32 @@ def ky_weights(logw: torch.Tensor, card: torch.Tensor, k: int,
                               mask_value=_NEG * 4)
 
 
-def _take_clip(bank: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(bank, idx, mode="clip")``: clamp, then index."""
+def _take_clip(bank, idx: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(bank, idx, mode="clip")``: clamp, then index; a bank
+    that is not one tensor (held in blocks) reads itself, with the same
+    result (``bank.take_clip``)."""
+    if not isinstance(bank, torch.Tensor):
+        return bank.take_clip(idx)
     return bank[torch.clamp(idx, 0, bank.numel() - 1)]
+
+
+def blocked_lookup_bytes(plan: ColorPlan, n_lanes: int, max_card: int,
+                         n_blocks: int) -> int:
+    """Bytes one colour update of ``n_lanes`` lanes moves between the
+    "model" positions of a bank split into ``n_blocks`` blocks
+    (:meth:`repro_torch.sharding.specs.ModelBlocks.take_clip`): its
+    ``n_lanes * G * L * (1 + C)`` lookups (the own row and the C padded
+    child slots, L labels each), 8 bytes each for every block past the
+    home one."""
+    g, c = np.shape(plan.ch_off)
+    return 8 * (n_blocks - 1) * n_lanes * g * max_card * (1 + c)
 
 
 def _color_update(
     key,
     x: torch.Tensor,            # (B, n) int32 current states
     plan: ColorPlan,
-    log_cpt: torch.Tensor,
+    log_cpt,                    # flat bank: a tensor, or held in blocks
     max_card: int,
     k: int,
     use_iu: bool,

@@ -299,6 +299,37 @@ def _plan_energies(x: torch.Tensor, plan: SparsePlan, unary: torch.Tensor,
     return unary[plan.nodes][None] + e
 
 
+def _sparse_sample(key, x: torch.Tensor, plan: SparsePlan,
+                   unary: torch.Tensor, tables_flat: torch.Tensor,
+                   card: torch.Tensor, max_card: int, k: int, use_iu: bool,
+                   sampler: str, beta, lane0: int, row_map=None
+                   ) -> tuple[torch.Tensor, BNSweepStats]:
+    """New ``(B, G)`` labels of ``plan``'s nodes from the states ``x``
+    its ``nbr`` index, and the draw's stats.  The sampler's rows are
+    (chain, node) pairs, chain-major, over the colour's N nodes: rows
+    from ``lane0·N`` without ``row_map``, else the rows the map ``(N,
+    colpos)`` names for chains from ``lane0``."""
+    nodes = plan.nodes
+    energies = _plan_energies(x, plan, unary, tables_flat, max_card)
+    if beta is not None:
+        bb = torch.as_tensor(beta, dtype=energies.dtype,
+                             device=energies.device)
+        energies = energies * (bb[:, None, None] if bb.ndim == 1 else bb)
+    rows = (dict(lane0=lane0 * nodes.shape[0]) if row_map is None
+            else dict(lane0=lane0, row_map=row_map))
+    if sampler == "cuda":
+        lane_card = card[nodes].to(torch.int32)[None].expand(
+            energies.shape[:-1]).reshape(-1)
+        res = fused_gibbs_sample(
+            key, (-energies).reshape((-1, max_card)), lane_card,
+            k=k, use_iu=use_iu, table=_exp_on(str(x.device)), **rows)
+    else:
+        wts = ky_weights(-energies, card[nodes], k, use_iu)
+        res = ky_sample(key, wts.reshape((-1, max_card)), **rows)
+    new = res.sample.reshape(energies.shape[:-1]).to(x.dtype)
+    return new, BNSweepStats(res.bits_used.sum(), res.attempts.sum())
+
+
 def _sparse_color_update(
     key,
     x: torch.Tensor,            # (B, n) int32 current states
@@ -324,26 +355,175 @@ def _sparse_color_update(
     (chain, node) pairs, chain-major; a lane shard whose first chain is
     global chain ``lane0`` reads the bits of rows from ``lane0·N``.
     """
-    nodes = plan.nodes
-    row0 = lane0 * nodes.shape[0]
-    energies = _plan_energies(x, plan, unary, tables_flat, max_card)
-    if beta is not None:
-        bb = torch.as_tensor(beta, dtype=energies.dtype,
-                             device=energies.device)
-        energies = energies * (bb[:, None, None] if bb.ndim == 1 else bb)
-    if sampler == "cuda":
-        lane_card = card[nodes].to(torch.int32)[None].expand(
-            energies.shape[:-1]).reshape(-1)
-        res = fused_gibbs_sample(
-            key, (-energies).reshape((-1, max_card)), lane_card,
-            k=k, use_iu=use_iu, table=_exp_on(str(x.device)), lane0=row0)
-    else:
-        wts = ky_weights(-energies, card[nodes], k, use_iu)
-        res = ky_sample(key, wts.reshape((-1, max_card)), lane0=row0)
-    new = res.sample.reshape(energies.shape[:-1]).to(x.dtype)
+    new, st = _sparse_sample(key, x, plan, unary, tables_flat, card,
+                             max_card, k, use_iu, sampler, beta, lane0)
     x = x.clone()
-    x[:, nodes] = new
-    return x, BNSweepStats(res.bits_used.sum(), res.attempts.sum())
+    x[:, plan.nodes] = new
+    return x, st
+
+
+# ---------------------------------------------------------------------------
+# site blocks: a colour's nodes split by the "model" block that owns them
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True, eq=False)
+class BlockPlan:
+    """The nodes of one colour that one site block owns.
+
+    ``plan``: a :class:`SparsePlan` of those nodes (global ids), in the
+    colour's bucket order, each in its own degree bucket with its D slots
+    in their order, so its energy is the same left fold; its ``nbr``
+    index the block's local view, its own sites first (``site - lo``),
+    then its halo owner by owner (a padded slot reads local site 0: its
+    sentinel table adds +0.0 whatever it reads).  ``local``: the nodes'
+    ids in the block.  ``colpos``: their positions in the colour's
+    ``plan.nodes``, and ``n_rows`` that colour's node count: the row map
+    that gives the block's sampler rows their unsharded counters.
+    ``halo``: for every block, the ids in that block of the sites this
+    block's nodes read there (none from itself), sorted."""
+
+    plan: SparsePlan
+    local: np.ndarray
+    colpos: np.ndarray
+    n_rows: int
+    halo: tuple
+
+    @property
+    def halo_sites(self) -> int:
+        return sum(len(h) for h in self.halo)
+
+
+def block_plans(prog: CompiledFactorGraph, n_blocks: int
+                ) -> tuple[tuple[BlockPlan, ...], ...]:
+    """Every colour plan of ``prog`` split over ``n_blocks`` equal
+    contiguous site blocks, ``[colour][block]`` — the tile mesh's halo
+    (:mod:`repro_torch.pgm.mesh_gibbs`) on an irregular graph."""
+    n = prog.n_vars
+    if n % n_blocks:
+        raise ValueError(f"{n} sites do not split into {n_blocks} blocks")
+    per = n // n_blocks
+    empty = np.zeros(0, np.int64)
+    out = []
+    for plan in prog.plans:
+        nodes = np.asarray(plan.nodes, np.int64)
+        row = []
+        for j in range(n_blocks):
+            picks = []
+            for bk in plan.buckets:
+                sel = np.flatnonzero(np.asarray(bk.nodes, np.int64) // per
+                                     == j)
+                if len(sel):
+                    picks.append((bk, sel))
+            reads = np.concatenate(
+                [np.asarray(bk.nbr, np.int64)[sel][bk.valid[sel]]
+                 for bk, sel in picks] or [empty])
+            owner = reads // per
+            halo = tuple(empty if o == j else
+                         np.unique(reads[owner == o]) - o * per
+                         for o in range(n_blocks))
+            start = np.cumsum([per] + [len(h) for h in halo])
+
+            def local_ids(nbr, valid):
+                nbr = np.asarray(nbr, np.int64)
+                own = nbr // per
+                loc = np.where(own == j, nbr - j * per, 0)
+                for o, h in enumerate(halo):
+                    hit = valid & (own == o) & (o != j)
+                    loc[hit] = start[o] + np.searchsorted(
+                        h, nbr[hit] - o * per)
+                return np.where(valid, loc, 0).astype(np.int32)
+
+            buckets = tuple(DegreeBucket(
+                nodes=np.asarray(bk.nodes)[sel],
+                nbr=local_ids(np.asarray(bk.nbr)[sel], bk.valid[sel]),
+                tab=np.asarray(bk.tab)[sel], valid=bk.valid[sel])
+                for bk, sel in picks)
+            colpos = np.flatnonzero(nodes // per == j)
+            row.append(BlockPlan(
+                plan=SparsePlan(buckets=buckets, nodes=nodes[colpos].astype(
+                    np.int32)),
+                local=nodes[colpos] - j * per, colpos=colpos,
+                n_rows=len(nodes), halo=halo))
+        out.append(tuple(row))
+    return tuple(out)
+
+
+def halo_bytes(colour: tuple[BlockPlan, ...], n_lanes: int) -> int:
+    """Bytes one colour update of ``n_lanes`` lanes copies between a
+    batch shard's "model" positions: every block's halo, int32 a site
+    a lane."""
+    return 4 * n_lanes * sum(bp.halo_sites for bp in colour)
+
+
+class _BlockOperands:
+    """Site block ``j``'s part of a compiled program on its device: the
+    energy operands whole (the reference replicates them), each colour's
+    :class:`BlockPlan` as tensors (its halo ids on the devices that own
+    them) and row map."""
+
+    def __init__(self, prog: CompiledFactorGraph, colours, j: int, devices):
+        dev = devices[j]
+        self.unary = torch.as_tensor(prog.unary, device=dev)
+        self.tables_flat = torch.as_tensor(prog.tables,
+                                           device=dev).reshape(-1)
+        self.card = torch.as_tensor(prog.fg.card, dtype=torch.int64,
+                                    device=dev)
+
+        def t(a, d):
+            return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=d)
+
+        self.colours = []
+        for colour in colours:
+            bp = colour[j]
+            if not len(bp.local):
+                self.colours.append(None)
+                continue
+            self.colours.append(dict(
+                plan=plans_on((bp.plan,), dev)[0], local=t(bp.local, dev),
+                row_map=(bp.n_rows, t(bp.colpos, dev)),
+                halo=[t(h, devices[o]) if len(h) else None
+                      for o, h in enumerate(bp.halo)]))
+
+
+def _blocked_color_update(key, parts: list, positions, ops: list,
+                          c: int, max_card: int, k: int, use_iu: bool,
+                          sampler: str, betas, lane0: int) -> list:
+    """Colour ``c`` of one batch shard whose ``(B, n)`` state is held as
+    site blocks ``parts`` (block ``j`` on its device at mesh position
+    ``positions[j]``, written in place): each block fetches its halo
+    from the owners (``"halo"`` copies), computes its own nodes'
+    energies, samples them at their unsharded rows (row map, chains from
+    ``lane0``) and writes them into its own block.  Every halo is read
+    before any block writes, as the unsharded update reads one state.
+    Returns each block's ``(bits, attempts)`` (None for a block with no
+    node of the colour)."""
+    from repro_torch.sharding import partition
+
+    views = []
+    for j, op in enumerate(ops):
+        cp = op.colours[c]
+        if cp is None:
+            views.append(None)
+            continue
+        pieces = [parts[j]] + [
+            partition.move(parts[o][:, h], parts[j].device, positions[o],
+                           positions[j], "halo")
+            for o, h in enumerate(cp["halo"]) if h is not None]
+        views.append(torch.cat(pieces, dim=1) if len(pieces) > 1
+                     else parts[j])
+    stats = []
+    for j, (op, xloc) in enumerate(zip(ops, views)):
+        if xloc is None:
+            stats.append(None)
+            continue
+        cp = op.colours[c]
+        new, st = _sparse_sample(
+            key, xloc, cp["plan"], op.unary, op.tables_flat, op.card,
+            max_card, k, use_iu, sampler,
+            None if betas is None else betas[j], lane0, cp["row_map"])
+        parts[j][:, cp["local"]] = new
+        stats.append(st)
+    return stats
 
 
 def site_weights_sparse(

@@ -60,14 +60,20 @@ same seed.
 Multi-device serving: give the engine a mesh from
 :func:`repro_torch.launch.mesh.make_serve_mesh` and each group's lane
 axis is split over the mesh's batch devices
-(:mod:`repro_torch.sharding.specs`); every device holds the whole plan,
-so the colour updates' gathers stay local.  Lane counts are padded up to
-a mesh multiple with throwaway replicas of the first query, which every
-host read slices off; the state is made globally, then split; and
-plans/runners are cached per (pattern, mesh fingerprint), so single- and
-multi-device runners never mix.  Each shard draws the bits of its global
-lanes, so a sharded group's counts equal the unsharded group's bit for
-bit.
+(:mod:`repro_torch.sharding.specs`).  A trailing "model" axis holds what
+the reference's rules split over it: a log-CPT bank of 2**22 elements or
+more as bank blocks, and a factor graph's state from 2**20 sites as site
+blocks, one a "model" device of each batch shard (each block reads its
+neighbours' sites from the others, a halo); below those sizes every
+batch device holds the whole plan.  Lane counts are padded up to a mesh
+multiple with throwaway replicas of the first query, which every host
+read slices off; the state is made globally, then laid out by the
+group's runner (``runner.place``); and plans/runners are cached per
+(pattern, mesh fingerprint), so single- and multi-device runners never
+mix.  The engine reads and writes the state only through the shard
+types, whatever the layout.  Each shard draws the bits of its global
+lanes and rows, so a sharded group's counts equal the unsharded group's
+bit for bit.
 """
 from __future__ import annotations
 
@@ -93,7 +99,7 @@ from repro_torch.serve.sched import predict_remaining_rounds
 from repro_torch.serve.telemetry import (
     DEFAULT_COUNT_BINS, NULL, Telemetry, monotonic)
 from repro_torch.sharding.specs import (
-    LaneShards, serve_batch_devices, serve_lane_multiple)
+    serve_batch_devices, serve_lane_multiple)
 
 # retirement rules: "rank" = rank-normalized split-R̂ + min-ESS gate
 # (repro_torch.pgm.diagnostics, the default), "legacy" = plain split-R̂
@@ -250,8 +256,8 @@ class GroupRun:
             init_key, self.prog, self.bt,
             torch.as_tensor(ev_vals, device=dev) if pattern else None,
             device=dev)
-        if engine.mesh is not None:   # made globally, then split
-            x = LaneShards.split(x, serve_batch_devices(engine.mesh))
+        if engine.mesh is not None:   # made globally, then laid out
+            x = self.runner.place(x)
         self.x = x
         self.slots = [self._fresh_slot(e, j, t0) for j, e in enumerate(entries)]
         self.slots += [

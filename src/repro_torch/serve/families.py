@@ -18,7 +18,12 @@ a runner splits the lane axis over the mesh's batch devices
 (:class:`repro_torch.sharding.specs.LaneShards`), runs each shard's
 round with the same key and the shard's first global lane (``lane0``),
 and returns counts and moments per lane in global lane order: equal, bit
-for bit, to the unsharded round.
+for bit, to the unsharded round.  On a mesh whose "model" axis is wider
+than one, the reference's rules (``serve_cpt_spec``,
+``serve_fg_state_spec``) split two operands over it: a large log-CPT bank
+into bank blocks, and a million-site factor graph's state into site
+blocks (:class:`repro_torch.sharding.specs.ModelBlocks`), each block on
+its "model" device; results stay bit for bit the same.
 """
 from __future__ import annotations
 
@@ -34,16 +39,59 @@ from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
 from repro_torch.pgm.mrf_compile import (
     CompiledMRF, compile_mrf, init_mrf_states, mask_of)
 from repro_torch.pgm.sparse_compile import (
-    CompiledFactorGraph, _Operands, _sparse_color_update,
-    compile_factor_graph, init_fg_states)
+    CompiledFactorGraph, _blocked_color_update, _BlockOperands, _Operands,
+    _sparse_color_update, block_plans, compile_factor_graph, init_fg_states)
 from repro_torch.serve.plan_cache import (
     graph_fingerprint, load_compiled, persisted_plan_path, save_compiled)
+from repro_torch.sharding import partition
 from repro_torch.sharding.specs import (
-    LaneShards, check_serve_cpt, check_serve_sites, lane_slice,
-    serve_batch_devices)
+    LaneShards, ModelBlocks, lane_bounds, lane_slice, serve_cpt_spec,
+    serve_fg_state_spec, serve_shards)
 
 
 # -- round runners --------------------------------------------------------
+class _Tally:
+    """One round's thinned one-hot counts and first and second moments of
+    a ``(B, M)`` state (or a block of its sites), on its device."""
+
+    def __init__(self, shape, L: int, device):
+        self.labels = torch.arange(L, device=device)
+        self.counts = torch.zeros(tuple(shape) + (L,), dtype=torch.int32,
+                                  device=device)
+        self.xsum = torch.zeros(tuple(shape), dtype=torch.float32,
+                                device=device)
+        self.xsqsum = torch.zeros_like(self.xsum)
+
+    def add(self, flat: torch.Tensor, kept: torch.Tensor) -> None:
+        onehot = (flat[..., None] == self.labels).to(torch.int32)
+        if kept.ndim:  # per-lane offsets: broadcast over (var, label)
+            kept = kept[:, None, None]
+        self.counts = self.counts + torch.where(kept, onehot, 0)
+        xf = flat.to(torch.float32)
+        self.xsum = self.xsum + xf
+        self.xsqsum = self.xsqsum + xf * xf
+
+    def result(self, sweeps: int):
+        # the reference's jitted ``xsum / sweeps_per_round`` is compiled to
+        # a multiply by the float32 reciprocal; do the same on any device
+        inv = 1.0 / sweeps
+        return self.counts, self.xsum * inv, self.xsqsum * inv
+
+
+def _round_inputs(offset, beta, device):
+    """A round's per-lane ``offset`` (int) and ``beta`` (float32, or
+    None) as tensors on ``device``."""
+    offset = torch.as_tensor(offset, device=device)
+    if beta is not None:
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
+    return offset, beta
+
+
+def _stacked(per_sweep: list):
+    """One stats tuple a sweep, as one tuple of ``(sweeps,)`` tensors."""
+    return type(per_sweep[0])(*(torch.stack(f) for f in zip(*per_sweep)))
+
+
 def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
                   sweep, flat_of=lambda x: x):
     """The round loop every family shares.  ``sweep(key, x, beta, lane0)
@@ -51,63 +99,106 @@ def _round_runner(device, L: int, sweeps_per_round: int, thin: int,
     its family's reference does; ``flat_of(x)`` is the (B, M) flat view
     the counts and moments read.  ``lane0`` is the global index of
     ``x``'s first lane (0 unless ``x`` is a lane shard)."""
-    labels = torch.arange(L, device=device)
 
     def round_fn(key, x: torch.Tensor, offset, beta=None, lane0: int = 0):
-        offset = torch.as_tensor(offset, device=device)
-        if beta is not None:
-            beta = torch.as_tensor(beta, dtype=torch.float32, device=device)
-        shape = flat_of(x).shape
-        counts = torch.zeros(shape + (L,), dtype=torch.int32, device=device)
-        xsum = torch.zeros(shape, dtype=torch.float32, device=device)
-        xsqsum = torch.zeros_like(xsum)
+        offset, beta = _round_inputs(offset, beta, device)
+        tally = _Tally(flat_of(x).shape, L, device)
         per_sweep = []
         for i in range(sweeps_per_round):
             key, x, st = sweep(key, x, beta, lane0)
-            flat = flat_of(x)
-            onehot = (flat[..., None] == labels).to(torch.int32)
-            kept = ((offset + i) % thin) == 0
-            if kept.ndim:  # per-lane offsets: broadcast over (var, label)
-                kept = kept[:, None, None]
-            counts = counts + torch.where(kept, onehot, 0)
-            xf = flat.to(torch.float32)
-            xsum = xsum + xf
-            xsqsum = xsqsum + xf * xf
+            tally.add(flat_of(x), ((offset + i) % thin) == 0)
             per_sweep.append(st)
-        stats = type(per_sweep[0])(*(torch.stack(f)
-                                     for f in zip(*per_sweep)))
-        # the reference's jitted ``xsum / sweeps_per_round`` is compiled to
-        # a multiply by the float32 reciprocal; do the same on any device
-        inv = 1.0 / sweeps_per_round
-        return x, counts, xsum * inv, xsqsum * inv, stats
+        return (x, *tally.result(sweeps_per_round), _stacked(per_sweep))
 
     return round_fn
 
 
-def _sharded_runner(mesh, make_one):
-    """A round runner over ``mesh``'s batch devices: ``make_one(device)``
-    builds one shard's runner (shards on a repeated device share it, and
-    with it their plan tensors).  The state is split into
-    :class:`LaneShards` (a plain tensor is split first); each shard runs
-    its round with the same key, its block of per-lane ``offset`` and
-    ``beta``, and its first global lane as ``lane0``.  Counts and moments
-    come back per lane, concatenated in global lane order on the first
-    batch device; per-sweep stats come back (shards, sweeps), summed on
-    the host by the engine — nothing is summed across shards on a
-    device."""
-    devices = serve_batch_devices(mesh)
-    runners: dict[str, object] = {}
-    for d in devices:
-        if str(d) not in runners:
-            runners[str(d)] = make_one(d)
-    dev0 = devices[0]
+def _blocked_round_runner(devices, positions, L: int, sweeps_per_round: int,
+                          thin: int, sweep):
+    """The round loop over a state held as site blocks
+    (:class:`ModelBlocks`, block ``j`` on ``devices[j]``):
+    ``sweep(key, parts, betas, lane0, positions) -> (key, [stats a
+    block])`` advances the round's own copies of the blocks in place.
+    Each block tallies its own sites; the counts, moments and
+    per-sweep stats come home at the end of the round (``"state"``
+    copies), counts and moments joined in global site order, the stats
+    summed over blocks in int64."""
+
+    def round_fn(key, x, offset, beta=None, lane0: int = 0):
+        if not isinstance(x, ModelBlocks):
+            x = ModelBlocks.split(x, devices, positions)
+        pos, home = x.positions, x.device
+
+        def send(t, j):     # home -> block j
+            return partition.move(t, x.parts[j].device, pos[0], pos[j],
+                                  "state")
+
+        def back(t, j):     # block j -> home
+            return partition.move(t, home, pos[j], pos[0], "state")
+
+        offset, beta = _round_inputs(offset, beta, home)
+        offs = [send(offset, j) for j in range(len(pos))]
+        betas = (None if beta is None
+                 else [send(beta, j) for j in range(len(pos))])
+        parts = [p.clone() for p in x.parts]
+        tallies = [_Tally(p.shape, L, p.device) for p in parts]
+        per_sweep = [[] for _ in parts]
+        for i in range(sweeps_per_round):
+            key, st = sweep(key, parts, betas, lane0, pos)
+            for j, (t, p, o) in enumerate(zip(tallies, parts, offs)):
+                t.add(p, ((o + i) % thin) == 0)
+                per_sweep[j].append(st[j])
+        out = [t.result(sweeps_per_round) for t in tallies]
+        joined = [torch.cat([back(o[f], j) for j, o in enumerate(out)],
+                            dim=1) for f in range(3)]
+        stats = [type(s[0])(*(back(f, j) for f in _stacked(s)))
+                 for j, s in enumerate(per_sweep)]
+        total = type(stats[0])(*(sum(f[1:], f[0]) for f in zip(*stats)))
+        return (ModelBlocks(parts, x.bounds, pos), *joined, total)
+
+    return round_fn
+
+
+def _sharded_runner(mesh, make_one, model: bool = False,
+                    split_state: bool = False):
+    """A round runner over ``mesh``'s batch shards: ``make_one(devices,
+    positions)`` builds one shard's runner over its "model" devices (with
+    ``model``; else over its home device alone), and shards whose devices
+    repeat share it, and with it their plan tensors.  The state is held
+    as :class:`LaneShards` (``place`` lays a global tensor out; a plain
+    tensor is placed first), with each shard's lanes as site blocks on
+    its "model" devices with ``split_state``.  Each shard runs its round
+    with the same key, its block of per-lane ``offset`` and ``beta``, and
+    its first global lane as ``lane0``.  Counts and moments come back per
+    lane, concatenated in global lane order on the first batch device;
+    per-sweep stats come back (shards, sweeps), summed on the host by the
+    engine — nothing is summed across shards on a device."""
+    shards = [(d, p) if model else (d[:1], p[:1])
+              for d, p in serve_shards(mesh)]
+    built: dict[tuple, object] = {}
+    for d, p in shards:
+        k = tuple(str(x) for x in d)
+        if k not in built:
+            built[k] = make_one(d, p)
+    runners = [built[tuple(str(x) for x in d)] for d, _ in shards]
+    homes = [d[0] for d, _ in shards]
+    dev0 = homes[0]
+
+    def place(x: torch.Tensor) -> LaneShards:
+        """A global ``(lanes, ...)`` state laid out as the runner holds
+        it."""
+        x = LaneShards.split(x, homes)
+        if split_state:
+            x = LaneShards([ModelBlocks.split(part, d, p) for part, (d, p)
+                            in zip(x.parts, shards)], x.bounds)
+        return x
 
     def round_fn(key, x, offset, beta=None):
         if not isinstance(x, LaneShards):
-            x = LaneShards.split(x, devices)
+            x = place(x)
         outs = []
-        for part, (lo, hi), d in zip(x.parts, x.bounds, devices):
-            outs.append(runners[str(d)](
+        for run, part, (lo, hi) in zip(runners, x.parts, x.bounds):
+            outs.append(run(
                 key, part, lane_slice(offset, lo, hi),
                 None if beta is None else lane_slice(beta, lo, hi),
                 lane0=lo))
@@ -120,15 +211,22 @@ def _sharded_runner(mesh, make_one):
                            for f in st._fields))
         return xs, counts, xmean, xsq, stats
 
+    round_fn.place = place
+    round_fn.runners = runners
     return round_fn
+
 
 def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
                       use_iu: bool, sampler: str = "cuda", device=None,
                       mesh=None):
     """``(key, x, offset[, beta]) -> (x, counts, xmean, xsq, stats)`` per
     round (Bayesian-network family), on ``device`` (default ``cuda``), or
-    lane-sharded over ``mesh``'s batch devices (the log-CPT bank whole on
-    each; see :func:`_sharded_runner`).
+    lane-sharded over ``mesh``'s batch devices (see
+    :func:`_sharded_runner`).  On a mesh, a flat log-CPT bank that
+    ``serve_cpt_spec`` splits over "model" is held as equal blocks, one a
+    "model" device of each batch shard, and read through
+    :meth:`repro_torch.sharding.specs.ModelBlocks.take_clip`; otherwise the bank is
+    whole on each batch shard's device.
 
     ``beta`` (float32, scalar or per-lane ``(B,)``; default None =
     ordinary Gibbs) is the inverse temperature of the simulated-annealing
@@ -145,14 +243,31 @@ def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
     ``stats``:  per-sweep (sweeps_per_round,) int64 tensors, summed
     host-side by the engine.
     """
+    kw = dict(sweeps_per_round=sweeps_per_round, thin=thin, use_iu=use_iu,
+              sampler=sampler)
     if mesh is not None:
-        check_serve_cpt(mesh, np.asarray(prog.log_cpt).size)
-        return _sharded_runner(mesh, lambda d: make_round_runner(
-            prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=d))
-    device = torch.device(device or "cuda")
+        split = "model" in serve_cpt_spec(mesh, np.asarray(prog.log_cpt).size)
+        return _sharded_runner(mesh, lambda d, p: _bn_runner(
+            prog, devices=d, positions=p, **kw), model=split)
+    return _bn_runner(prog, devices=[torch.device(device or "cuda")],
+                      positions=[()], **kw)
+
+
+def _bn_runner(prog, *, sweeps_per_round: int, thin: int, use_iu: bool,
+               sampler: str, devices, positions):
+    """One shard's BN runner on ``devices[0]``, its bank whole there, or
+    as one block a device of ``devices`` (each made from the host's
+    bank, so no device ever holds the whole of it)."""
+    device = torch.device(devices[0])
     _check_sampler(sampler, device)
-    log_cpt = torch.as_tensor(prog.log_cpt, device=device)
+    if len(devices) > 1:
+        bank = np.asarray(prog.log_cpt)
+        bounds = lane_bounds(bank.size, len(devices))
+        log_cpt = ModelBlocks([torch.as_tensor(bank[lo:hi], device=d)
+                               for (lo, hi), d in zip(bounds, devices)],
+                              bounds, positions)
+    else:
+        log_cpt = torch.as_tensor(prog.log_cpt, device=device)
     plans = plans_on(prog.plans, device)
     L = prog.max_card
 
@@ -167,7 +282,9 @@ def make_round_runner(prog, *, sweeps_per_round: int, thin: int,
             bits, att = bits + st.bits_used, att + st.attempts
         return key, x, BNSweepStats(bits, att)
 
-    return _round_runner(device, L, sweeps_per_round, thin, sweep)
+    round_fn = _round_runner(device, L, sweeps_per_round, thin, sweep)
+    round_fn.log_cpt = log_cpt
+    return round_fn
 
 
 def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
@@ -182,11 +299,12 @@ def make_mrf_round_runner(prog: CompiledMRF, *, sweeps_per_round: int,
     all B·H·W sites with ``sampler="cuda"``.  With ``mesh`` the lanes
     shard over its batch devices, every lane a whole grid (the unary and
     pairwise fields whole on each device), as the reference's
-    ``serve_mrf_state_spec`` lays them out."""
+    ``serve_mrf_state_spec`` lays them out: "batch" only, whatever the
+    mesh's "model" axis."""
     if mesh is not None:
-        return _sharded_runner(mesh, lambda d: make_mrf_round_runner(
+        return _sharded_runner(mesh, lambda d, p: make_mrf_round_runner(
             prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=d))
+            use_iu=use_iu, sampler=sampler, device=d[0]))
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
     unary = torch.as_tensor(prog.mrf.unary, dtype=torch.float32,
@@ -221,13 +339,24 @@ def make_fg_round_runner(prog: CompiledFactorGraph, *,
     :func:`make_round_runner` over the graph's flat node space.  ``x`` is
     the (B, n) node-state tensor; the plans' index arrays and the
     unary/table banks are placed on the device once per runner.  With
-    ``mesh`` the lanes shard over its batch devices, the site axis whole
-    on each."""
+    ``mesh`` the lanes shard over its batch devices; where
+    ``serve_fg_state_spec`` splits the site axis over "model", each
+    shard's lanes are held as equal site blocks on its "model" devices
+    (:func:`repro_torch.pgm.sparse_compile.block_plans`: each block
+    fetches its halo, samples its own nodes of a colour at their
+    unsharded rows, and writes them into its block), the unary and table
+    banks whole on every device, as the reference replicates them;
+    otherwise the site axis is whole on each batch shard's device."""
+    kw = dict(sweeps_per_round=sweeps_per_round, thin=thin, use_iu=use_iu,
+              sampler=sampler)
     if mesh is not None:
-        check_serve_sites(mesh, prog.n_vars)
-        return _sharded_runner(mesh, lambda d: make_fg_round_runner(
-            prog, sweeps_per_round=sweeps_per_round, thin=thin,
-            use_iu=use_iu, sampler=sampler, device=d))
+        if "model" in serve_fg_state_spec(mesh, prog.n_vars):
+            colours = block_plans(prog, mesh.shape["model"])
+            return _sharded_runner(mesh, lambda d, p: _fg_blocked_runner(
+                prog, colours, devices=d, positions=p, **kw),
+                model=True, split_state=True)
+        return _sharded_runner(mesh, lambda d, p: make_fg_round_runner(
+            prog, device=d[0], **kw))
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
     ops = _Operands(prog, device)
@@ -245,6 +374,41 @@ def make_fg_round_runner(prog: CompiledFactorGraph, *,
         return key, x, BNSweepStats(bits, att)
 
     return _round_runner(device, L, sweeps_per_round, thin, sweep)
+
+
+def _fg_blocked_runner(prog: CompiledFactorGraph, colours, *,
+                       sweeps_per_round: int, thin: int, use_iu: bool,
+                       sampler: str, devices, positions):
+    """One batch shard's sparse runner over its state's site blocks, one
+    a "model" device of ``devices``: per colour one
+    :func:`repro_torch.pgm.sparse_compile._blocked_color_update`, i.e.
+    one fused launch a block with ``sampler="cuda"``."""
+    devices = [torch.device(d) for d in devices]
+    for d in devices:
+        _check_sampler(sampler, d)
+    ops = [_BlockOperands(prog, colours, j, devices)
+           for j in range(len(devices))]
+    L = prog.max_card
+
+    def sweep(key, parts, betas, lane0, pos):
+        key, sub = rng_lib.split(key)
+        bits = [torch.zeros((), dtype=torch.int64, device=p.device)
+                for p in parts]
+        att = list(bits)
+        for c in range(len(colours)):
+            sub, s2 = rng_lib.split(sub)
+            sts = _blocked_color_update(s2, parts, pos, ops, c, L, prog.k,
+                                        use_iu, sampler, betas, lane0)
+            for j, st in enumerate(sts):
+                if st is not None:
+                    bits[j] = bits[j] + st.bits_used
+                    att[j] = att[j] + st.attempts
+        return key, [BNSweepStats(b, a) for b, a in zip(bits, att)]
+
+    round_fn = _blocked_round_runner(devices, positions, L, sweeps_per_round,
+                                     thin, sweep)
+    round_fn.colours = colours
+    return round_fn
 
 
 def _repin(x: torch.Tensor, observed, evidence_values) -> torch.Tensor:

@@ -26,21 +26,24 @@ these specs.
 
 The serving half: the engine's state is ``(n_queries *
 chains_per_query, ...)``, pure chain-lane parallelism, so the lane axis
-shards over the serve mesh's leading "batch" axis and every colour
-update's gathers stay on the shard's device.  The reference keeps the
-flat log-CPT bank and the sparse site axis replicated below two
-thresholds and shards them over a trailing "model" axis above them.  The
-port keeps them whole on each batch shard's device (the replicated
-layout) and refuses the sharded one: above the thresholds, on a mesh
-whose "model" axis is wider than one, :func:`check_serve_cpt` and
-:func:`check_serve_sites` raise ``NotImplementedError`` (ROADMAP Queue 1
-item 4c, "model"-axis sharding).
+shards over the serve mesh's leading "batch" axis.  Above two thresholds
+the reference shards two operands over a trailing "model" axis as well,
+and so does the port, by the same rules (:func:`serve_cpt_spec`,
+:func:`serve_fg_state_spec`): a flat log-CPT bank of
+``SERVE_CPT_SHARD_ELEMS`` elements or more, and a factor graph's site
+axis from ``SERVE_SITE_SHARD_ELEMS`` sites, each where it divides by the
+"model" size.  Below them, or on a 1-D mesh, both stay whole on each
+batch shard's device.
 
 A sharded serving state is a :class:`LaneShards`: contiguous lane
 blocks, one a batch device, in global lane order.  Shard ``s`` holds
 global lanes ``[lo_s, hi_s)``, and its colour updates draw the bits of
 those global lanes (``lane0 = lo_s``), so a sharded group equals the
-unsharded one bit for bit.
+unsharded one bit for bit.  An operand split over "model" is a
+:class:`ModelBlocks`: equal contiguous blocks of its last axis, one a
+"model" device of the batch shard (a bank's elements; a state's sites),
+block 0 on the shard's home device; its copies between mesh positions
+are counted (:func:`repro_torch.sharding.partition.move`).
 """
 from __future__ import annotations
 
@@ -318,16 +321,16 @@ def named(mesh: DeviceMesh, tree_specs: Any):
         return {k: named(mesh, v) for k, v in tree_specs.items()}
     return type(tree_specs)(*(named(mesh, v) for v in tree_specs))
 
-# Flat log-CPT banks at or above this many elements shard over "model" in
-# the reference (an all-gather at use for at-rest memory).
+
+# Flat log-CPT banks at or above this many elements shard over "model", as
+# in the reference (lookups travel to the blocks for at-rest memory).
+# Read at call time.
 SERVE_CPT_SHARD_ELEMS = 1 << 22
 
-# Sparse factor-graph state crosses this many sites before the reference
-# shards its site axis over "model" (the million-spin regime).
+# Sparse factor-graph state crosses this many sites before its site axis
+# shards over "model", as in the reference (the million-spin regime).
+# Read at call time.
 SERVE_SITE_SHARD_ELEMS = 1 << 20
-
-_MODEL_AXIS_ITEM = ("sharding over the serve mesh's 'model' axis is not "
-                    "ported to repro_torch (ROADMAP Queue 1 item 4c)")
 
 
 def serve_batch_axis(mesh: DeviceMesh) -> str:
@@ -346,29 +349,44 @@ def _model_size(mesh: DeviceMesh) -> int:
 
 def serve_batch_devices(mesh: DeviceMesh) -> list[torch.device]:
     """The device of each batch shard, in lane order: the first device
-    along "model" (the port keeps the replicated operands whole there)."""
+    along "model" (its home: states are made, counts gathered and
+    replicated operands kept there)."""
+    return [devs[0] for devs, _ in serve_shards(mesh)]
+
+
+def serve_shards(mesh: DeviceMesh):
+    """Each batch shard's "model" devices and their mesh positions, in
+    lane order: ``[(devices, positions), ...]``, the home first."""
     devs = mesh.devices.reshape(mesh.devices.shape[0], -1)
-    return [devs[i, 0] for i in range(devs.shape[0])]
+    out = []
+    for i in range(devs.shape[0]):
+        pos = [(i, j) if mesh.devices.ndim == 2 else (i,)
+               for j in range(devs.shape[1])]
+        out.append((list(devs[i]), pos))
+    return out
 
 
-def check_serve_cpt(mesh: DeviceMesh | None, n_elems: int) -> None:
-    """Raise where the reference would shard a flat log-CPT bank of
-    ``n_elems`` over "model" (``repro.sharding.specs.serve_cpt_spec``)."""
-    m = 1 if mesh is None else _model_size(mesh)
+def serve_cpt_spec(mesh: DeviceMesh, n_elems: int) -> Spec:
+    """Spec of the flat log-CPT bank (1-D, sentinel included):
+    ``("model",)`` where the reference shards it
+    (``repro.sharding.specs.serve_cpt_spec``), else ``()``."""
+    m = _model_size(mesh)
     if m > 1 and n_elems >= SERVE_CPT_SHARD_ELEMS and n_elems % m == 0:
-        raise NotImplementedError(
-            f"a {n_elems}-element CPT bank on a 'model' axis of {m}: "
-            f"{_MODEL_AXIS_ITEM}")
+        return ("model",)
+    return ()
 
 
-def check_serve_sites(mesh: DeviceMesh | None, n_sites: int) -> None:
-    """Raise where the reference would shard a sparse state's site axis
-    over "model" (``repro.sharding.specs.serve_fg_state_spec``)."""
-    m = 1 if mesh is None else _model_size(mesh)
-    if m > 1 and n_sites >= SERVE_SITE_SHARD_ELEMS and n_sites % m == 0:
-        raise NotImplementedError(
-            f"a {n_sites}-site factor graph on a 'model' axis of {m}: "
-            f"{_MODEL_AXIS_ITEM}")
+def serve_fg_state_spec(mesh: DeviceMesh, n_sites: int | None = None
+                        ) -> Spec:
+    """Spec of the ``(lanes, n_sites)`` sparse factor-graph state (the
+    reference's ``serve_fg_state_spec``): lanes over "batch", and the
+    site axis over "model" once ``n_sites`` reaches
+    ``SERVE_SITE_SHARD_ELEMS`` and divides evenly."""
+    if n_sites is not None:
+        m = _model_size(mesh)
+        if m > 1 and n_sites >= SERVE_SITE_SHARD_ELEMS and n_sites % m == 0:
+            return (serve_batch_axis(mesh), "model")
+    return (serve_batch_axis(mesh), None)
 
 
 def lane_bounds(n_lanes: int, n_shards: int) -> list[tuple[int, int]]:
@@ -437,4 +455,107 @@ class LaneShards:
     def gather(self, device=None) -> torch.Tensor:
         """The global tensor, on ``device`` (default: the first block's)."""
         device = device or self.parts[0].device
-        return torch.cat([p.to(device) for p in self.parts])
+        return torch.cat([p.gather().to(device)
+                          if isinstance(p, ModelBlocks) else p.to(device)
+                          for p in self.parts])
+
+
+class ModelBlocks:
+    """A tensor split along its last axis into equal contiguous blocks,
+    one a "model" device of a batch shard: ``parts[j]`` holds
+    ``bounds[j]`` of the last axis at mesh position ``positions[j]``;
+    block 0 is on the shard's home device.  A flat log-CPT bank is one
+    (its elements), a ``(lanes, n_sites)`` state another (its sites).
+    Indexing the leading axes reads every block's rows and joins them on
+    the home device; assigning to them sends each block its columns; each
+    copy between two positions is counted as a ``"state"`` copy
+    (:func:`repro_torch.sharding.partition.move`).  The engine's warm
+    starts, backfills and host reads go through these, as through
+    :class:`LaneShards`."""
+
+    def __init__(self, parts: list[torch.Tensor],
+                 bounds: list[tuple[int, int]], positions: list[tuple]):
+        if not (len(parts) == len(bounds) == len(positions)) or any(
+                p.shape[-1] != hi - lo for p, (lo, hi) in zip(parts, bounds)):
+            raise ValueError("one part a block, each its block's size")
+        self.parts = list(parts)
+        self.bounds = list(bounds)
+        self.positions = list(positions)
+
+    @classmethod
+    def split(cls, x: torch.Tensor, devices, positions) -> "ModelBlocks":
+        """Split ``x`` (on the home device, ``devices[0]``) into equal
+        blocks of its last axis, block ``j`` copied to ``devices[j]``."""
+        bounds = lane_bounds(x.shape[-1], len(devices))
+        return cls([_move(x[..., lo:hi], d, positions[0], p, copy=True)
+                    for (lo, hi), d, p in zip(bounds, devices, positions)],
+                   bounds, positions)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.parts[0].shape[:-1]) + (self.bounds[-1][1],)
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def _home(self, pieces) -> torch.Tensor:
+        home = self.positions[0]
+        return torch.cat([_move(t, self.device, p, home)
+                          for t, p in zip(pieces, self.positions)], dim=-1)
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        return self._home([part[idx] for part in self.parts])
+
+    def __setitem__(self, idx, value: torch.Tensor) -> None:
+        value = value.to(self.device)
+        for part, (lo, hi), p in zip(self.parts, self.bounds,
+                                     self.positions):
+            part[idx] = _move(value[..., lo:hi], part.device,
+                              self.positions[0], p)
+
+    def gather(self) -> torch.Tensor:
+        """The whole tensor on the home device."""
+        return self._home(self.parts)
+
+    def take_clip(self, idx: torch.Tensor) -> torch.Tensor:
+        """``jnp.take(bank, idx, mode="clip")`` on a flat bank held as
+        blocks, with the result of a clamp-then-index into the whole bank:
+        clamp to the whole bank, take the home block's indices there, send
+        the indices to every other block, take at each a clamped local
+        index, bring the values home and keep each index's owner's value
+        by selection (``torch.where`` by owner: a copy, so ``-0.0`` and the
+        sentinel stay as they are).  The whole bank is never on one
+        device.  Each block past the home one receives every index as
+        int32 and sends back a float32 value for each (only the owner's
+        survive the selection): ``8 * idx.numel()`` bytes a block a
+        lookup, counted as ``"bank"`` copies."""
+        from repro_torch.sharding import partition
+
+        per = self.bounds[0][1]
+        home, pos0 = self.device, self.positions[0]
+        i = torch.clamp(idx, 0, self.shape[0] - 1)
+        owner = i // per
+        out = self.parts[0][torch.clamp(i, max=per - 1)]
+        sent = i.to(torch.int32)
+        for part, (lo, _), pos in zip(self.parts[1:], self.bounds[1:],
+                                      self.positions[1:]):
+            local = partition.move(sent, part.device, pos0, pos, "bank")
+            vals = part[torch.clamp(local.to(torch.int64) - lo, 0, per - 1)]
+            vals = partition.move(vals, home, pos, pos0, "bank")
+            out = torch.where(owner == lo // per, vals, out)
+        return out
+
+
+def _move(t: torch.Tensor, device, src_pos, dst_pos,
+          copy: bool = False) -> torch.Tensor:
+    """``t`` on ``device`` at ``dst_pos``, counted as a ``"state"`` copy
+    where the positions differ (a copy, never ``t``, with ``copy``)."""
+    from repro_torch.sharding import partition
+
+    out = partition.move(t, device, src_pos, dst_pos, "state")
+    return out.clone() if copy and out is t else out

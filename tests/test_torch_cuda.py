@@ -412,6 +412,54 @@ def test_kernel_lane0_rows_equal_the_unsharded_launch(cuda_device):
                 assert torch.equal(g, f[lo:hi])
 
 
+def test_kernel_row_map_matches_plain_version(cuda_device, monkeypatch):
+    """A row map ``(N, colpos)``: the contiguous map ``arange(N)`` gives
+    the unmapped launch's rows; a scattered map gives the rows it names
+    of the whole launch and the plain version's four fields, also at a
+    ``lane0`` whose counters pass 2**32; and the engine's site blocks on
+    the card repeated equal the unsharded engine."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import cli
+    from repro_torch.serve.engine import PosteriorEngine
+    from repro_torch.sharding import specs
+
+    chains, N = 40, 125
+    logw, card = _inputs(13, chains * N, 5, cuda_device)
+    key = rng.PRNGKey(6)
+    full = fs.fused_gibbs_sample(key, logw, card, k=14)
+    ident = (N, torch.arange(N, device=cuda_device))
+    got = fs.fused_gibbs_sample(key, logw, card, k=14, row_map=ident)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, f) for g, f in zip(got, full))
+    colpos = torch.tensor(sorted(np.random.default_rng(0).choice(
+        N, 37, replace=False)), dtype=torch.int64, device=cuda_device)
+    for lane0 in (0, 11, 1 << 36):
+        c = chains - 11 if lane0 == 11 else chains
+        rows = ((lane0 + torch.arange(c, device=cuda_device)[:, None]) * N
+                + colpos).reshape(-1)
+        src = rows if lane0 != 1 << 36 else rows - lane0 * N
+        got = fs.fused_gibbs_sample(key, logw[src], card[src], k=14,
+                                    lane0=lane0, row_map=(N, colpos))
+        want = fs.fused_gibbs_sample_ref(key, logw[src], card[src], k=14,
+                                         lane0=lane0, row_map=(N, colpos))
+        torch.cuda.synchronize()
+        for g, w, f in zip(got, want, full):
+            assert torch.equal(g, w)
+            if lane0 != 1 << 36:
+                assert torch.equal(g, f[rows])
+
+    reg = cli.build_registry(("ising_torus",), ising_side=8)
+    traffic = cli.synthetic_ising_traffic(
+        reg["ising_torus"], "ising_torus", 2, 1, np.random.default_rng(1),
+        128)
+    kw = dict(chains_per_query=4, burn_in=4, sweeps_per_round=4, seed=2,
+              max_rounds=4)
+    monkeypatch.setattr(specs, "SERVE_SITE_SHARD_ELEMS", 16)
+    mesh = make_serve_mesh((2, 2), devices=[cuda_device] * 4)
+    sharded = PosteriorEngine(reg, mesh=mesh, **kw).answer_batch(traffic)
+    _assert_same(sharded, PosteriorEngine(reg, **kw).answer_batch(traffic))
+
+
 def test_mesh_gibbs_cuda_equals_torch_and_halo_equals_allgather(
         cuda_device):
     """The tile mesh over the card repeated: the fused kernel on every

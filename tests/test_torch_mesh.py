@@ -14,7 +14,9 @@
   on marginals) on sprinkler and asia, an MRF group and an Ising group;
   the lane-padding case (6 chains a query) within 0.05 of exact; the 2D
   mesh through the CLI; the queue's mesh-scaled size trigger; plan keys
-  per mesh; and ``NotImplementedError`` above the "model" thresholds.
+  per mesh; the "model" axis's placement rules against the reference's
+  and the runners' placement by them, and site blocks read and written
+  across blocks.
 """
 import dataclasses
 
@@ -322,6 +324,29 @@ def test_meshes_refuse_what_they_cannot_build():
         PosteriorEngine({}, mesh=_serve_mesh(), device="cuda")
 
 
+def test_model_blocks_read_and_write_across_blocks():
+    """Lane shards of site blocks: reads join each block's rows in site
+    order, writes send each block its columns, every copy between
+    "model" positions counted."""
+    from repro_torch.sharding import partition
+
+    x = torch.arange(48).reshape(8, 6)
+    shards = specs.LaneShards([specs.ModelBlocks.split(
+        x[lo:hi], [CPU] * 3, [(s, j) for j in range(3)])
+        for s, (lo, hi) in enumerate(specs.lane_bounds(8, 2))],
+        specs.lane_bounds(8, 2))
+    assert shards.shape == (8, 6) and shards.parts[1].shape == (4, 6)
+    assert [tuple(b.shape) for b in shards.parts[0].parts] == [(4, 2)] * 3
+    partition.reset_traffic()
+    assert torch.equal(shards[2:7], x[2:7])
+    assert partition.TRAFFIC["crossed_bytes"] == 2 * (2 + 3) * 2 * 8
+    shards[3:7] = -x[3:7]
+    want = x.clone()
+    want[3:7] = -x[3:7]
+    assert torch.equal(shards.gather(), want)
+    assert torch.equal(shards.parts[1].parts[2], want[4:, 4:])
+
+
 def test_lane_shards_read_and_write_across_blocks():
     x = torch.arange(24).reshape(8, 3)
     shards = specs.LaneShards.split(x, [CPU] * 4)
@@ -335,28 +360,52 @@ def test_lane_shards_read_and_write_across_blocks():
         specs.lane_bounds(6, 4)
 
 
-def test_model_axis_sharding_is_not_ported():
-    """Above the reference's thresholds, on a "model" axis wider than
-    one, the reference shards the CPT bank / site axis; the port raises
-    and names the ROADMAP item.  Below them, or on a 1D mesh, the operands
-    stay whole on each batch shard."""
+# (mesh shape, elements or sites relative to the threshold): above and
+# below each threshold, divisible by the "model" size or not, 1-D and 2-D
+PLACEMENT_CASES = [
+    ((2, 2), 0), ((2, 2), 2), ((2, 2), 1), ((2, 2), -2), ((1, 4), 4),
+    ((1, 4), 2), ((2, 3), 3), ((2, 1), 0), ((4,), 0), ((4,), 1),
+]
+
+
+@pytest.mark.parametrize("shape,offset", PLACEMENT_CASES)
+def test_model_axis_sharding_is_not_ported(shape, offset):
+    """The serve placement rules equal the reference's
+    ``serve_cpt_spec`` and ``serve_fg_state_spec`` entry for entry, at,
+    above and below each threshold, where the size divides by the "model"
+    size and where it does not, on 1-D and 2-D meshes; and the runners
+    place by them: a bank the rule splits is one block a "model" device,
+    a state's sites likewise, and otherwise both stay whole on each batch
+    shard."""
     from types import SimpleNamespace
+
+    from jax.sharding import AbstractMesh
+    from repro.sharding import specs as j_specs
 
     from repro_torch.serve import families
 
-    mesh2d, mesh1d = _serve_mesh((2, 2)), _serve_mesh()
-    kw = dict(sweeps_per_round=4, thin=1, use_iu=True, sampler="torch",
-              mesh=mesh2d)
-    big_bn = SimpleNamespace(
-        log_cpt=np.zeros(specs.SERVE_CPT_SHARD_ELEMS, np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        families.make_round_runner(big_bn, **kw)
-    big_fg = SimpleNamespace(n_vars=specs.SERVE_SITE_SHARD_ELEMS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        families.make_fg_round_runner(big_fg, **kw)
-    specs.check_serve_cpt(mesh1d, specs.SERVE_CPT_SHARD_ELEMS)
-    specs.check_serve_sites(mesh1d, specs.SERVE_SITE_SHARD_ELEMS)
-    specs.check_serve_cpt(mesh2d, specs.SERVE_CPT_SHARD_ELEMS - 2)
-    specs.check_serve_sites(mesh2d, specs.SERVE_SITE_SHARD_ELEMS + 1)
-    assert specs.serve_lane_multiple(mesh2d) == 2
+    axes = ("batch", "model")[:len(shape)]
+    jmesh = AbstractMesh(shape, axes)
+    mesh = t_mesh.make_serve_mesh(shape, devices=[CPU] * int(np.prod(shape)))
+    n_cpt = specs.SERVE_CPT_SHARD_ELEMS + offset
+    n_sites = specs.SERVE_SITE_SHARD_ELEMS + offset
+    cpt = specs.serve_cpt_spec(mesh, n_cpt)
+    state = specs.serve_fg_state_spec(mesh, n_sites)
+    assert cpt == tuple(j_specs.serve_cpt_spec(jmesh, n_cpt))
+    assert state == tuple(j_specs.serve_fg_state_spec(jmesh, n_sites))
+    assert specs.serve_fg_state_spec(mesh) == tuple(
+        j_specs.serve_fg_state_spec(jmesh))
+    m = mesh.shape.get("model", 1)
+    assert ("model" in cpt) == (m > 1 and offset >= 0 and n_cpt % m == 0)
+    kw = dict(sweeps_per_round=1, thin=1, use_iu=True, sampler="torch",
+              mesh=mesh)
+    bank = families.make_round_runner(SimpleNamespace(
+        log_cpt=np.zeros(n_cpt, np.float32), plans=(), max_card=2, k=14),
+        **kw).runners[0].log_cpt
+    if "model" in cpt:
+        assert isinstance(bank, specs.ModelBlocks)
+        assert [p.numel() for p in bank.parts] == [n_cpt // m] * m
+    else:
+        assert isinstance(bank, torch.Tensor) and bank.numel() == n_cpt
+    assert specs.serve_lane_multiple(mesh) == shape[0]
     assert specs.serve_lane_multiple(None) == 1
