@@ -189,7 +189,29 @@ line is printed:
    LM_SSM_MESH_LOGIT_BF16); hymba's 2 x 2 step against 1 x 1 at 2 layers
    in float32 and bf16 (LM_MESH_TOL, LM_MESH_BF16).  No kernel of the
    port: every launch count must stay 0.
-24. lm_dryrun — the planning tools (``launch/dryrun.py``,
+24. lm_mesh_optim — the training step's "dots" remat and Adafactor's
+   update where its blocks lie, on a ("data", "model") mesh over
+   ``mesh_devices(4)`` (LM_MESH_OPTIM): phi4-mini-3.8b at full width on
+   2 x 2 with remat "dots" (its config's settings otherwise, batch 8 x
+   128, 1 warm-up and 2 timed steps: ms a step, peak memory, bytes
+   between positions, a profiled step's launches and busy share, each
+   beside phase 22's "full" figures); at 2 layers in bf16 the matrix
+   products one microbatch dispatches forward and backward under "full"
+   and "dots", and the loss, grad norm and parameters after one step
+   equal to "full"'s bit for bit; the dots step's bytes between
+   positions within LM_DRYRUN["bytes_rtol"] of its dry run over four
+   ``meta`` devices.  grok-1-314b at full width cut to 1 of its 64
+   layers (Adafactor, bf16 parameters, 8 experts top-2, softcap 30;
+   microbatch 1), trained on 1 x 1 and then on 2 x 2 from the same
+   weights: step and update ms, peak memory of each, the update's bytes
+   between positions (segment "optimizer") equal to the statistics and
+   scalars reckoned from the layouts, beside what the whole-leaf update
+   would have moved; after the first step the loss and grad norm, and
+   the 2 x 2 update given the 1 x 1 step's gradients from the same
+   state, within LM_MESH_BF16 of 1 x 1 (the whole step's gradients and
+   parameters measured against it and printed).  No kernel of the port:
+   every launch count must stay 0; at most 150 s.
+25. lm_dryrun — the planning tools (``launch/dryrun.py``,
    ``launch/roofline.py``) held against phases 22 and 23: the dry run of
    the same configuration (phi4-mini-3.8b at full width, 2 x 2, batch 8 x
    128, microbatch 2, remat "full", AdamW) over four ``meta`` devices,
@@ -204,12 +226,12 @@ line is printed:
    roofline fraction at H100 constants.  No kernel launches; at most 120
    s.
 
-Phases 4, 7, 8 and 10-24 each zero their kernel's launch count (phases
-20-24: every kernel's) just before their main path and read it just
+Phases 4, 7, 8 and 10-25 each zero their kernel's launch count (phases
+20-25: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
-``lm_train``, ``lm_mesh``, ``lm_mesh_families`` and ``lm_dryrun`` with 0
-launches, every kernel's count beside them).  Then
+``lm_train``, ``lm_mesh``, ``lm_mesh_families``, ``lm_mesh_optim`` and
+``lm_dryrun`` with 0 launches, every kernel's count beside them).  Then
 the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
@@ -460,6 +482,30 @@ LM_FAMILIES_MESH = dict(shape=(2, 2), hybrid="hymba-1.5b",
 # (the row-parallel out_proj's partial sums round in bf16)
 LM_SERVE_MESH_TOL = 1e-4
 LM_SSM_MESH_LOGIT_BF16 = 5e-2
+
+# The training step's two mesh behaviours of phase lm_mesh_optim, over
+# mesh_devices(4): phi4-mini-3.8b at full width on 2 x 2 with remat "dots"
+# (its config's settings otherwise: AdamW, microbatch 2; lm_train's batch
+# 8 x 128; 1 warm-up and 2 timed steps), bitwise with "full" at
+# ident_layers in bf16; grok-1-314b (src/repro/configs/grok1_314b.py: 64
+# layers, d_model 6144, 48 heads on 8, 8 experts of ffn 32,768, top-2,
+# vocab 131,072, softcap 30, Adafactor, bf16 parameters and accumulation)
+# at full width cut to moe_layers of its 64 (4.92 B parameters: one
+# layer's two expert stacks are 3.2 B; a whole-leaf Adafactor update
+# holds several float32 copies of such a stack, 6.4 GB each, so one layer
+# fills most of the card on 1 x 1) and its microbatch 16 cut to
+# moe_microbatch (a batch of 8 has no rows for 16 microbatches, and with
+# 2 the microbatch mean's float32 copy of every gradient, 19.7 GB, would
+# not fit beside the whole-leaf update on 1 x 1), 1 x 1 and 2 x 2 from
+# the same weights, moe_steps after a first step; after the first step
+# the loss and grad norm, and the update alone on the same gradients,
+# 2 x 2 against 1 x 1 within LM_MESH_BF16 (the whole step's gradients
+# and parameters are reported against it: the router's top-2 in bf16
+# flips where the layouts round its input differently).  The phase's
+# time limit.
+LM_MESH_OPTIM = dict(shape=(2, 2), warmup=1, timed_steps=2, ident_layers=2,
+                     moe="grok-1-314b", moe_layers=1, moe_microbatch=1,
+                     moe_steps=1, seconds=150)
 
 
 def emit(obj) -> None:
@@ -3650,7 +3696,8 @@ def phase_lm_mesh(card_name: str, one: dict) -> dict:
             "crossed_bytes_reckoned": full["crossed_bytes_reckoned"]["total"],
             "state_bytes_counted": full["state_bytes_counted"],
             "peak_memory_bytes": full["peak_memory_bytes"],
-            "busy_share": full["profiled_step"]["busy_share"]}
+            "busy_share": full["profiled_step"]["busy_share"],
+            "launches_a_step": full["profiled_step"]["launches"]}
 
 
 def hybrid_reckoned_bytes(cfg, mesh, mb_rows: int, nmb: int,
@@ -4067,6 +4114,575 @@ def phase_lm_mesh_families(card_name: str) -> dict:
             "seconds": out["seconds"]["total"]}
 
 
+def dot_counter():
+    """A dispatch mode that counts (``.n``) the matrix products
+    (``transformer.DOT_OPS``) dispatched while it is entered: a product
+    the "dots" remat replays does not reach it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.transformer import DOT_OPS
+
+    class DotCounter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in DOT_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return DotCounter()
+
+
+def dot_ops_a_pass(model, mesh, batch, q_block: int) -> dict:
+    """Matrix products dispatched by one microbatch's forward and by its
+    backward (the remat's recompute included), under ``model.cfg``'s
+    remat; the gradients are dropped after."""
+    from repro_torch.models.transformer import mesh_loss, param_leaves
+    from repro_torch.training.optimizer import as_list
+    from repro_torch.training.train_step import split_batch
+
+    nmb = max(model.cfg.microbatch, 1)
+    run, shards = split_batch(mesh, batch, nmb)[0]
+    with dot_counter() as fwd:
+        loss = mesh_loss(model, run, shards, q_block)
+    with dot_counter() as bwd:
+        loss.backward()
+    for p in param_leaves(model).values():
+        for t in as_list(p):
+            t.grad = None
+    if not (fwd.n and bwd.n):
+        raise AssertionError(f"lm_mesh_optim: no products counted "
+                             f"({fwd.n}, {bwd.n})")
+    return {"forward": fwd.n, "backward": bwd.n}
+
+
+def lm_optim_dots(devices, kind: str, full: dict) -> dict:
+    """phi4-mini-3.8b at full width on 2 x 2 with remat "dots": 1 warm-up
+    and 2 timed steps through StepGuard, peak memory, the bytes a step
+    between mesh positions, one profiled step's launches and busy share,
+    beside lm_mesh's "full" figures (``full``) from this process."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import init_model, place_model
+    from repro_torch.sharding import partition
+    from repro_torch.training import DataConfig, StepGuard, TokenDataset
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    opt = LM_MESH_OPTIM
+    dev = devices[0]
+    cards = sorted(set(devices), key=str)
+    cfg = get_config(LM_TRAIN_FULL).replace(remat="dots")
+    run = LM_TRAIN_RUN
+    q_block = min(run["seq_len"], 512)
+    mesh = make_lm_mesh(*opt["shape"], devices=devices)
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    place_model(mesh, model)
+    state = init_train_state(cfg, model)
+    del model
+    state_bytes = placed_bytes(state)
+    step_fn, _ = make_train_step(cfg, q_block=q_block, mesh=mesh)
+    ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
+    guard = StepGuard()
+    recs = []
+    for i in range(opt["warmup"] + opt["timed_steps"]):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch_at(i).items()}
+        partition.reset_traffic()
+        sync_cards(cards)
+        t1 = time.perf_counter()
+        state, mt = guard.run(step_fn, state, batch)
+        sync_cards(cards)
+        recs.append({"ms": (time.perf_counter() - t1) * 1e3,
+                     "loss": float(mt["loss"]),
+                     "grad_norm": float(mt["grad_norm"]),
+                     "crossed_bytes": partition.TRAFFIC["crossed_bytes"],
+                     "copies": partition.TRAFFIC["crossed_copies"]})
+    if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
+        raise AssertionError(f"lm_mesh_optim dots: not finite: {recs}")
+    if guard.retries or guard.reloads:
+        raise AssertionError(f"lm_mesh_optim dots: {guard.retries} retries")
+    peak = max(torch.cuda.max_memory_allocated(c) for c in cards)
+    med = float(np.median([r["ms"] for r in recs[opt["warmup"]:]]))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(len(recs)).items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, mt = step_fn(state, batch)
+        sync_cards(cards)
+        prof_wall = time.perf_counter() - t1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    out = {"arch": cfg.name, "mesh": mesh.shape, "kind": kind,
+           "remat": cfg.remat, "optimizer": cfg.optimizer,
+           "microbatch": cfg.microbatch, "batch": run["batch"],
+           "seq_len": run["seq_len"], "steps": recs,
+           "median_step_ms": med, "full_median_step_ms":
+               full["median_step_ms"],
+           "over_full": med / full["median_step_ms"],
+           "peak_memory_gb": peak / 1e9,
+           "full_peak_memory_gb": full["peak_memory_gb"],
+           "peak_over_full_gb": peak / 1e9 - full["peak_memory_gb"],
+           "peak_memory_bytes": peak, "state_bytes_counted": state_bytes,
+           "crossed_bytes_counted": recs[-1]["crossed_bytes"],
+           "full_crossed_bytes_counted": full["crossed_bytes_counted"],
+           "profiled_step": {
+               "wall_ms": prof_wall * 1e3, "busy_ms": busy_ms,
+               "busy_share": busy_ms / (prof_wall * 1e3 * len(cards)),
+               "launches": int(sum(e.count for e in kernels)),
+               "full_launches": full["launches_a_step"],
+               "full_busy_share": full["busy_share"]}}
+    del state, step_fn, batch, mt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_optim_dots_identity(devices) -> dict:
+    """phi4-mini-3.8b at full width cut to LM_MESH_OPTIM["ident_layers"],
+    bf16, on 2 x 2: the matrix products one microbatch dispatches forward
+    and backward, then one train step, with remat "dots" and with "full"
+    from the same state and batch; the loss, the grad norm and every
+    parameter after the step must be equal bit for bit."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import (
+        init_model, param_leaves, place_model)
+    from repro_torch.sharding import partition
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    opt = LM_MESH_OPTIM
+    dev = devices[0]
+    cfg = get_config(LM_TRAIN_FULL).replace(n_layers=opt["ident_layers"])
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    batch = mesh_batch(cfg, 0, LM_TRAIN_RUN["batch"],
+                       LM_TRAIN_RUN["seq_len"], dev)
+    q_block = min(LM_TRAIN_RUN["seq_len"], 512)
+    got, products = {}, {}
+    for remat in ("full", "dots"):
+        c = cfg.replace(remat=remat)
+        m = copy.deepcopy(model)
+        m.cfg = c
+        mesh = make_lm_mesh(*opt["shape"], devices=devices)
+        place_model(mesh, m)
+        products[remat] = dot_ops_a_pass(m, mesh, batch, q_block)
+        st = init_train_state(c, m)
+        st, mt = make_train_step(c, q_block=q_block, mesh=mesh)[0](st, batch)
+        got[remat] = (mt["loss"], mt["grad_norm"],
+                      {k: partition.gather(v, dev).detach()
+                       for k, v in param_leaves(st.model).items()})
+        del st, m
+    (l1, n1, p1), (l2, n2, p2) = got["full"], got["dots"]
+    unequal = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+    res = {"n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "loss": float(l1), "loss_equal": bool(torch.equal(l1, l2)),
+           "grad_norm_equal": bool(torch.equal(n1, n2)),
+           "params_unequal": unequal, "leaves": len(p1),
+           "dot_ops_a_microbatch": products}
+    del got, model, p1, p2
+    torch.cuda.empty_cache()
+    if not (res["loss_equal"] and res["grad_norm_equal"] and not unequal):
+        raise AssertionError(f"lm_mesh_optim: dots != full at "
+                             f"{cfg.n_layers} layers: {res}")
+    return res
+
+
+def adafactor_reckoned_bytes(params, state) -> dict:
+    """The bytes Adafactor's update must copy between mesh positions,
+    from the layouts, block pair by block pair: each gradient block's
+    partial row (column) sums to every ``vr`` (``vc``) block at another
+    position that holds some of its rows (columns), and the
+    preconditioner's slices back; each ``vr`` block's partial row sums of
+    ``vr2`` to every ``vr`` block at another position sharing its rows;
+    an unfactored leaf's moments to the gradient's blocks and back (the
+    statistics); a sum of squares a gradient block to the first position,
+    the clip's root back to each of its positions, the clip scale and
+    beta (8 bytes) once to each position that uses them (the scalars).
+    Beside them, what the whole-leaf update on the first device moved:
+    every block elsewhere of the gradient, the parameter and both
+    moments gathered, and the parameter and the moments written back."""
+    import math
+
+    def blocks(leaf):
+        if isinstance(leaf, list):
+            return [(((i, i + 1),) + x.box(c), x.position(c),
+                     x.dtype.itemsize)
+                    for i, x in enumerate(leaf) for c in x.coords()]
+        return [(leaf.box(c), leaf.position(c), leaf.dtype.itemsize)
+                for c in leaf.coords()]
+
+    def overlap(a, b) -> int:
+        return math.prod(max(0, min(x1, y1) - max(x0, y0))
+                         for (x0, x1), (y0, y1) in zip(a, b))
+
+    def vol(box) -> int:
+        return math.prod(b - a for a, b in box)
+
+    home = None
+    stats = scalars = gathered = 0
+    needed = set()
+    for key, p in params.items():
+        G, V, C = blocks(p), blocks(state.vr[key]), blocks(state.vc[key])
+        home = home or tuple(0 for _ in G[0][1])
+        here = {pos for _, pos, _ in G + V + C}
+        if len(here) == 1:
+            continue
+        if len(G[0][0]) >= 2:
+            needed |= here
+            for bk, pk, _ in G:
+                for bv, pv, _ in V:
+                    if pv != pk:
+                        stats += 2 * 4 * overlap(bk[:-1], bv)
+                for bc, pc, _ in C:
+                    if pc != pk:
+                        stats += 2 * 4 * overlap(bk[:-2] + bk[-1:], bc)
+            for ba, pa, _ in V:
+                for bb, pb, _ in V:
+                    if pa != pb:
+                        stats += 4 * overlap(ba[:-1], bb[:-1])
+        else:
+            needed |= {pos for _, pos, _ in G}
+            for bk, pk, _ in G:
+                for bv, pv, _ in V:
+                    if pv != pk:
+                        stats += 2 * 4 * overlap(bk, bv)
+        scalars += 4 * sum(pk != home for _, pk, _ in G)
+        scalars += 4 * len({pk for _, pk, _ in G} - {home})
+        gathered += sum(vol(b) * 3 * n for b, pk, n in G if pk != home)
+        gathered += sum(2 * vol(b) * n for b, pk, n in V + C if pk != home)
+    scalars += 8 * len(needed - {home})
+    return {"statistics": stats, "scalars": scalars,
+            "total": stats + scalars, "gathered_update": gathered}
+
+
+def lm_optim_moe(devices) -> dict:
+    """grok-1-314b at full width cut to LM_MESH_OPTIM["moe_layers"] layer:
+    trained with its config's settings on 1 x 1 and then on 2 x 2 from the
+    same seeded weights and batches; each run's step and Adafactor update
+    timed, the timed step's peak memory; the 2 x 2 update's bytes between
+    positions (segment "optimizer") counted against the reckoning.  After
+    the first step, against LM_MESH_BF16 (:func:`moe_identity_failures`
+    holds it): the 2 x 2 loss and grad norm against 1 x 1's, and the 2 x 2
+    update given 1 x 1's gradients from the same initial state against
+    1 x 1's parameters (the update alone, :func:`moe_update_alone`); the
+    whole steps' gradients and parameters are measured against the same
+    bounds and reported (:func:`leaf_excess`): in bf16 the router's top-2
+    is a discrete function of activations that the two layouts round
+    differently, so a whole step's gradients may differ past any
+    rounding bound."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import (
+        init_model, param_leaves, place_model)
+    from repro_torch.sharding import partition
+    from repro_torch.training import DataConfig, TokenDataset
+    from repro_torch.training.optimizer import Adafactor, leaf_shape
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+
+    opt = LM_MESH_OPTIM
+    tol = LM_MESH_BF16
+    dev = devices[0]
+    cards = sorted(set(devices), key=str)
+    full_cfg = get_config(opt["moe"])
+    cfg = full_cfg.replace(n_layers=opt["moe_layers"],
+                           microbatch=opt["moe_microbatch"])
+    run = LM_TRAIN_RUN
+    ds = TokenDataset(DataConfig(cfg.vocab, run["seq_len"], run["batch"]))
+    out = {"arch": cfg.name, "params": cfg.param_count(),
+           "reduced": {"n_layers": [full_cfg.n_layers, cfg.n_layers],
+                       "microbatch": [full_cfg.microbatch, cfg.microbatch]},
+           "optimizer": cfg.optimizer, "param_dtype": cfg.param_dtype,
+           "batch": run["batch"], "seq_len": run["seq_len"]}
+    kept, grads1 = {}, {}
+    for label, shape in (("one", None), ("mesh", opt["shape"])):
+        torch.cuda.empty_cache()
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+        mesh = (None if shape is None
+                else make_lm_mesh(*shape, devices=devices))
+        model = init_model(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+        if mesh is not None:
+            place_model(mesh, model)
+        state = init_train_state(cfg, model)
+        del model
+        step_fn, optim = make_train_step(cfg, q_block=run["seq_len"],
+                                         mesh=mesh)
+        update, times, res = optim.update, [], {}
+
+        def timed(grads, st, params, update=update, times=times, res=res,
+                  label=label):
+            if not times:             # the first step's gradients
+                if label == "one":
+                    grads1.update(host_leaves(grads))
+                else:
+                    res["whole_step_grads"] = leaf_excess(
+                        grads, grads1, dev, relative=tol["grad_tol"])
+            sync_cards(cards)
+            t = time.perf_counter()
+            r = update(grads, st, params)
+            sync_cards(cards)
+            times.append((time.perf_counter() - t) * 1e3)
+            return r
+
+        optim.update = timed
+        recs = []
+        for i in range(1 + opt["moe_steps"]):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in ds.batch_at(i).items()}
+            partition.reset_traffic()
+            sync_cards(cards)
+            if i:                      # the timed step's peak alone
+                for c in cards:
+                    torch.cuda.reset_peak_memory_stats(c)
+            t1 = time.perf_counter()
+            state, mt = step_fn(state, batch)
+            sync_cards(cards)
+            recs.append({
+                "ms": (time.perf_counter() - t1) * 1e3,
+                "update_ms": times[-1], "loss": float(mt["loss"]),
+                "grad_norm": float(mt["grad_norm"]),
+                "crossed_bytes": partition.TRAFFIC["crossed_bytes"],
+                "optimizer_bytes": sum(
+                    b for (seg, _), (_, b) in partition.KINDS.items()
+                    if seg == "optimizer")})
+            if i:
+                continue
+            leaves = param_leaves(state.model)
+            if label == "one":
+                kept.update(host_leaves(leaves))
+                continue
+            res["whole_step_params"] = leaf_excess(leaves, kept, dev)
+            reckoned = adafactor_reckoned_bytes(leaves, state.opt)
+            traffic = Adafactor().traffic(mesh, {
+                k: (leaf_shape(v), partition.stacked_spec(v),
+                    isinstance(v, list)) for k, v in leaves.items()})
+            res.update(
+                mesh=mesh.shape, experts_a_position=cfg.n_experts // shape[1],
+                optimizer_bytes_counted=recs[0]["optimizer_bytes"],
+                optimizer_bytes_reckoned=reckoned,
+                optimizer_bytes_traffic_fn=sum(
+                    b for _, b in traffic.values()))
+            if not (reckoned["total"] == recs[0]["optimizer_bytes"]
+                    == res["optimizer_bytes_traffic_fn"]):
+                raise AssertionError(f"lm_mesh_optim {cfg.name}: optimizer "
+                                     f"bytes {res}")
+            del leaves
+        peak = max(torch.cuda.max_memory_allocated(c) for c in cards)
+        if not np.isfinite([[r["loss"], r["grad_norm"]] for r in recs]).all():
+            raise AssertionError(f"lm_mesh_optim {cfg.name} {label}: not "
+                                 f"finite: {recs}")
+        res.update(steps=recs, step_ms=recs[-1]["ms"],
+                   update_ms=recs[-1]["update_ms"],
+                   peak_memory_gb=peak / 1e9, peak_memory_bytes=peak)
+        out[label] = res
+        del state, step_fn, optim, batch, mt
+        torch.cuda.empty_cache()
+    one, got = out["one"]["steps"][0], out["mesh"]["steps"][0]
+    out["identity"] = {
+        "loss_rel_err": abs(got["loss"] - one["loss"]) / abs(one["loss"]),
+        "grad_norm_rel_err": abs(got["grad_norm"] - one["grad_norm"])
+        / abs(one["grad_norm"]),
+        "update_alone": moe_update_alone(cfg, devices, grads1, kept),
+        "whole_step_grads": out["mesh"].pop("whole_step_grads"),
+        "whole_step_params": out["mesh"].pop("whole_step_params"),
+        "tolerance": tol}
+    out["peak_one_over_mesh"] = (out["one"]["peak_memory_bytes"]
+                                 / out["mesh"]["peak_memory_bytes"])
+    return out
+
+
+def moe_identity_failures(ident: dict) -> list:
+    """What of :func:`lm_optim_moe`'s identity is outside LM_MESH_BF16:
+    the first step's loss and grad norm, and the update alone."""
+    tol = ident["tolerance"]
+    bad = []
+    if ident["loss_rel_err"] > tol["loss_rtol"]:
+        bad.append("loss")
+    if ident["grad_norm_rel_err"] > tol["grad_tol"]:
+        bad.append("grad_norm")
+    if ident["update_alone"]["outside"]:
+        bad.append("update_alone")
+    return bad
+
+
+def host_leaves(leaves: dict) -> dict:
+    """Each leaf whole on the host, a copy (not a live tensor)."""
+    import torch
+
+    from repro_torch.sharding import partition
+
+    return {k: v.detach().to("cpu", copy=True)
+            if isinstance(v, torch.Tensor)
+            else partition.gather(v, "cpu").detach()
+            for k, v in leaves.items()}
+
+
+def leaf_excess(leaves: dict, want: dict, dev, relative=None) -> dict:
+    """Each leaf of ``leaves`` (placed or not) against ``want`` (whole, on
+    the host), in slices on the card: within LM_MESH_BF16's parameter
+    bound (``param_tol`` plus one bf16 step of |want|), or with
+    ``relative`` within ``(relative + 2**-7)`` of the leaf's largest
+    |want| (its gradient bound).  Returns the leaves outside, each
+    leaf's largest |difference| and the largest excess over the bound,
+    and the elements outside it."""
+    from repro_torch.sharding import partition
+
+    bf = 2.0 ** -7
+    res = {"outside": [], "max_abs_diff": {}, "max_excess": -float("inf"),
+           "elements_outside": 0, "elements": 0}
+    step = 1 << 26
+    for k, v in leaves.items():
+        got = partition.gather(v, dev).detach().reshape(-1)
+        ref = want[k].reshape(-1)
+        scale = (None if relative is None
+                 else (relative + bf) * float(ref.float().abs().max()))
+        worst = 0.0
+        for lo in range(0, got.numel(), step):
+            a = got[lo:lo + step].float()
+            b = ref[lo:lo + step].to(dev).float()
+            d = (a - b).abs_()
+            lim = (b.abs_().mul_(bf).add_(LM_MESH_BF16["param_tol"])
+                   if scale is None else scale)
+            worst = max(worst, float(d.max()))
+            res["max_excess"] = max(res["max_excess"], float((d - lim).max()))
+            n = int((d > lim).sum())
+            res["elements_outside"] += n
+            if n and k not in res["outside"]:
+                res["outside"].append(k)
+        res["elements"] += got.numel()
+        res["max_abs_diff"][k] = worst
+        del got
+    return res
+
+
+def moe_update_alone(cfg, devices, grads1: dict, kept: dict) -> dict:
+    """Adafactor's update where its blocks lie, alone: the 2 x 2 state
+    from the same seeded weights, given the 1 x 1 run's first gradients
+    (``grads1``, placed as the parameters are), against the 1 x 1 run's
+    parameters after that step (``kept``) within LM_MESH_BF16."""
+    import torch
+
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models.transformer import (
+        init_model, param_leaves, place_model)
+    from repro_torch.sharding import partition
+    from repro_torch.training.optimizer import make_optimizer
+    from repro_torch.training.train_step import init_train_state
+
+    dev = devices[0]
+    mesh = make_lm_mesh(*LM_MESH_OPTIM["shape"], devices=devices)
+    model = init_model(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    place_model(mesh, model)
+    state = init_train_state(cfg, model)
+    del model
+    params = param_leaves(state.model)
+    grads = {}
+    for k, p in params.items():
+        g = grads1[k].to(dev)
+        grads[k] = ([partition.Sharded.place(mesh, g[i], x.spec)
+                     for i, x in enumerate(p)] if isinstance(p, list)
+                    else partition.Sharded.place(mesh, g, p.spec))
+        del g
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with partition.segment("optimizer"):
+        make_optimizer(cfg).update(grads, state.opt, params)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    del grads
+    res = leaf_excess(params, kept, dev)
+    res["update_ms"] = ms
+    del state, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_lm_mesh_optim(card_name: str, full: dict) -> dict:
+    """The "dots" remat and Adafactor's update where its blocks lie on a
+    ("data", "model") mesh over ``mesh_devices(4)`` (LM_MESH_OPTIM); the
+    dots step's bytes between positions held against its dry run.  One
+    JSON line for each half as it ends, then the phase's.  No kernel of
+    the port is on this path: every launch count must stay 0 over it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    opt = LM_MESH_OPTIM
+    devices, kind = mesh_devices(int(np.prod(opt["shape"])))
+    zero_kernel_launch_counts()                      # the main path
+    t0 = time.perf_counter()
+    dots = lm_optim_dots(devices, kind, full)
+    dots["identity"] = lm_optim_dots_identity(devices)
+    d, m = opt["shape"]
+    rec = dryrun.trace_cell(
+        get_config(LM_TRAIN_FULL).replace(remat="dots"),
+        make_lm_mesh(d, m, devices=[torch.device("meta")] * (d * m)),
+        ShapeCfg("lm_mesh_optim", LM_TRAIN_RUN["seq_len"],
+                 LM_TRAIN_RUN["batch"], "train"), trainer=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"lm_mesh_optim dry run: {rec}")
+    counted = dots["crossed_bytes_counted"]
+    traced = rec["traffic"]["crossed_bytes"]
+    dots["dryrun"] = {
+        "crossed_bytes_traced": traced, "bytes_rel_err":
+        abs(traced - counted) / counted, "trace_s": rec["t_trace_s"],
+        "temp_bytes_max": rec["memory"]["temp_bytes"],
+        "measured_peak_less_state":
+            dots["peak_memory_bytes"] - dots["state_bytes_counted"]}
+    t1 = time.perf_counter()
+    emit({"phase": "lm_mesh_optim_dots", "card": card_name,
+          "devices": [str(x) for x in devices], **dots,
+          "seconds": t1 - t0})
+    if dots["dryrun"]["bytes_rel_err"] > LM_DRYRUN["bytes_rtol"]:
+        raise AssertionError(f"lm_mesh_optim: dry run traced {traced} bytes "
+                             f"between positions, the dots step counted "
+                             f"{counted}")
+    moe = lm_optim_moe(devices)
+    t2 = time.perf_counter()
+    emit({"phase": "lm_mesh_optim_moe", "card": card_name, **moe,
+          "seconds": t2 - t1})
+    bad = moe_identity_failures(moe["identity"])
+    if bad:
+        raise AssertionError(f"lm_mesh_optim {moe['arch']}: 2 x 2 != 1 x 1 "
+                             f"({bad}): {moe['identity']}")
+    launches = kernel_launch_counts()
+    out = {"phase": "lm_mesh_optim", "card": card_name, "kind": kind,
+           "kernel_launches": launches,
+           "seconds": {"dots": t1 - t0, "moe": t2 - t1, "total": t2 - t0}}
+    emit(out)
+    if any(launches.values()):
+        raise AssertionError(f"lm_mesh_optim launched a kernel: {launches}")
+    if out["seconds"]["total"] > opt["seconds"]:
+        raise AssertionError(f"lm_mesh_optim took "
+                             f"{out['seconds']['total']:.1f} s")
+    return {"launches": 0, "kernel_launches": launches,
+            "dots_median_step_ms": dots["median_step_ms"],
+            "dots_peak_memory_gb": dots["peak_memory_gb"],
+            "moe_step_ms": moe["mesh"]["step_ms"],
+            "moe_peak_memory_gb": {"one": moe["one"]["peak_memory_gb"],
+                                   "mesh": moe["mesh"]["peak_memory_gb"]},
+            "seconds": out["seconds"]["total"]}
+
+
 def phase_lm_dryrun(card_name: str, mesh_run: dict, families: dict) -> dict:
     """The dry run of lm_mesh's configuration over four ``meta``
     devices against what phase lm_mesh measured in this process: the
@@ -4244,6 +4860,8 @@ def main() -> int:
     paths["lm_train"] = phase_lm_train(card_name)
     paths["lm_mesh"] = phase_lm_mesh(card_name, paths["lm_train"])
     paths["lm_mesh_families"] = phase_lm_mesh_families(card_name)
+    paths["lm_mesh_optim"] = phase_lm_mesh_optim(card_name,
+                                                 paths["lm_mesh"])
     paths["lm_dryrun"] = phase_lm_dryrun(card_name, paths["lm_mesh"],
                                          paths["lm_mesh_families"])
     emit({"kernels": [{

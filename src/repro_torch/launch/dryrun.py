@@ -27,7 +27,9 @@ position), so :func:`trace_cell` traces one layer and scales it:
   ``partition.KINDS`` by kind and by segment ("input", "step", "layer",
   "encoder", "chunk"); the step's bytes are each segment's times its
   count: microbatches, and layers (and the other batch shards, for the
-  activations) or loss chunks.
+  activations) or loss chunks; the optimizer's ("optimizer") are
+  Adafactor's for the whole model, from its layouts
+  (``Adafactor.traffic``: the trace updates one layer).
 
 Per cell it records ``status`` (``ok`` / ``skipped`` with the reason /
 ``error``), ``t_trace_s``, ``memory`` (per mesh position: the argument
@@ -50,7 +52,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import math
 import os
 import re
 import time
@@ -70,9 +71,10 @@ from repro_torch.launch.mesh import DeviceMesh, make_production_mesh
 from repro_torch.launch.roofline import H100, roofline_cell
 from repro_torch.models.layers import torch_dtype, xent_chunks
 from repro_torch.models.transformer import (
-    LM, init_cache, init_model, param_leaves, place_model)
+    DOT_OPS, LM, init_cache, init_model, param_leaves, place_model)
 from repro_torch.sharding import partition
 from repro_torch.sharding import specs as specs_lib
+from repro_torch.training.optimizer import make_optimizer
 from repro_torch.training.train_step import (
     TrainState, init_train_state, make_train_step)
 
@@ -93,19 +95,20 @@ class Tally(TorchDispatchMode):
     serves every batch shard.  A storage is charged once (views share
     it) and released when its last tensor is freed
     (``weakref.finalize``).  The arguments' storages (:meth:`argument`)
-    are known and never charged."""
+    are known and never charged.  ``dots`` counts, by segment and
+    position, the bytes of the matrix products made without gradients
+    (a remat region's forward: what the "dots" policy keeps)."""
 
     def __init__(self, first_pos):
         super().__init__()
         self.args: dict = {}          # storage key -> position
-        self.refs: dict = {}          # storage key -> [tensors, bytes, pos, opt]
+        self.refs: dict = {}          # storage key -> [tensors, bytes, pos]
         self.weights: set = set()     # storage keys of gathered parameters
         self.gathering = False
         self.tensors: dict = {}       # id(tensor) -> storage key
         self.live: Counter = Counter()
         self.peak: Counter = Counter()
-        self.opt_live: Counter = Counter()
-        self.opt_peak: Counter = Counter()
+        self.dots: Counter = Counter()
         self.forced = None
         self.cur = first_pos
 
@@ -166,8 +169,6 @@ class Tally(TorchDispatchMode):
             del self.refs[key]
             self.weights.discard(key)
             self.live[ref[2]] -= ref[1]
-            if ref[3]:
-                self.opt_live[ref[2]] -= ref[1]
 
     def _charge(self, t: torch.Tensor, pos) -> None:
         if id(t) in self.tensors:
@@ -178,16 +179,11 @@ class Tally(TorchDispatchMode):
         ref = self.refs.get(key)
         if ref is None:
             nbytes = t.untyped_storage().nbytes()
-            opt = partition._SEGMENT.get() == "optimizer"
-            ref = self.refs[key] = [0, nbytes, pos, opt]
+            ref = self.refs[key] = [0, nbytes, pos]
             if self.gathering:
                 self.weights.add(key)
             self.live[pos] += nbytes
             self.peak[pos] = max(self.peak[pos], self.live[pos])
-            if opt:
-                self.opt_live[pos] += nbytes
-                self.opt_peak[pos] = max(self.opt_peak[pos],
-                                         self.opt_live[pos])
         ref[0] += 1
         self.tensors[id(t)] = key
         weakref.finalize(t, self._release, id(t), key)
@@ -206,6 +202,9 @@ class Tally(TorchDispatchMode):
         for t in pytree.tree_leaves(out):
             if isinstance(t, torch.Tensor):
                 self._charge(t, pos)
+        if func in DOT_OPS and not torch.is_grad_enabled():
+            self.dots[partition._SEGMENT.get(), pos] += \
+                out.untyped_storage().nbytes()
         return out
 
 
@@ -362,6 +361,8 @@ def _trace(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
     with tally:
         fn(*call)
     t_trace = time.perf_counter() - t0
+    if kind == "train":
+        _whole_update_traffic(cfg, mesh, args[0].model, spec_of)
 
     # scale each segment by its count in a step
     run = partition.MeshRun(mesh, specs_lib.batch_spec_axis(mesh, rows))
@@ -383,25 +384,22 @@ def _trace(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
                "crossed_copies": sum(v["count"] for v in coll.values())}
 
     # transients: the traced step's peak, plus (train) every other layer's
-    # saved input and gradient, as if all were live at once
+    # saved input and gradient, and with the "dots" remat its saved
+    # matrix products, as if all were live at once
     extra: Counter = Counter()
     if kind == "train":
-        for stack, n in (("layers", cfg.n_layers),
-                         ("encoder", cfg.enc_layers)):
+        for stack, seg, n in (("layers", "layer", cfg.n_layers),
+                              ("encoder", "encoder", cfg.enc_layers)):
             if n <= 1:
                 continue
             seq = shape.seq_len if stack == "layers" else cfg.enc_seq_len
             carry = _carry_bytes(cfg, mesh, run, rows, seq,
                                  split=not trainer)
             grads = _layer_param_bytes(mesh, args[0].model, spec_of, stack)
-            for p in set(carry) | set(grads):
-                extra[p] += (n - 1) * (carry[p] + grads[p])
-        if cfg.optimizer == "adafactor":
-            # Adafactor gathers each stacked leaf whole onto the first
-            # device: its peak grows with the largest leaf
-            grow = _largest_leaf(args[0].model) / _largest_leaf(model)
-            for p, b in tally.opt_peak.items():
-                extra[p] += int((grow - 1) * b)
+            saved = Counter({p: b for (sg, p), b in tally.dots.items()
+                             if sg == seg and cfg.remat == "dots"})
+            for p in set(carry) | set(grads) | set(saved):
+                extra[p] += (n - 1) * (carry[p] + grads[p] + saved[p])
     temp = Counter(tally.peak) + extra
     positions = set(argument) | set(temp)
     total = {p: argument[p] + temp[p] for p in positions}
@@ -425,10 +423,21 @@ def _trace(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
             "segments": segments}
 
 
-def _largest_leaf(model) -> int:
-    """Elements of the model's largest (stacked) parameter leaf."""
-    return max(math.prod(specs_lib._shape(v))
-               for v in param_leaves(model).values())
+def _whole_update_traffic(cfg: ModelConfig, mesh: DeviceMesh, full: LM,
+                          spec_of: dict) -> None:
+    """The traced update ran on one layer: its copies in
+    ``partition.KINDS`` become the whole model's, which the optimizer
+    reckons from the layouts (Adafactor's statistics; AdamW's update
+    copies nothing between positions)."""
+    opt = make_optimizer(cfg)
+    if not hasattr(opt, "traffic"):
+        return
+    for key in [k for k in partition.KINDS if k[0] == "optimizer"]:
+        del partition.KINDS[key]
+    leaves = {k: (specs_lib._shape(v), spec_of[k], isinstance(v, list))
+              for k, v in param_leaves(full).items()}
+    for kind, slot in opt.traffic(mesh, leaves).items():
+        partition.KINDS["optimizer", kind] = slot
 
 
 def _carry_bytes(cfg: ModelConfig, mesh: DeviceMesh, run, rows: int,

@@ -16,10 +16,9 @@ analytic roofline terms at H100 constants
 (:func:`repro_torch.launch.dryrun.trace_cell`: per-device memory, bytes
 between mesh positions by kind).  The hypotheses are the reference's,
 word for word: they were written about its TPU terms, and the port's
-numbers test them again on the H100's.  Where the port refuses a
-variant (B's ``mb4_dots``: the "dots" remat on a mesh, ROADMAP Queue 1
-item 4b) its dry run is ``skipped`` with that item, and its roofline is
-still recorded.
+numbers test them again on the H100's.  Every variant has its dry run
+(B's ``mb4_dots`` too: the mesh's "dots" remat keeps the matrix
+products and recomputes the rest, weight gathers included).
 Results → reports/torch/perf/<cell>.json.
 
 Usage:

@@ -40,6 +40,7 @@ import functools
 import torch
 import torch.utils._pytree as pytree
 from torch import nn
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -270,12 +271,12 @@ def _dec_block(cfg: ModelConfig, lp: Block, x, window: int, freqs, q_block,
 
 # jax.checkpoint_policies.checkpoint_dots: keep the outputs of matrix
 # products, recompute everything else
-_DOTS = frozenset(getattr(torch.ops.aten, name).default
+DOT_OPS = frozenset(getattr(torch.ops.aten, name).default
                   for name in ("mm", "bmm", "addmm", "baddbmm"))
 
 
 def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
@@ -296,6 +297,56 @@ def _remat(cfg: ModelConfig, body):
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
+class _SaveDots(TorchDispatchMode):
+    """Records every matrix product (``DOT_OPS``) run under it, its op
+    and its output detached, in call order: on the device that computed
+    it."""
+
+    def __init__(self):
+        super().__init__()
+        self.saved: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in DOT_OPS:
+            self.saved.append((func, out.detach()))
+            DOTS_COUNTS["saved"] += 1
+        return out
+
+
+class _ReplayDots(TorchDispatchMode):
+    """Returns the records of :class:`_SaveDots`, in call order, for the
+    matrix products run under it instead of computing them (a record
+    of another op, shape, dtype or device raises); every other op runs.
+    Autograd sits above the mode, so a replayed product still records
+    its backward with the recomputed inputs."""
+
+    def __init__(self, saved: list):
+        super().__init__()
+        self.saved = saved[::-1]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in DOT_OPS:
+            return func(*args, **(kwargs or {}))
+        a, b = args[-2], args[-1]        # mm/bmm(a, b), addmm/baddbmm(c, a, b)
+        want = (func, tuple(a.shape[:-1]) + (b.shape[-1],), a.dtype,
+                a.device)
+        if not self.saved:
+            raise RuntimeError(f"dots remat: {func} has no record")
+        op, out = self.saved.pop()
+        got = (op, tuple(out.shape), out.dtype, out.device)
+        if got != want:
+            raise RuntimeError(f"dots remat: the recompute makes {want}, "
+                               f"the record is {got}")
+        DOTS_COUNTS["replayed"] += 1
+        return out
+
+
+# products recorded by the mesh's "dots" regions and returned in their
+# recomputes (equal once every backward has run)
+DOTS_COUNTS = {"saved": 0, "replayed": 0}
+
+
 def _mesh_remat(cfg: ModelConfig, fn):
     """:func:`_remat` for a region of a mesh program (a layer, a loss
     chunk): it spans the mesh's devices, and the autograd engine runs
@@ -307,24 +358,39 @@ def _mesh_remat(cfg: ModelConfig, fn):
     flattened, and a tensor that needs a gradient rides along, so the
     region's outputs need one even where its inputs do not (the
     encoder's: its parameters are not arguments).  The "dots" policy
-    needs the non-reentrant variant and is not ported over a mesh."""
+    records the matrix products' outputs in the region's forward
+    (:class:`_SaveDots`) and returns them in its recompute
+    (:class:`_ReplayDots`), which recomputes every other op; both modes
+    are entered on the thread that runs the forward or the recompute."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat != "full":
-        raise NotImplementedError(
-            f"remat {cfg.remat!r} over a mesh is not ported to repro_torch "
-            "(ROADMAP Queue 1 item 4b); use 'full' or 'none'")
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
 
     def region(*args):
         leaves, spec = pytree.tree_flatten(args)
         tensor = [isinstance(x, torch.Tensor) for x in leaves]
         static = {}
 
-        def inner(_, *tensors):
+        def call(tensors):
             it = iter(tensors)
-            out = fn(*pytree.tree_unflatten(
+            return fn(*pytree.tree_unflatten(
                 [next(it) if t else x for x, t in zip(leaves, tensor)],
                 spec))
+
+        def inner(_, *tensors):
+            if cfg.remat == "full":
+                out = call(tensors)
+            elif not torch.is_grad_enabled():     # the forward
+                with _SaveDots() as mode:
+                    out = call(tensors)
+                static["dots"] = mode.saved
+            else:                                 # the recompute
+                with _ReplayDots(static.pop("dots")) as mode:
+                    out = call(tensors)
+                if mode.saved:
+                    raise RuntimeError(f"dots remat: {len(mode.saved)} "
+                                       "records not replayed")
             o_leaves, static["spec"] = pytree.tree_flatten(out)
             static["leaves"] = o_leaves
             return tuple(x for x in o_leaves if isinstance(x, torch.Tensor))

@@ -338,7 +338,7 @@ def test_vlm_and_encoder_decoder_are_tensor_parallel_on_2x2(family):
 
 
 @pytest.mark.parametrize("family", ["moe", "ssm", "hybrid"])
-def test_model_axis_refuses_the_families_it_does_not_shard(family):
+def test_moe_ssm_and_hybrid_families_run_on_2x2(family):
     """The three families once refused on a "model" axis wider than one
     are refused no more: their 2 x 2 step (experts, the SSM's
     projections, the hybrid's attention and SSM over "model") is within
