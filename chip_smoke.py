@@ -22,8 +22,10 @@ line is printed:
    over 4 evidence patterns, cold and warm pass, launch counters zeroed
    just before and read just after (launches per (b, L) and per engine
    round included; no bit words made on the host: the kernel makes its
-   own); both passes must equal the same passes through
-   ``sampler="torch"`` bit for bit, and a sprinkler posterior must land
+   own); the first group's queries (one evidence pattern's 16 of the
+   64) of both passes must equal the same group through
+   ``sampler="torch"`` bit for bit, cold and then warm from the timed
+   warm pass's key (``plain_identity``), and a sprinkler posterior must land
    within 0.03 of exact.
 5. kernel at the main path's inputs — the first recorded call of each
    (b, L) launched again, held against the recorded result and the plain
@@ -54,11 +56,14 @@ line is printed:
    (acceptance rate, bits), and both on the card against the CPU at
    50 x 34 / 4,096 spins, bit for bit.
 10. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
-   2 scribble patterns, 8 chains a query, cold and warm, bitwise against
-   ``sampler="torch"``; launches counted, no host bit words.
+   2 scribble patterns, 8 chains a query, cold and warm, the first
+   group's queries of both passes bitwise against ``sampler="torch"``
+   (``plain_identity``); launches counted, no host bit words.
 11. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
    colouring): 16 ``IsingQuery`` over 2 clamp patterns, cold and warm,
-   bitwise against ``sampler="torch"``; ``run_fg_gibbs`` on a random
+   the first group's of both passes bitwise against
+   ``sampler="torch"``;
+   ``run_fg_gibbs`` on a random
    sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
    and the torus at β 0.6 started all up within 0.03 of Onsager's
    magnetization.
@@ -187,8 +192,14 @@ line is printed:
    steps); mamba2-130m at full width, a train step and the serving on 1
    x 1 and 2 x 2 in bf16 (loss within 1e-2 relative, logits within
    LM_SSM_MESH_LOGIT_BF16); hymba's 2 x 2 step against 1 x 1 at 2 layers
-   in float32 and bf16 (LM_MESH_TOL, LM_MESH_BF16).  No kernel of the
-   port: every launch count must stay 0.
+   in float32 and bf16 (LM_MESH_TOL, LM_MESH_BF16).  In every 2 x 2
+   decode step of hymba and mamba2 the SSM state is updated where
+   cache_specs keep it: no copy between positions may carry a block of
+   it (0 bytes), and the copies and bytes between positions by kind
+   must equal the dry run's of the same cell (the new token's columns
+   under segment "ssm_state" too); the decode ms a step is printed beside
+   LM_FAMILIES_DECODE_MS_BEFORE.  No kernel of the port: every launch
+   count must stay 0.
 24. lm_mesh_optim — the training step's "dots" remat and Adafactor's
    update where its blocks lie, on a ("data", "model") mesh over
    ``mesh_devices(4)`` (LM_MESH_OPTIM): phi4-mini-3.8b at full width on
@@ -231,7 +242,8 @@ Phases 4, 7, 8 and 10-25 each zero their kernel's launch count (phases
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
 ``lm_train``, ``lm_mesh``, ``lm_mesh_families``, ``lm_mesh_optim`` and
-``lm_dryrun`` with 0 launches, every kernel's count beside them).  Then
+``lm_dryrun`` with 0 launches, every kernel's count beside them),
+after a ``timing`` line with each phase's seconds.  Then
 the nvidia-smi name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.  Imports torch and the port only.
 """
@@ -482,6 +494,10 @@ LM_FAMILIES_MESH = dict(shape=(2, 2), hybrid="hymba-1.5b",
 # (the row-parallel out_proj's partial sums round in bf16)
 LM_SERVE_MESH_TOL = 1e-4
 LM_SSM_MESH_LOGIT_BF16 = 5e-2
+# the 2 x 2 decode ms a step of the same runs before the SSM state was
+# updated where cache_specs keep it (it went home and back every layer
+# and token): NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 5)
+LM_FAMILIES_DECODE_MS_BEFORE = {"hymba-1.5b": 356.2, "mamba2-130m": 99.0}
 
 # The training step's two mesh behaviours of phase lm_mesh_optim, over
 # mesh_devices(4): phi4-mini-3.8b at full width on 2 x 2 with remat "dots"
@@ -915,6 +931,38 @@ def timed_pass(engine, traffic):
     return results, time.perf_counter() - t0
 
 
+def plain_identity(registry, traffic, timed: tuple, warm_key,
+                   **kw) -> dict:
+    """The plain path (``sampler="torch"``) against the fused kernel's
+    timed passes, bit for bit, on the engine group answered first (the
+    queries of ``traffic[0]``'s network, evidence pattern and mode): cold
+    on a fresh engine of settings ``kw``, then warm from the key the
+    timed warm pass started from (``warm_key``), each held against the
+    same queries of the timed cold and warm results ``timed`` (a group's
+    results depend on its queries, its plan and its key alone).  Depth
+    cut: every group's plain passes took 322 s of the script's 1,223
+    (PERF.md section 6)."""
+    from repro_torch.serve.engine import PosteriorEngine
+
+    plain = PosteriorEngine(registry, sampler="torch", **kw)
+
+    def group(q):
+        return (q.network, plain.normalize(q)[3],
+                getattr(q, "mode", "marginals"))
+
+    idx = [n for n, q in enumerate(traffic) if group(q) == group(traffic[0])]
+    queries = [traffic[n] for n in idx]
+    got_cold, cold_s = timed_pass(plain, queries)
+    plain._key = warm_key
+    got_warm, warm_s = timed_pass(plain, queries)
+    return {"identity_queries": len(queries),
+            "cuda_equals_torch": {
+                p: same_results(got, [res[n] for n in idx])
+                for p, got, res in (("cold", got_cold, timed[0]),
+                                    ("warm", got_warm, timed[1]))},
+            "sampler_torch_cold_s": cold_s, "sampler_torch_warm_s": warm_s}
+
+
 def phase_serve(card_name: str) -> dict:
     import torch
 
@@ -933,6 +981,7 @@ def phase_serve(card_name: str) -> dict:
 
     with record_main_path() as rec:        # the main path
         cold, cold_s = timed_pass(engine, traffic)
+        warm_key = engine._key              # the warm pass's first key
         warm, warm_s = timed_pass(engine, traffic)
     check_recorded(rec, "serve phase")
     if rec["launches"] != len(rec["calls"]):
@@ -949,18 +998,13 @@ def phase_serve(card_name: str) -> dict:
           "warm_msample_s": node_samples / warm_s / 1e6,
           "converged": sum(r.converged for r in warm)})
 
-    # the same two passes through the plain path on the card
-    plain = PosteriorEngine(registry, burn_in=SERVE_BURN_IN, seed=0,
-                            sampler="torch")
-    plain_cold, plain_cold_s = timed_pass(plain, traffic)
-    plain_warm, plain_warm_s = timed_pass(plain, traffic)
-    same = {"cold": same_results(cold, plain_cold),
-            "warm": same_results(warm, plain_warm)}
-    emit({"phase": "serve_identity", "sampler_torch_cold_s": plain_cold_s,
-          "sampler_torch_warm_s": plain_warm_s, "cuda_equals_torch": same})
-    if not all(same.values()):
+    # the plain path on the card, the first group of the timed passes
+    ident = plain_identity(registry, traffic, (cold, warm), warm_key,
+                           burn_in=SERVE_BURN_IN, seed=0)
+    emit({"phase": "serve_identity", **ident})
+    if not all(ident["cuda_equals_torch"].values()):
         raise AssertionError(f"sampler='cuda' results differ from 'torch': "
-                             f"{same}")
+                             f"{ident}")
 
     spr = networks.sprinkler()
     eng = PosteriorEngine({"sprinkler": spr}, chains_per_query=128,
@@ -1115,8 +1159,9 @@ def serve_identity(registry, traffic, label: str, card_name: str,
                    depth: dict) -> dict:
     """Cold and warm passes of ``traffic`` with ``sampler="cuda"`` (the
     main path: counts zeroed just before, read just after; first call of
-    each shape kept), then the same passes with ``sampler="torch"``, which
-    must be equal bit for bit; finite marginals that sum to one."""
+    each shape kept), then ``plain_identity`` on their first group,
+    which must be equal bit for bit; finite marginals that sum to
+    one."""
     import torch
 
     from repro_torch.serve.engine import PosteriorEngine
@@ -1125,13 +1170,12 @@ def serve_identity(registry, traffic, label: str, card_name: str,
     assert engine.device.type == "cuda" and engine.sampler == "cuda"
     with record_main_path(keep_all=False) as rec:
         cold, cold_s = timed_pass(engine, traffic)
+        warm_key = engine._key              # the warm pass's first key
         warm, warm_s = timed_pass(engine, traffic)
     check_recorded(rec, label)
-    plain = PosteriorEngine(registry, sampler="torch", **depth)
-    plain_cold, plain_cold_s = timed_pass(plain, traffic)
-    plain_warm, plain_warm_s = timed_pass(plain, traffic)
-    same = {"cold": same_results(cold, plain_cold),
-            "warm": same_results(warm, plain_warm)}
+    ident = plain_identity(registry, traffic, (cold, warm), warm_key,
+                           **depth)
+    same = ident["cuda_equals_torch"]
     samples = sum(r.n_node_samples for r in warm)
     emit({"phase": label, "card": card_name, "queries": len(traffic),
           "launches": rec["launches"],
@@ -1141,9 +1185,7 @@ def serve_identity(registry, traffic, label: str, card_name: str,
           "cold_qps": len(traffic) / cold_s, "warm_qps": len(traffic) / warm_s,
           "cold_msample_s": sum(r.n_node_samples for r in cold) / cold_s / 1e6,
           "warm_msample_s": samples / warm_s / 1e6,
-          "converged": sum(r.converged for r in warm),
-          "sampler_torch_cold_s": plain_cold_s,
-          "sampler_torch_warm_s": plain_warm_s, "cuda_equals_torch": same})
+          "converged": sum(r.converged for r in warm), **ident})
     if not all(same.values()):
         raise AssertionError(f"{label}: sampler='cuda' != 'torch': {same}")
     for r in cold + warm:
@@ -3812,13 +3854,23 @@ def family_serve(model, mesh, prompt, steps: int) -> dict:
     sync_cards(cards)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     tok = torch.argmax(pre_logits, -1).to(torch.int32)[:, None]
-    toks, ms, first = [], [], None
+    toks, ms, first, copied = [], [], None, []
+    state = ({tuple(blk.shape[1:]) for k in ("ssm_h", "ssm_conv")
+              if k in cache for blk in cache[k].shards.values()}
+             | {tuple(cache[k].shape[1:]) for k in ("ssm_h", "ssm_conv")
+                if k in cache}) if mesh is not None else set()
     for i in range(steps):
-        t0 = time.perf_counter()
-        logits, cache = step_fn(tok, s + i, cache)
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        sync_cards(cards)
-        ms.append((time.perf_counter() - t0) * 1e3)
+        partition.reset_traffic()
+        with copy_shapes() as shapes:
+            t0 = time.perf_counter()
+            logits, cache = step_fn(tok, s + i, cache)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            sync_cards(cards)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        copied.append({
+            "pos": s + i, "crossed_bytes": partition.TRAFFIC["crossed_bytes"],
+            "kinds": {k: list(v) for k, v in partition.KINDS.items()},
+            "ssm_state_bytes": sum(n for shp, n in shapes if shp in state)})
         toks.append(tok[:, 0].tolist())
         if first is None:
             first = logits
@@ -3831,7 +3883,80 @@ def family_serve(model, mesh, prompt, steps: int) -> dict:
             "decode_ms": ms, "decode_step_ms": float(np.median(ms[1:])),
             "decode_tok_s": b * steps / sum(ms) * 1e3,
             "tokens": toks, "prefill_logits": pre_logits,
-            "first_logits": first}
+            "first_logits": first, "copied": copied}
+
+
+@contextlib.contextmanager
+def copy_shapes():
+    """The shape and bytes of every copy between mesh positions counted
+    in this block (``partition._count`` observed, not changed)."""
+    from repro_torch.sharding import partition
+
+    seen, count = [], partition._count
+
+    def recording(t, src, dst, device, kind, seg=None):
+        if src != dst:
+            seen.append((tuple(t.shape), t.numel() * t.element_size()))
+        count(t, src, dst, device, kind, seg)
+
+    partition._count = recording
+    try:
+        yield seen
+    finally:
+        partition._count = count
+
+
+def check_decode_copies(cfg, mesh, serve: dict, batch: int,
+                        cache_len: int) -> dict:
+    """Every decode step of a ``family_serve`` run on ``mesh``: no copy
+    of the SSM state between positions, and its copies and bytes between
+    positions, kind by kind, equal to the dry run's of the same cell
+    (``launch/dryrun.py``'s trace over ``meta`` devices at the cache's
+    last position, in the same block of a cache split on positions as
+    every step here), the new token's columns (segment "ssm_state")
+    too; raises otherwise.  Returns a step's figures."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_lm_mesh
+
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    rec = dryrun.trace_cell(
+        cfg, make_lm_mesh(d, m, devices=[torch.device("meta")] * (d * m)),
+        ShapeCfg("lm_mesh_families", cache_len, batch, "decode"))
+    if rec["status"] != "ok":
+        raise AssertionError(f"lm_mesh_families {cfg.name}: dry run {rec}")
+    want = {k: [v["count"], v["bytes"]]
+            for k, v in rec["collectives"].items() if v["count"]}
+    seg = rec["segments"].get("ssm_state", {}).get("reshard", {})
+    cols = seg.get("bytes", 0) * cfg.n_layers * d
+    bad = []
+    for c in serve["copied"]:
+        if c["pos"] * m // cache_len != (cache_len - 1) * m // cache_len:
+            raise AssertionError(f"decode position {c['pos']} is not in "
+                                 f"the dry run's cache block")
+        got = {}
+        for (_, k), (n, nb) in c["kinds"].items():
+            was = got.get(k, [0, 0])
+            got[k] = [was[0] + n, was[1] + nb]
+        if c["ssm_state_bytes"] or got != want or \
+                c["kinds"].get(("ssm_state", "reshard"), [0, 0])[1] != cols:
+            bad.append({"pos": c["pos"], "counted": got, "dry_run": want,
+                        "ssm_state_bytes": c["ssm_state_bytes"]})
+    if bad:
+        raise AssertionError(f"lm_mesh_families {cfg.name}: decode copies "
+                             f"!= the dry run's: {bad[:2]}")
+    last = serve["copied"][-1]
+    return {"ssm_state_bytes_a_step": last["ssm_state_bytes"],
+            "crossed_bytes_a_step_counted": last["crossed_bytes"],
+            "crossed_bytes_a_step_dry_run": rec["traffic"]["crossed_bytes"],
+            "ssm_columns_bytes_a_step": cols,
+            "by_kind": {f"{sg}/{k}": v for (sg, k), v in
+                        sorted(last["kinds"].items())},
+            "decode_step_ms": serve["decode_step_ms"],
+            "decode_step_ms_before": LM_FAMILIES_DECODE_MS_BEFORE.get(
+                cfg.name)}
 
 
 def rel_err(got, want) -> float:
@@ -3857,7 +3982,7 @@ def brief(serve: dict) -> dict:
     """A serving run's numbers without its tensors (the decode steps' ms
     as their quartiles and extremes)."""
     out = {k: v for k, v in serve.items() if k not in (
-        "prefill_logits", "first_logits", "tokens", "decode_ms")}
+        "prefill_logits", "first_logits", "tokens", "decode_ms", "copied")}
     out["decode_ms_quantiles"] = np.quantile(
         serve["decode_ms"], [0, 0.25, 0.5, 0.75, 1]).tolist()
     return out
@@ -3938,6 +4063,8 @@ def lm_families_hybrid(devices) -> dict:
     serve = family_serve(state.model, mesh, prompt, fam["decode_steps"])
     out["serve"] = dict(brief(serve), **serve_bound(cfg, b, s + fam[
         "decode_steps"]))
+    out["serve"]["decode_copies"] = check_decode_copies(
+        cfg, mesh, serve, b, s + fam["decode_steps"])
     out["serve"]["step_over_bound"] = serve["decode_step_ms"] / \
         out["serve"]["bound_ms"]
     del state, step_fn, serve
@@ -4033,6 +4160,7 @@ def lm_families_ssm(devices) -> dict:
     drop_casts(model)
     place_model(make_lm_mesh(*fam["shape"], devices=devices), model)
     got = family_serve(model, model.mesh, prompt, n)
+    copies = check_decode_copies(cfg, model.mesh, got, b, s + n)
     out = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
            "microbatch": cfg.microbatch,
            "step_ms": recs[0]["ms"], "one_device_step_ms": recs1[0]["ms"],
@@ -4045,7 +4173,7 @@ def lm_families_ssm(devices) -> dict:
                                          one["first_logits"]),
            "tokens_agree": float(np.mean(np.array(got["tokens"]) ==
                                          np.array(one["tokens"]))),
-           **serve_bound(cfg, b, s + n)}
+           "decode_copies": copies, **serve_bound(cfg, b, s + n)}
     out["step_over_bound"] = got["decode_step_ms"] / out["bound_ms"]
     if not (loss_err <= LM_MESH_BF16["loss_rtol"]
             and out["prefill_rel_err"] <= LM_SSM_MESH_LOGIT_BF16
@@ -4111,6 +4239,9 @@ def phase_lm_mesh_families(card_name: str) -> dict:
                 hybrid["crossed_bytes_reckoned"]["total"],
             "state_bytes_counted": hybrid["state_bytes_counted"],
             "llama4_decode_step_ms": moe["served"]["mesh"]["decode_step_ms"],
+            "decode_copies": {
+                "hymba-1.5b": hybrid["serve"]["decode_copies"],
+                "mamba2-130m": ssm["decode_copies"]},
             "seconds": out["seconds"]["total"]}
 
 
@@ -4820,7 +4951,15 @@ def main() -> int:
               _build.library_path(name)), "seconds": sec}
               for name, sec in seconds.items()}})
 
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
     check = phase_kernel_vs_plain(device)
+    lap("kernel_vs_plain")
     serve = phase_serve(card_name)
     serve_cold = serve.pop("cold")
     rec = serve.pop("record")
@@ -4831,16 +4970,22 @@ def main() -> int:
     del serve
     torch.cuda.empty_cache()
     paths = {"bn_serve": path_entry(rec, main_path)}
+    lap("serve")
     mrf = phase_mrf_gibbs(card_name)
     profile_mrf(card_name)
     paths["mrf_gibbs"] = mrf["aia-mrf-penguin"]
     paths["mrf_gibbs_art"] = mrf["aia-mrf-art"]
+    lap("mrf_gibbs")
     paths["mesh_gibbs"] = phase_mesh_gibbs(card_name, *mesh_devices(
         MESH_GIBBS["rows"] * MESH_GIBBS["cols"]))
+    lap("mesh_gibbs")
     phase_metropolis(card_name)
+    lap("metropolis")
     paths["serve_mrf"] = phase_serve_mrf(card_name)
     paths["serve_ising"] = phase_serve_ising(card_name)
+    lap("serve_mrf_ising")
     paths["serve_queue"] = phase_serve_queue(card_name, traffic, serve_cold)
+    lap("serve_queue")
     devices, kind = mesh_devices(SHARD_WAYS)
     emit({"phase": "mesh_devices", "devices": [str(d) for d in devices],
           "kind": kind, "cards": torch.cuda.device_count()})
@@ -4849,21 +4994,34 @@ def main() -> int:
     paths["serve_sharded"] = sharded["bn"]
     paths["serve_sharded_grids"] = sharded["grids"]
     del serve_cold
+    lap("serve_sharded")
     paths["serve_model_axis"], paths["serve_model_axis_bn"] = \
         phase_serve_model_axis(card_name, devices, kind)
+    lap("serve_model_axis")
     paths["serve_stream"] = phase_serve_stream(card_name)
+    lap("serve_stream")
     paths["serve_wire"] = phase_serve_wire(card_name)
+    lap("serve_wire")
     ky = phase_ky_sampler(device)
     iu = phase_interp_lut(device)
     flash = phase_flash_attention(device)
+    lap("ky_iu_flash")
     paths["lm_generate"] = phase_lm_generate(card_name)
+    lap("lm_generate")
     paths["lm_train"] = phase_lm_train(card_name)
+    lap("lm_train")
     paths["lm_mesh"] = phase_lm_mesh(card_name, paths["lm_train"])
+    lap("lm_mesh")
     paths["lm_mesh_families"] = phase_lm_mesh_families(card_name)
+    lap("lm_mesh_families")
     paths["lm_mesh_optim"] = phase_lm_mesh_optim(card_name,
                                                  paths["lm_mesh"])
+    lap("lm_mesh_optim")
     paths["lm_dryrun"] = phase_lm_dryrun(card_name, paths["lm_mesh"],
                                          paths["lm_mesh_families"])
+    lap("lm_dryrun")
+    emit({"phase": "timing", "seconds": laps,
+          "total_after_build": sum(laps.values())})
     emit({"kernels": [{
         "name": "fused_gibbs_sample",
         "route": "cuda",

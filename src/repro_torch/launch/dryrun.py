@@ -25,10 +25,11 @@ position), so :func:`trace_cell` traces one layer and scales it:
   depends on the bits it draws) and takes its position as an int;
 * every copy between mesh positions is counted in
   ``partition.KINDS`` by kind and by segment ("input", "step", "layer",
-  "encoder", "chunk"); the step's bytes are each segment's times its
-  count: microbatches, and layers (and the other batch shards, for the
-  activations) or loss chunks; the optimizer's ("optimizer") are
-  Adafactor's for the whole model, from its layouts
+  "ssm_state" (a decode's SSM columns), "encoder", "chunk"); the step's
+  bytes are each segment's times its count: microbatches, and layers
+  (and the other batch shards, for the activations) or loss chunks; the
+  optimizer's ("optimizer") are Adafactor's for the whole model, from
+  its layouts
   (``Adafactor.traffic``: the trace updates one layer).
 
 Per cell it records ``status`` (``ok`` / ``skipped`` with the reason /
@@ -369,12 +370,14 @@ def _trace(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg,
     n_chunks = xent_chunks(shape.seq_len)[0] if kind == "train" else 1
     count = {"input": nmb, "step": nmb, "optimizer": 1,
              "chunk": nmb * n_chunks,
-             "layer": nmb * cfg.n_layers, "encoder": nmb * cfg.enc_layers}
+             "layer": nmb * cfg.n_layers, "ssm_state": nmb * cfg.n_layers,
+             "encoder": nmb * cfg.enc_layers}
     coll: dict = {}
     segments: dict = {}
     for (seg, k), (c, b) in sorted(partition.KINDS.items()):
         mult = count[seg]
-        if seg in ("layer", "encoder") and k not in partition.WEIGHT_KINDS:
+        if seg in ("layer", "ssm_state", "encoder") and \
+                k not in partition.WEIGHT_KINDS:
             mult *= run.n            # every batch shard's activations
         slot = coll.setdefault(k, {"count": 0, "bytes": 0})
         slot["count"] += c * mult

@@ -8,13 +8,17 @@
       --scale 0.1 --sweeps 20 --device cpu
   python -m repro_torch.launch.run_mcmc --config aia-mrf-penguin \
       --mesh 2x2 --devices 4 --scale 0.1 --device cpu   # halo exchange (C3)
+  python -m repro_torch.launch.run_mcmc --config aia-bn-asia \
+      --evidence smoke=1 --trace-out q.trace.json --metrics-json q.json
 
 (run with ``PYTHONPATH=src``).  Runs on the card (``--device cuda``, the
 default) through the fused CUDA sweep kernel; ``--sampler torch`` picks
 the plain PyTorch path, the default on ``--device cpu``.  Both give the
 JAX driver's labels, marginals and bit counts under the same seed.
 Bayesian-network configs with ``--evidence`` route through the posterior
-query engine (:mod:`repro_torch.serve`).  ``--mesh RxC`` runs an MRF
+query engine (:mod:`repro_torch.serve`); ``--trace-out`` and
+``--metrics-json`` then write the query's trace-event JSON and the
+engine's ``stats()`` snapshot.  ``--mesh RxC`` runs an MRF
 config as distributed halo-exchange Gibbs over a tile mesh
 (:mod:`repro_torch.pgm.mesh_gibbs`): over every visible card, or over
 ``--devices N`` copies of ``--device`` (N CPU devices are the
@@ -24,6 +28,7 @@ repeated, each tile and halo then on it).
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 import torch
@@ -151,6 +156,12 @@ def main(argv=None) -> None:
                     choices=("marginals", "map"),
                     help="with --evidence: posterior marginals (default) "
                          "or annealed MAP/MPE search")
+    ap.add_argument("--trace-out", default="",
+                    help="with --evidence: write a Chrome/Perfetto trace "
+                         "of the query lifecycle here")
+    ap.add_argument("--metrics-json", default="",
+                    help="with --evidence: write the engine.stats() "
+                         "snapshot here as JSON")
     args = ap.parse_args(argv)
 
     from repro_torch.configs.aia_paper import MCMC_CONFIGS
@@ -174,14 +185,17 @@ def main(argv=None) -> None:
     if cfg.kind == "bayesnet" and args.evidence:
         from repro_torch.serve.engine import PosteriorEngine
         from repro_torch.serve.query import Query, parse_evidence
+        from repro_torch.serve.telemetry import Telemetry
 
         bn = getattr(networks, cfg.network)()
         evidence = parse_evidence(args.evidence)
         qvars = tuple(v.strip() for v in args.query.split(",") if v.strip())
+        tel = (Telemetry() if (args.trace_out or args.metrics_json)
+               else None)
         engine = PosteriorEngine(
             {cfg.network: bn}, chains_per_query=chains, k=cfg.k,
             use_iu=use_iu, sampler=sampler, burn_in=cfg.burn_in,
-            device=device)
+            device=device, telemetry=tel)
         budget = chains * max(sweeps - cfg.burn_in, 1)
         res = engine.answer(Query(cfg.network, evidence, qvars,
                                   n_samples=budget, mode=args.mode))
@@ -205,6 +219,13 @@ def main(argv=None) -> None:
                 print(f"    {var} = {val}")
         for var, m in res.marginals.items():
             print(f"  P({var} | e) = {np.round(m, 3)}")
+        if args.trace_out:
+            engine.telemetry.write_trace(args.trace_out)
+            print(f"trace written to {args.trace_out}")
+        if args.metrics_json:
+            with open(args.metrics_json, "w") as f:
+                json.dump(engine.stats(), f, indent=2)
+            print(f"metrics snapshot written to {args.metrics_json}")
         return
 
     if cfg.kind == "bayesnet":

@@ -14,10 +14,18 @@ On a mesh (:mod:`repro_torch.sharding.partition`) the projections take
 the layout ``param_specs`` gives them.  Where "model" splits the fused
 ``in_proj`` (on Z, in equal blocks that cut across the z/x/B/C/dt
 segments) or a split projection, it is column parallel: the input goes
-to the "model" devices, each computes its block, and the blocks are
-brought home and joined (:func:`_in_projections`).  The conv, the SSD
-scan and the gate then run whole on the home device.  ``out_proj``
-split on its rows is row parallel (:func:`_out_projection`).
+to the "model" devices and each computes its block
+(:func:`_in_projection_blocks`).  ``out_proj`` split on its rows is row
+parallel (:func:`_out_projection`).  Train and prefill join the blocks
+on the home device and run the conv, the chunked scan and the gate whole
+there, as the reference gathers the scan's input with every head
+present.  The decode step (:func:`_decode`, for one device and the
+mesh alike: there each field is one whole block) updates the state
+where ``cache_specs`` keep it: the conv on each channel block of
+``ssm_conv``, the recurrence on each head block of ``ssm_h``, each on
+its "model" device, which receives only the new token's columns it
+lacks; a head block's gated output is the row block its ``out_proj``
+piece takes.
 """
 from __future__ import annotations
 
@@ -146,6 +154,11 @@ def apply_ssm(
     *,
     state: dict | None = None,     # decode: {"h": (B,H,N,P), "conv": (B,K-1,C)}
 ) -> tuple[torch.Tensor, dict | None]:
+    if state is not None:  # ---- O(1) decode update ------------------------
+        assert u.shape[1] == 1
+        y, (conv,), (h_new,) = _decode(ssm, cfg, u, [state["conv"]],
+                                       [state["h"]])
+        return y, {"h": h_new, "conv": conv}
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads
     p = di // h
     bsz, s, _ = u.shape
@@ -163,42 +176,38 @@ def apply_ssm(
     dt = F.softplus(dt_raw.float() + ssm.p("dt_bias"))
     a = -torch.exp(ssm.p("a_log"))                       # (H,) negative
 
-    conv_state = state["conv"] if state is not None else None
-    xbc, new_conv = _causal_conv(
-        xbc, ssm.w("conv_w", dt_), ssm.w("conv_b", dt_), conv_state)
+    xbc, _ = _causal_conv(xbc, ssm.w("conv_w", dt_), ssm.w("conv_b", dt_))
     x = xbc[..., :di].reshape(bsz, s, h, p)
     b_mat = xbc[..., di: di + g * n].reshape(bsz, s, g, n)
     c_mat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-
-    new_state = None
-    if state is not None:  # ---- O(1) decode update ------------------------
-        assert s == 1
-        f32 = torch.float32
-        h_prev = state["h"]                              # (B,H,N,P) f32
-        dt1 = dt[:, 0]                                   # (B,H)
-        dec = torch.exp(dt1 * a[None])                   # (B,H)
-        bh = repeat_heads(b_mat[:, 0], h // g, 1)        # (B,H,N)
-        xh = x[:, 0] * dt1[..., None]                    # (B,H,P)
-        h_new = h_prev * dec[..., None, None] + torch.einsum(
-            "bhn,bhp->bhnp", bh.to(f32), xh.to(f32))
-        ch = repeat_heads(c_mat[:, 0], h // g, 1)        # (B,H,N)
-        y = torch.einsum("bhn,bhnp->bhp", ch.to(f32), h_new)
-        y = y[:, None].to(dt_).reshape(bsz, 1, h, p)     # (B,1,H,P)
-        new_state = {"h": h_new, "conv": new_conv}
-    else:
-        y = ssd_chunked(x, dt, a, b_mat, c_mat, chunk=min(cfg.ssm_chunk, s))
-
+    y = ssd_chunked(x, dt, a, b_mat, c_mat, chunk=min(cfg.ssm_chunk, s))
     y = y + x * ssm.w("d_skip", dt_)[None, None, :, None]
     y = y.reshape(bsz, s, di) * F.silu(z)
-    return _out_projection(ssm, y), new_state
+    return _out_projection(ssm, y), None
 
 
-def _in_projections(ssm: SSM, names, u: torch.Tensor) -> list:
-    """``u @ w`` for each projection of ``names``, whole on ``u``'s
-    device.  A projection the spec splits over "model" is column
-    parallel: ``u`` goes to the "model" devices (once for all of them),
-    each computes its block of columns, and the blocks are brought home
-    and joined in order."""
+def _recurrence(h_prev, x, dt1, a, bh, ch) -> tuple:
+    """One token's state update for the heads given, in float32:
+    ``h_new = h_prev·exp(dt·a) + B⊗(x·dt)`` and ``y = C·h_new``.  h_prev:
+    (B,H,N,P); x: (B,H,P); dt1: (B,H); a: (H,); bh, ch: (B,H,N) (each
+    head's group's B and C).  Returns (y (B,H,P), h_new)."""
+    f32 = torch.float32
+    dec = torch.exp(dt1 * a[None])                       # (B,H)
+    xh = x * dt1[..., None]                              # (B,H,P)
+    # the reference's einsums "bhn,bhp->bhnp" and "bhn,bhnp->bhp" as an
+    # outer product and a batched product (fewer host ops a call)
+    h_new = h_prev * dec[..., None, None] + \
+        bh.to(f32)[..., :, None] * xh.to(f32)[..., None, :]
+    return (ch.to(f32)[..., None, :] @ h_new)[..., 0, :], h_new
+
+
+def _in_projection_blocks(ssm: SSM, names, u: torch.Tensor) -> list:
+    """``u @ w`` for each projection of ``names`` as its column blocks in
+    order, each with the "model" index of the device that holds it: one
+    block on ``u``'s device (index 0) for a projection whole there; for
+    one the spec splits over "model", column parallel: ``u`` goes to the
+    "model" devices (once for all of them) and device j computes block
+    j."""
     dt = u.dtype
     devs = [partition.tp_devices(ssm.leaf(n)) for n in names]
     split = next((d for d in devs if d is not None), None)
@@ -208,10 +217,22 @@ def _in_projections(ssm: SSM, names, u: torch.Tensor) -> list:
     out = []
     for name, d in zip(names, devs):
         if d is None:
-            out.append(u @ ssm.w(name, dt))
-            continue
-        parts = [uj @ ssm.w(name, dt, j) for j, uj in enumerate(us)]
-        out.append(torch.cat(partition.to_home(parts, u.device), dim=-1))
+            out.append([(0, u @ ssm.w(name, dt))])
+        else:
+            out.append([(j, uj @ ssm.w(name, dt, j))
+                        for j, uj in enumerate(us)])
+    return out
+
+
+def _in_projections(ssm: SSM, names, u: torch.Tensor) -> list:
+    """``u @ w`` for each projection of ``names``, whole on ``u``'s
+    device: a split projection's blocks are brought home and joined in
+    order."""
+    out = []
+    for blocks in _in_projection_blocks(ssm, names, u):
+        parts = [t for _, t in blocks]
+        out.append(parts[0] if len(parts) == 1 else torch.cat(
+            partition.to_home(parts, u.device), dim=-1))
     return out
 
 
@@ -228,6 +249,133 @@ def _out_projection(ssm: SSM, y: torch.Tensor) -> torch.Tensor:
     parts = [partition.move(yj, d, pos[0], pos[j]) @ ssm.w("out_proj", dt, j)
              for j, (d, yj) in enumerate(zip(devs, y.chunk(len(devs), -1)))]
     return partition.reduce_sum(parts, y.device, pos, pos[0])
+
+
+def _take(pieces: list, lo: int, hi: int, j: int) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of a column space held as ``pieces`` —
+    ``(lo, hi, "model" index, tensor)`` each — on "model" device ``j`` of
+    the current batch shard: the columns held elsewhere are copied there
+    (counted as "reshard" under segment "ssm_state") and joined in
+    order."""
+    out = []
+    for a, b, k, t in pieces:
+        a2, b2 = max(a, lo), min(b, hi)
+        if a2 >= b2:
+            continue
+        part = t[..., a2 - a: b2 - a]
+        if k != j:
+            run, i = partition.current()
+            with partition.segment("ssm_state"):
+                part = partition.move(part, run.device(i, j),
+                                      run.position(i, k), run.position(i, j))
+        out.append(part)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
+def _param_slice(ssm: SSM, name: str, j: int, lo: int, hi: int,
+                 dt: torch.dtype | None = None) -> torch.Tensor:
+    """Entries ``[lo, hi)`` (last dim) of the replicated leaf ``name``,
+    cast to ``dt``: on a mesh, on the current batch shard's "model"
+    device ``j`` (:meth:`partition.MeshRun.replica_slice`)."""
+    leaf = ssm.leaf(name)
+    if not isinstance(leaf, partition.Sharded):
+        return (ssm.p(name) if dt is None else ssm.w(name, dt))[..., lo:hi]
+    run, i = partition.current()
+    return run.replica_slice(leaf, (id(ssm), name), i, j, lo, hi, dt)
+
+
+def conv_blocks(ssm: SSM, cfg: ModelConfig, zxbcdt: list, conv: list,
+                inplace: bool = False) -> tuple[list, list]:
+    """The decode step's depthwise causal conv on each block of the conv
+    state ``conv`` (split on channels, one block a "model" device, or
+    one whole): block j's channels of the conv input (columns of the
+    projections' output ``zxbcdt``, pieces as :func:`_take` reads them)
+    go to device j, which convolves them with its slice of the
+    replicated weights.  The conv has no term across channels, so each
+    block is bitwise the whole conv's.  Returns the output as pieces and
+    the new state's blocks (``inplace``: written into ``conv``'s, which
+    are returned)."""
+    dt = zxbcdt[0][3].dtype
+    c = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    width = c // len(conv)
+    out, new = [], []
+    for j, st in enumerate(conv):
+        c0, c1 = j * width, (j + 1) * width
+        xbc = _take(zxbcdt, cfg.d_inner + c0, cfg.d_inner + c1, j)
+        y, st_new = _causal_conv(xbc, _param_slice(ssm, "conv_w", j, c0, c1,
+                                                   dt),
+                                 _param_slice(ssm, "conv_b", j, c0, c1, dt),
+                                 st)
+        out.append((c0, c1, j, y))
+        new.append(st.copy_(st_new) if inplace else st_new)
+    return out, new
+
+
+def _decode(ssm: SSM, cfg: ModelConfig, u: torch.Tensor, conv: list,
+            hs: list, inplace: bool = False) -> tuple:
+    """One token's update (``u``: (B, 1, D)) of a state held as blocks:
+    ``conv`` the conv state's on channels, ``hs`` the SSM state's on
+    heads — one each, whole, on one device; on a mesh, one a "model"
+    device of the current batch shard where ``cache_specs`` split the
+    field.  The projections' column blocks stay where they are computed;
+    conv block j runs on its device (:func:`conv_blocks`); head block
+    j's recurrence runs on device j, from its heads' x, dt and gate, and
+    B and C whole (a head reads its group's), each copied there only
+    where it lies elsewhere.  The reference's arithmetic, head by head.
+    Where ``out_proj`` is split on its rows, head block j's gated output
+    is the row block device j's piece takes, and the partial sums come
+    home; else the output is joined at home first.  Returns (the output
+    (B, 1, D) on ``u``'s device, the new conv blocks, the new head
+    blocks); ``inplace``: each block is written as it is made (cast to
+    the block's dtype), and the blocks given are returned."""
+    di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads
+    p, gn = di // h, g * n
+    bsz = u.shape[0]
+    dt_ = u.dtype
+    names = (("in_proj",) if ssm.has("in_proj") else
+             ("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj"))
+    zxbcdt, off = [], 0                 # columns: z | x | B | C | dt
+    for blocks in _in_projection_blocks(ssm, names, u):
+        for j, t in blocks:
+            zxbcdt.append((off, off + t.shape[-1], j, t))
+            off += t.shape[-1]
+    xbc, new_conv = conv_blocks(ssm, cfg, zxbcdt, conv, inplace)
+    nh = h // len(hs)
+    ys, new_h = [], []
+    for j, h_prev in enumerate(hs):
+        h0, h1 = j * nh, (j + 1) * nh
+        x = _take(xbc, h0 * p, h1 * p, j).reshape(bsz, nh, p)
+        bc = _take(xbc, di, di + 2 * gn, j)
+        dt_raw = _take(zxbcdt, 2 * di + 2 * gn + h0, 2 * di + 2 * gn + h1, j)
+        z = _take(zxbcdt, h0 * p, h1 * p, j)
+        dt1 = F.softplus(dt_raw.float() + _param_slice(
+            ssm, "dt_bias", j, h0, h1))[:, 0]                # (B,nh)
+        a = -torch.exp(_param_slice(ssm, "a_log", j, h0, h1))
+        bh, ch = (repeat_heads(t.reshape(bsz, g, n), h // g, 1)[:, h0:h1]
+                  for t in bc[:, 0].split(gn, dim=-1))       # (B,nh,N)
+        y, h_new = _recurrence(h_prev, x, dt1, a, bh, ch)
+        y = y.to(dt_) + x * _param_slice(ssm, "d_skip", j, h0, h1, dt_)[
+            None, :, None]
+        ys.append(y.reshape(bsz, 1, (h1 - h0) * p) * F.silu(z))
+        new_h.append(h_prev.copy_(h_new) if inplace else h_new)
+    if len(ys) > 1 and partition.tp_devices(ssm.leaf("out_proj")):
+        pos = partition.tp_positions()
+        parts = [yj @ ssm.w("out_proj", dt_, j) for j, yj in enumerate(ys)]
+        y = partition.reduce_sum(parts, u.device, pos, pos[0])
+    else:
+        y = _out_projection(ssm, ys[0] if len(ys) == 1 else torch.cat(
+            partition.to_home(ys, u.device), dim=-1))
+    return y, new_conv, new_h
+
+
+def mesh_decode(ssm: SSM, cfg: ModelConfig, u: torch.Tensor,
+                state: dict) -> torch.Tensor:
+    """:func:`apply_ssm`'s decode step for the current batch shard of a
+    mesh run: ``state["h"]`` and ``state["conv"]`` are the shard's blocks
+    of one layer's ``ssm_h`` and ``ssm_conv`` where ``cache_specs`` keep
+    them, each updated in place where it lies (:func:`_decode`).
+    Returns the block's output (B, 1, D) on the home device."""
+    return _decode(ssm, cfg, u, state["conv"], state["h"], inplace=True)[0]
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -28,10 +28,11 @@ remat), and the loss is normalized by the global token count.  On a
 "model" axis wider than one every family is tensor parallel where its
 specs split a leaf over "model": attention on heads, the MLP on its
 ffn, the MoE on experts or on the expert ffn (``moe.py``), the SSM's
-projections (``ssm.py``); the conv, the SSD scan and the hybrid's
-attention when its heads do not divide the axis run whole on each batch
-shard's home device.  The decode step brings a split SSM state home and
-writes its pieces back (:func:`_ssm_state`).
+projections (``ssm.py``); the conv and the SSD scan of train and
+prefill, and the hybrid's attention when its heads do not divide the
+axis, run whole on each batch shard's home device.  The decode step
+updates the SSM state where ``cache_specs`` keep it, on heads and
+channels (:func:`_ssm_blocks`, ``ssm.mesh_decode``).
 """
 from __future__ import annotations
 
@@ -778,33 +779,13 @@ def _kv_blocks(sh, i: int, li: int, tp: int) -> tuple[list, str]:
     return _cache_blocks(sh, i, li, tp), layout
 
 
-def _ssm_state(run, cache: dict, i: int, li: int):
-    """Batch shard ``i``'s SSM state of layer ``li`` whole on its home
-    device, and a function that writes an updated state back.  Where
-    ``cache_specs`` splits a field over "model" (``ssm_h`` on heads,
-    ``ssm_conv`` on channels), its blocks are brought home and joined,
-    and each block is later written its piece of the update; both are
-    counted copies ("reshard")."""
-    pos = partition.tp_positions()
-    home = run.device(i)
-    fields = {}
-    for key, name in (("h", "ssm_h"), ("conv", "ssm_conv")):
-        sh = cache[name]
-        # the split dim of one layer's block (the stacked spec less L)
-        fields[key] = (_cache_blocks(sh, i, li, run.tp),
-                       (sh.model_dim() or 1) - 1)
-    state = {k: blocks[0] if len(blocks) == 1 else torch.cat(
-        [partition.move(b, home, pos[j], pos[0])
-         for j, b in enumerate(blocks)], dim)
-        for k, (blocks, dim) in fields.items()}
-
-    def write(new: dict) -> None:
-        for k, (blocks, dim) in fields.items():
-            for j, (b, piece) in enumerate(zip(
-                    blocks, new[k].chunk(len(blocks), dim))):
-                b.copy_(partition.move(piece, b.device, pos[0], pos[j]))
-
-    return state, write
+def _ssm_blocks(run, cache: dict, i: int, li: int) -> dict:
+    """Batch shard ``i``'s blocks of layer ``li``'s SSM state where
+    ``cache_specs`` keep them (``ssm_h`` on heads, ``ssm_conv`` on
+    channels, or whole at home), for :func:`ssm_lib.mesh_decode` to
+    update in place."""
+    return {k: _cache_blocks(cache[name], i, li, run.tp)
+            for k, name in (("h", "ssm_h"), ("conv", "ssm_conv"))}
 
 
 @torch.no_grad()
@@ -823,12 +804,9 @@ def mesh_decode_step(model: LM, run, tokens: list, pos: int,
 
     def layer(li, lp, w, i, x):
         freqs = rope_freqs(cfg, x.device)
-        if kind in ("ssm", "hybrid"):
-            st_in, write_state = _ssm_state(run, cache, i, li)
         if kind == "ssm":
-            h, st = ssm_lib.apply_ssm(lp.ssm, cfg, lp.ln1(x), state=st_in)
-            write_state(st)
-            return x + h
+            return x + ssm_lib.mesh_decode(lp.ssm, cfg, lp.ln1(x),
+                                           _ssm_blocks(run, cache, i, li))
         blocks, layout = {}, "whole"
         for kk in kv_names:
             blocks[kk], layout = _kv_blocks(cache[kk], i, li, run.tp)
@@ -837,11 +815,10 @@ def mesh_decode_step(model: LM, run, tokens: list, pos: int,
             a = attn_lib.attend_mesh_decode(lp.attn, cfg, hn, freqs=freqs,
                                             window=w, cache=blocks, pos=pos,
                                             layout=layout)
-            s, st = ssm_lib.apply_ssm(lp.ssm, cfg, hn, state=st_in)
+            s = ssm_lib.mesh_decode(lp.ssm, cfg, hn,
+                                    _ssm_blocks(run, cache, i, li))
             x = x + 0.5 * (a + s)
-            x = x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
-            write_state(st)
-            return x
+            return x + apply_mlp(lp.mlp, cfg, lp.ln2(x))
         x = x + attn_lib.attend_mesh_decode(
             lp.attn, cfg, lp.ln1(x), freqs=freqs, window=w, cache=blocks,
             pos=pos, layout=layout)

@@ -59,7 +59,8 @@ TRAFFIC = {"crossed_bytes": 0, "crossed_copies": 0, "moved_bytes": 0}
 # activation from a shard's home device to its "model" devices),
 # "partial sum" (partial results brought home to be added), "reshard"
 # (an activation's pieces moved between a shard's devices: the
-# sequence-split carry, vocabulary blocks, a decode's logits) and
+# sequence-split carry, vocabulary blocks, a decode's logits, the SSM
+# decode's new-token columns) and
 # "input" (the batch to the shards) move activations.
 KINDS: dict = {}
 WEIGHT_KINDS = ("gather", "reduce-scatter")
@@ -572,6 +573,36 @@ class MeshRun:
                 cache[ck] = got
         index, outs = got
         return outs[index[want]]
+
+    def replica_slice(self, sh: Sharded, key, i: int, j: int, lo: int,
+                      hi: int, dtype=None) -> torch.Tensor:
+        """Entries ``[lo, hi)`` (last dim) of a replicated ``sh`` on batch
+        shard ``i``'s "model" device ``j``, cast to ``dtype``: cut from
+        its one stored block and copied (a "gather") where that lies
+        elsewhere; as :meth:`weight`, made once for every batch shard
+        inside :meth:`scope`."""
+        if len(sh.shards) != 1:
+            raise ValueError(f"{key}: not one replica ({sh.spec})")
+        (c, t), = sh.shards.items()
+        cache = _CACHE.get()
+        ck = (key, "slice", j, lo, hi, dtype)
+        got = None if cache is None else cache.get(ck)
+        if got is None:
+            # one copy a consumer device, the bytes counted a consumer
+            # position (what distinct devices would receive)
+            got, on = {}, {}
+            piece = t[..., lo:hi]
+            for a in (range(self.n) if cache is not None else [i]):
+                dev, pos = self.device(a, j), self.position(a, j)
+                if dev in on:
+                    _count(piece, sh.position(c), pos, dev, "gather")
+                else:
+                    out = move(piece, dev, sh.position(c), pos, "gather")
+                    on[dev] = out if dtype is None else out.to(dtype)
+                got[a] = on[dev]
+            if cache is not None:
+                cache[ck] = got
+        return got[i]
 
 
 def current() -> tuple[MeshRun, int] | None:

@@ -14,12 +14,21 @@ decode cases cover an SSM state split on heads and conv channels
 ways) and on heads alone (1 x 4 with ``ssm_state`` 9: 274 channels do
 not split four ways).
 
+A decode step updates the SSM state where ``cache_specs`` keep it: the
+step's bytes between positions, by segment and kind, equal a reckoning
+from the shapes and the layouts that holds no block of ``ssm_h`` or
+``ssm_conv`` (the new token's columns a position lacks, under segment
+"ssm_state"; the projections' input and partial sums; the weights each
+position reads and does not store), so no copy carries one.  The
+conv split on channels is bitwise the whole conv.
+
 Tolerances: the reference's ``tests/test_distributed.py`` (loss within
 1e-4, parameters within 5e-4 after one step; a bfloat16 parameter also
 one bf16 step of its size, as ``tests/test_torch_sharding.py``), and
 ``tests/test_torch_models.py``'s for logits (within 1e-5 of the largest,
 greedy tokens equal)."""
 import copy
+from collections import Counter
 
 import pytest
 
@@ -38,6 +47,7 @@ from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.core import rng  # noqa: E402
 from repro_torch.launch import builders  # noqa: E402
 from repro_torch.launch.mesh import make_lm_mesh  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 from repro_torch.models.layers import unembed  # noqa: E402
 from repro_torch.sharding import partition  # noqa: E402
@@ -128,12 +138,160 @@ def _close(got, want, tol=1e-5):
     assert err <= tol * float(want.abs().max()), err
 
 
+def _axes(spec) -> set:
+    return {a for e in spec for a in ((e,) if isinstance(e, str)
+                                      else (e or ()))}
+
+
+def _stored(spec, nbytes: int, d: int, m: int, i: int, j: int) -> int:
+    """Bytes of a leaf of ``nbytes`` that mesh position (i, j) stores: a
+    block where the spec names the axis, else the replica kept at index
+    0 of it."""
+    ax = _axes(spec)
+    if ("data" not in ax and i) or ("model" not in ax and j):
+        return 0
+    return nbytes // (d if "data" in ax else 1) // (m if "model" in ax else 1)
+
+
+def _read_bytes(spec, nbytes: int, d: int, m: int, how: str) -> int:
+    """What the batch shards' reads of a leaf receive: block j on "model"
+    device j ("pieces") or the whole leaf at home ("home"), less what the
+    reading position stores."""
+    if how == "pieces":
+        return sum(nbytes // m - _stored(spec, nbytes, d, m, i, j)
+                   for i in range(d) for j in range(m))
+    return sum(nbytes - _stored(spec, nbytes, d, m, i, 0) for i in range(d))
+
+
+def _ssm_columns(cfg, m: int, proj_split: list, split: dict) -> int:
+    """The new token's columns the "model" positions of one batch shard
+    receive in one SSM layer's decode: each conv block's input
+    (projection columns d_inner + its channels), and each head block's
+    x, B and C (conv outputs), dt and z (projection columns), less what
+    the position holds.  ``proj_split``: whether each projection (fused,
+    or z, x, B, C, dt) is split over "model"."""
+    di, gn, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.n_ssm_heads
+    p, c = di // h, di + 2 * gn
+    widths = ((di, di, gn, gn, h) if cfg.ssm_split_proj
+              else (2 * di + 2 * gn + h,))
+    held = [set() for _ in range(m)]
+    off = 0
+    for w, cut in zip(widths, proj_split):
+        k = m if cut else 1
+        for j in range(k):
+            held[j] |= set(range(off + j * w // k, off + (j + 1) * w // k))
+        off += w
+    cols = 0
+    kc = m if split["conv"] else 1
+    conv_at = {}
+    for j in range(kc):
+        chans = range(j * c // kc, (j + 1) * c // kc)
+        cols += len({di + x for x in chans} - held[j])
+        conv_at.update({x: j for x in chans})
+    kh = m if split["h"] else 1
+    for j in range(kh):
+        h0, h1 = j * h // kh, (j + 1) * h // kh
+        cols += sum(conv_at[x] != j for x in
+                    set(range(h0 * p, h1 * p)) | set(range(di, c)))
+        cols += len((set(range(2 * di + 2 * gn + h0, 2 * di + 2 * gn + h1))
+                     | set(range(h0 * p, h1 * p))) - held[j])
+    return cols
+
+
+def _decode_reckoning(cfg, model, specs: dict, shape, b: int,
+                      split: dict) -> dict:
+    """The bytes a decode step of an SSM or hybrid model copies between
+    mesh positions, by (segment, kind), from the shapes and the layouts:
+    the batch to the shards, the vocabulary-parallel embedding and head
+    (tokens and hidden state out, partial sums and logit blocks home),
+    the logits home; per layer and batch shard, each tensor-parallel
+    op's input out and partial sums home, the SSM's new-token columns
+    (segment "ssm_state"), and every weight read where it is not stored
+    (float32, as stored), a conv or head block reading its slice of the
+    replicated conv weights and head scalars; nothing of the SSM
+    state."""
+    d, m = shape
+    e = 4 if cfg.dtype == "float32" else 2
+    r, dm, v, nl = b // d, cfg.d_model, cfg.vocab, cfg.n_layers
+    leaves = tt.param_leaves(model)
+    want: Counter = Counter()
+
+    def tp(k, dim=None):
+        sp = specs[k]
+        return "model" in (_axes(sp) if dim is None else _axes((sp[dim],)))
+
+    def read(k, how, seg):
+        t = leaves[k]
+        n = nl if isinstance(t, list) else 1
+        per = (t[0] if isinstance(t, list) else t).numel() * 4
+        want[seg, "gather"] += n * _read_bytes(specs[k], per, d, m, how)
+
+    def tensor_parallel():         # a layer's op, its input out, sums home
+        want["layer", "broadcast"] += nl * d * (m - 1) * r * dm * e
+        want["layer", "partial sum"] += nl * d * (m - 1) * r * dm * e
+
+    want["step", "input"] += b * 4
+    if tp("embed/tok", 0):
+        read("embed/tok", "pieces", "step")
+        want["step", "broadcast"] += d * (m - 1) * r * 4
+        want["step", "partial sum"] += d * (m - 1) * r * dm * 4
+    else:
+        read("embed/tok", "home", "step")
+    read("final_norm/scale", "home", "step")
+    head, vdim = (("embed/tok", 0) if cfg.tie_embeddings
+                  else ("embed/head", 1))
+    if tp(head, vdim):
+        read(head, "pieces", "step")
+        want["step", "broadcast"] += d * (m - 1) * r * dm * e
+        want["step", "reshard"] += d * (m - 1) * r * (v // m) * e
+    else:
+        read(head, "home", "step")
+    want["step", "reshard"] += (d - 1) * r * v * e
+
+    read("layers/ln1/scale", "home", "layer")
+    names = (["layers/ssm/" + n for n in ("z_proj", "x_proj", "b_proj",
+                                          "c_proj", "dt_proj")]
+             if cfg.ssm_split_proj else ["layers/ssm/in_proj"])
+    for k in names:
+        read(k, "pieces" if tp(k) else "home", "layer")
+    if any(tp(k) for k in names):
+        want["layer", "broadcast"] += nl * d * (m - 1) * r * dm * e
+    for k, f in (("conv_w", "conv"), ("conv_b", "conv"), ("a_log", "h"),
+                 ("dt_bias", "h"), ("d_skip", "h")):
+        # the slice a block reads, from the replica at (0, 0)
+        blocks = m if split[f] else 1
+        per = leaves["layers/ssm/" + k][0].numel() * 4 // blocks
+        want["layer", "gather"] += nl * per * (d * blocks - 1)
+    if tp("layers/ssm/out_proj"):
+        assert split["h"], "the reckoning takes head blocks as out_proj's"
+        read("layers/ssm/out_proj", "pieces", "layer")
+        want["layer", "partial sum"] += nl * d * (m - 1) * r * dm * e
+    else:
+        read("layers/ssm/out_proj", "home", "layer")
+    cols = _ssm_columns(cfg, m, [tp(k) for k in names], split)
+    want["ssm_state", "reshard"] += nl * d * cols * r * e
+    if cfg.family == "hybrid":
+        assert cfg.n_kv % m == 0, "the reckoning takes kv heads over model"
+        read("layers/ln2/scale", "home", "layer")
+        for k in ("wq", "wk", "wv", "wo"):
+            read("layers/attn/" + k, "pieces", "layer")
+        tensor_parallel()
+        mlp = [k for k in ("wi", "wg", "wo") if "layers/mlp/" + k in leaves]
+        for k in mlp:
+            read("layers/mlp/" + k, "pieces", "layer")
+        tensor_parallel()
+    return {k: n for k, n in want.items() if n}
+
+
 @pytest.mark.parametrize("case", sorted(SERVE_CASES))
 def test_prefill_and_decode_equal_one_device(case):
     """The builders' prefill and decode cells on the mesh against the
     unplaced model on one device: prefill logits and 5 decode steps'
     logits within 1e-5 of the largest, the greedy tokens equal, and the
-    SSM state split over "model" on the dims stated."""
+    SSM state split over "model" on the dims stated.  For the SSM and
+    hybrid models each decode step's bytes by segment and kind are the
+    reckoning's, which holds no byte of the SSM state: a copy of a
+    state block would add bytes the reckoning lacks."""
     arch, kw, shape, split = SERVE_CASES[case]
     cfg = t_configs.get_config(arch, smoke=True).replace(**kw)
     one = tt.init_model(cfg, torch.Generator().manual_seed(0), device=CPU)
@@ -161,14 +319,69 @@ def test_prefill_and_decode_equal_one_device(case):
     for name, d in split.items():
         sh = cache["ssm_" + name]
         assert (None if sh.model_dim() is None else sh.model_dim() - 1) == d
+    reckoned = (_decode_reckoning(cfg, one, {k: v.spec for k, v in
+                                             insh[0].items()}, shape, b,
+                                  split) if split else None)
     ref = tt.init_cache(cfg, b, steps, device=CPU)
     tok = toks[:, :1]
     for p in range(steps):
+        partition.reset_traffic()
         got, cache = dec(placed, rng.PRNGKey(p), tok, p, cache)
         want, ref = tt.decode_step(one, tok, p, ref)
         _close(got, want.float())
         tok = torch.argmax(got, -1).to(torch.int32)[:, None]
         assert torch.equal(tok, torch.argmax(want, -1).to(torch.int32)[
             :, None])
+        if reckoned is not None:
+            assert {k: v[1] for k, v in partition.KINDS.items()} == reckoned
+            assert partition.TRAFFIC["crossed_bytes"] == sum(
+                reckoned.values())
     for name in ref:
         _close(partition.gather(cache[name], CPU).float(), ref[name].float())
+
+
+@pytest.mark.parametrize("case", sorted(k for k, v in SERVE_CASES.items()
+                                        if v[3]))
+def test_split_conv_is_bitwise_the_whole_conv(case):
+    """One layer's decode conv on the conv state's blocks where
+    ``cache_specs`` keep them (``ssm.conv_blocks``), from the projections'
+    column blocks: its output and new state bitwise the whole conv's
+    (``_causal_conv``) on the joined input and state."""
+    arch, kw, shape, split = SERVE_CASES[case]
+    cfg = t_configs.get_config(arch, smoke=True).replace(**kw)
+    mesh = _mesh(shape)
+    b = 4
+    model = tt.init_model(cfg, torch.Generator().manual_seed(0), device=CPU)
+    _, _, insh, _, _ = builders.build_decode(
+        cfg, mesh, ShapeCfg("d", 8, b, "decode"), sampler=None)
+    placed = partition.place(mesh, copy.deepcopy(model),
+                             {k: v.spec for k, v in insh[0].items()})
+    gen = np.random.default_rng(3)
+    cache = tt.init_cache(cfg, b, 8, device=CPU)
+    cache["ssm_conv"].copy_(torch.from_numpy(gen.standard_normal(
+        cache["ssm_conv"].shape).astype(np.float32)))
+    whole_state = cache["ssm_conv"][0].clone()
+    cache = partition.place(mesh, cache,
+                            {k: v.spec for k, v in insh[4].items()})
+    u = torch.from_numpy(gen.standard_normal(
+        (b // shape[0], 1, cfg.d_model)).astype(np.float32))
+    run = partition.MeshRun(mesh, insh[4]["ssm_conv"].spec[1])
+    lp, di = placed.layers[0].ssm, cfg.d_inner
+    names = (("z_proj", "x_proj", "b_proj", "c_proj", "dt_proj")
+             if cfg.ssm_split_proj else ("in_proj",))
+    with run.scope(), run.on(0), torch.no_grad():
+        zx, off = [], 0
+        for blocks in ssm_lib._in_projection_blocks(lp, names, u):
+            for j, t in blocks:
+                zx.append((off, off + t.shape[-1], j, t))
+                off += t.shape[-1]
+        blocks = tt._ssm_blocks(run, cache, 0, 0)["conv"]
+        assert len(blocks) == (shape[1] if split["conv"] else 1)
+        out, new_blocks = ssm_lib.conv_blocks(lp, cfg, zx, blocks)
+        joined = torch.cat([t for _, _, _, t in zx], dim=-1)
+        rows = slice(0, b // shape[0])
+        y, new = ssm_lib._causal_conv(
+            joined[..., di: di + out[-1][1]], lp.w("conv_w", u.dtype),
+            lp.w("conv_b", u.dtype), whole_state[rows])
+    assert torch.equal(torch.cat([t for _, _, _, t in out], dim=-1), y)
+    assert torch.equal(torch.cat(new_blocks, dim=-1), new)
