@@ -22,8 +22,7 @@ line is printed:
    over 4 evidence patterns, cold and warm pass, launch counters zeroed
    just before and read just after (launches per (b, L) and per engine
    round included; no bit words made on the host: the kernel makes its
-   own); the first group's queries (one evidence pattern's 16 of the
-   64) of both passes must equal the same group through
+   own); every query of both passes must equal the same query through
    ``sampler="torch"`` bit for bit, cold and then warm from the timed
    warm pass's key (``plain_identity``), and a sprinkler posterior must land
    within 0.03 of exact.
@@ -56,13 +55,12 @@ line is printed:
    (acceptance rate, bits), and both on the card against the CPU at
    50 x 34 / 4,096 spins, bit for bit.
 10. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
-   2 scribble patterns, 8 chains a query, cold and warm, the first
-   group's queries of both passes bitwise against ``sampler="torch"``
+   2 scribble patterns, 8 chains a query, cold and warm, every query
+   of both passes bitwise against ``sampler="torch"``
    (``plain_identity``); launches counted, no host bit words.
 11. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
    colouring): 16 ``IsingQuery`` over 2 clamp patterns, cold and warm,
-   the first group's of both passes bitwise against
-   ``sampler="torch"``;
+   every query of both passes bitwise against ``sampler="torch"``;
    ``run_fg_gibbs`` on a random
    sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
    and the torus at β 0.6 started all up within 0.03 of Onsager's
@@ -694,10 +692,11 @@ def record_main_path(keep_all: bool = True):
     with ``keep_all=False`` the first of each ``(b, L)`` only, for paths
     whose calls would not fit in memory together — the launches of each
     ``GroupRun.step`` (one engine round), and the calls of
-    ``rng.random_bit_words`` (the kernel makes its own words, so the CUDA
-    route should make none).  The fused sampler is read by name in the BN
-    compile chain, the MRF half-step, the sparse colour update and the
-    mesh step's tiles; all four are recorded."""
+    ``rng.random_bit_words`` and ``rng.LaneWords.column`` (the kernel
+    makes its own words, so the CUDA route should make none).  The fused
+    sampler is read by name in the BN compile chain, the MRF half-step,
+    the sparse colour update and the mesh step's tiles; all four are
+    recorded."""
     from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
@@ -708,7 +707,7 @@ def record_main_path(keep_all: bool = True):
 
     mods = (compile_mod, gibbs_mod, sparse_mod, mesh_mod)
     fused, step = fs.fused_gibbs_sample, GroupRun.step
-    bit_words = rng.random_bit_words
+    bit_words, column = rng.random_bit_words, rng.LaneWords.column
     rec = {"calls": [], "per_round": Counter(), "word_calls": 0,
            "row_maps": Counter()}
     seen = set()
@@ -716,6 +715,10 @@ def record_main_path(keep_all: bool = True):
     def counting_bit_words(*args, **kw):
         rec["word_calls"] += 1
         return bit_words(*args, **kw)
+
+    def counting_column(*args, **kw):
+        rec["word_calls"] += 1
+        return column(*args, **kw)
 
     def recording_fused(key, logw, card, **kw):
         res = fused(key, logw, card, **kw)
@@ -737,6 +740,7 @@ def record_main_path(keep_all: bool = True):
         m.fused_gibbs_sample = recording_fused
     GroupRun.step = recording_step
     rng.random_bit_words = counting_bit_words
+    rng.LaneWords.column = counting_column
     fs.fused_gibbs_sample.launches = 0
     fs.fused_gibbs_sample.shapes.clear()
     try:
@@ -748,6 +752,7 @@ def record_main_path(keep_all: bool = True):
             m.fused_gibbs_sample = fused
         GroupRun.step = step
         rng.random_bit_words = bit_words
+        rng.LaneWords.column = column
 
 
 def check_recorded(rec, path: str) -> None:
@@ -800,12 +805,13 @@ def phase_main_path_kernel(rec) -> dict:
     back without a record of the kernel after the serve phase; the gaps
     between launches on the card count),
     ``call_ms`` one launch through the binding as the host sees it back
-    to back (CUDA events), ``plain_ms`` the plain version on words made
-    beforehand and ``words_ms`` those words (which the kernel makes
-    itself), all on the same inputs; each averaged over the shapes
-    weighted by their launch counts."""
+    to back (CUDA events), ``plain_ms`` the plain version as it runs
+    (making the words its walk reads) and ``words_ms`` the whole draw's
+    words (which the kernel makes itself), all on the same inputs; each
+    averaged over the shapes weighted by their launch counts."""
     import torch
 
+    from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
 
     first = {}
@@ -833,16 +839,18 @@ def phase_main_path_kernel(rec) -> dict:
         if not (eq_rec and eq_plain):
             bad.append(dict(b=b, L=L, equals_recorded=eq_rec,
                             equals_plain=eq_plain))
-        words = fs._words(key, b, 32, logw.device, lane0, row_map)
         with torch.cuda.device(logw.device):    # events on the call's card
             rows.append(dict(
                 n=n, b=b, L=L, max_abs_err=max(err_rec, err_plain),
                 ms=cold_device_ms(launch, 3, logw.device, calls=100),
                 call_ms=time_ms(launch, 200),
-                plain_ms=time_ms(lambda: fs._plain(logw_c, lane_card, words,
-                                                   **opts), 5, warmup=1),
-                words_ms=time_ms(lambda: fs._words(key, b, 32, logw.device,
-                                                   lane0, row_map), 20)))
+                plain_ms=time_ms(lambda: fs._plain(
+                    logw_c, lane_card, fs._words(key, b, 32, logw.device,
+                                                 lane0, row_map),
+                    **opts), 5, warmup=1),
+                words_ms=time_ms(lambda: rng.random_bit_words(
+                    key, (b,), 31 * 32, device=logw.device, lane0=lane0,
+                    row_map=row_map), 20)))
     emit({"phase": "kernel_vs_plain_main_path", "shapes": len(rows),
           "all_equal": not bad, "failures": bad})
     if bad:
@@ -934,30 +942,19 @@ def timed_pass(engine, traffic):
 def plain_identity(registry, traffic, timed: tuple, warm_key,
                    **kw) -> dict:
     """The plain path (``sampler="torch"``) against the fused kernel's
-    timed passes, bit for bit, on the engine group answered first (the
-    queries of ``traffic[0]``'s network, evidence pattern and mode): cold
-    on a fresh engine of settings ``kw``, then warm from the key the
-    timed warm pass started from (``warm_key``), each held against the
-    same queries of the timed cold and warm results ``timed`` (a group's
-    results depend on its queries, its plan and its key alone).  Depth
-    cut: every group's plain passes took 322 s of the script's 1,223
-    (PERF.md section 6)."""
+    timed passes, bit for bit, on every query of ``traffic``: cold on a
+    fresh engine of settings ``kw``, then warm from the key the timed
+    warm pass started from (``warm_key``), each held against the timed
+    cold and warm results ``timed``."""
     from repro_torch.serve.engine import PosteriorEngine
 
     plain = PosteriorEngine(registry, sampler="torch", **kw)
-
-    def group(q):
-        return (q.network, plain.normalize(q)[3],
-                getattr(q, "mode", "marginals"))
-
-    idx = [n for n, q in enumerate(traffic) if group(q) == group(traffic[0])]
-    queries = [traffic[n] for n in idx]
-    got_cold, cold_s = timed_pass(plain, queries)
+    got_cold, cold_s = timed_pass(plain, traffic)
     plain._key = warm_key
-    got_warm, warm_s = timed_pass(plain, queries)
-    return {"identity_queries": len(queries),
+    got_warm, warm_s = timed_pass(plain, traffic)
+    return {"identity_queries": len(traffic),
             "cuda_equals_torch": {
-                p: same_results(got, [res[n] for n in idx])
+                p: same_results(got, res)
                 for p, got, res in (("cold", got_cold, timed[0]),
                                     ("warm", got_warm, timed[1]))},
             "sampler_torch_cold_s": cold_s, "sampler_torch_warm_s": warm_s}
@@ -998,7 +995,7 @@ def phase_serve(card_name: str) -> dict:
           "warm_msample_s": node_samples / warm_s / 1e6,
           "converged": sum(r.converged for r in warm)})
 
-    # the plain path on the card, the first group of the timed passes
+    # the plain path on the card, every query of the timed passes
     ident = plain_identity(registry, traffic, (cold, warm), warm_key,
                            burn_in=SERVE_BURN_IN, seed=0)
     emit({"phase": "serve_identity", **ident})
@@ -1159,9 +1156,8 @@ def serve_identity(registry, traffic, label: str, card_name: str,
                    depth: dict) -> dict:
     """Cold and warm passes of ``traffic`` with ``sampler="cuda"`` (the
     main path: counts zeroed just before, read just after; first call of
-    each shape kept), then ``plain_identity`` on their first group,
-    which must be equal bit for bit; finite marginals that sum to
-    one."""
+    each shape kept), then ``plain_identity`` on every query, which must
+    be equal bit for bit; finite marginals that sum to one."""
     import torch
 
     from repro_torch.serve.engine import PosteriorEngine
@@ -3889,21 +3885,16 @@ def family_serve(model, mesh, prompt, steps: int) -> dict:
 @contextlib.contextmanager
 def copy_shapes():
     """The shape and bytes of every copy between mesh positions counted
-    in this block (``partition._count`` observed, not changed)."""
+    in this block (``partition.observe_copies``)."""
     from repro_torch.sharding import partition
 
-    seen, count = [], partition._count
+    seen = []
 
-    def recording(t, src, dst, device, kind, seg=None):
-        if src != dst:
-            seen.append((tuple(t.shape), t.numel() * t.element_size()))
-        count(t, src, dst, device, kind, seg)
+    def recording(t, src, dst, kind):
+        seen.append((tuple(t.shape), t.numel() * t.element_size()))
 
-    partition._count = recording
-    try:
+    with partition.observe_copies(recording):
         yield seen
-    finally:
-        partition._count = count
 
 
 def check_decode_copies(cfg, mesh, serve: dict, batch: int,

@@ -38,21 +38,37 @@ def max_levels(k: int, n: int) -> int:
     return int(k + max(math.ceil(math.log2(max(n, 2))), 1) + 1)
 
 
-def ky_walk(flat: torch.Tensor, bit_words: torch.Tensor) -> KYResult:
-    """Lock-step DDG walk over pre-generated per-lane bit streams.
+class _HeldWords:
+    """The words-in interface's source: a ``(b, W)`` tensor made
+    beforehand, read a column at a time as :class:`rng.LaneWords` is."""
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+        self.n_words = int(words.shape[-1])
+
+    def column(self, j: int, rows: torch.Tensor) -> torch.Tensor:
+        return self.words[rows, j]
+
+
+def ky_walk(flat: torch.Tensor, bit_words) -> KYResult:
+    """Lock-step DDG walk over per-lane bit streams.
 
     Args:
       flat: (b, n) non-negative int32 weight rows.
-      bit_words: (b, W) int32 bit patterns; lane ``i`` consumes bits of
-        row ``i`` under the per-lane cursor.  The walk budget is
-        ``W * 32`` bits per lane.
+      bit_words: (b, W) int32 bit patterns, or a
+        :class:`repro_torch.core.rng.LaneWords` that makes the words of
+        such a draw as they are read; lane ``i`` consumes bits of row
+        ``i`` under the per-lane cursor.  The walk budget is ``W * 32``
+        bits per lane.
 
     Returns a :class:`KYResult` with (b,) fields.
     """
+    words = (_HeldWords(bit_words) if isinstance(bit_words, torch.Tensor)
+             else bit_words)
     flat = torch.as_tensor(flat).to(torch.int64)
     b, n = flat.shape
     dev = flat.device
-    budget = int(bit_words.shape[-1]) * 32
+    budget = words.n_words * 32
 
     total = flat.sum(dim=-1)
     # Defensive: an all-zero row would hang the walk; force outcome 0.
@@ -62,69 +78,80 @@ def ky_walk(flat: torch.Tensor, bit_words: torch.Tensor) -> KYResult:
 
     k_lvl = torch.clamp_min(ceil_log2(total).to(torch.int64), 1)  # per-lane K
     reject_w = (1 << k_lvl) - total                                # pad mass
+    km1 = k_lvl - 1                     # the last level of an attempt
 
     # Degenerate rows where one outcome carries the whole mass are
     # deterministic: resolved up front with zero random bits.
     argmax0 = torch.argmax(flat, dim=-1)
-    done = flat.amax(dim=-1) == total
+    live = flat.amax(dim=-1) != total          # lanes still walking
     zeros = torch.zeros(b, dtype=torch.int64, device=dev)
     d, c, t = zeros, zeros, zeros
     att = zeros + 1
-    res = torch.where(done, argmax0, 0)
+    res = torch.where(live, 0, argmax0)
 
-    # Every active lane has t == iteration, so the reference's stop rule
-    # (max t over active lanes < budget - 1) is a fixed trip cap.  A
-    # lane's state never depends on another's, so the walk drops the
-    # finished lanes from its working rows once three quarters of them
-    # are finished; the fields are the same.  ``ids`` maps working rows to lanes, ``out``
-    # holds the full batch's fields.
+    # Every live lane has t == iteration, so the reference's stop rule
+    # (max t over live lanes < budget - 1) is a fixed trip cap, and
+    # every live lane reads word it // 32 at iteration it: the walk
+    # takes that one column for its working rows at each word boundary
+    # and splits it into its 32 bits, complemented (the walk descends on
+    # a 0 bit).  A lane's state never depends on another's, so the walk
+    # drops the finished lanes from its working rows at a word boundary
+    # (before the column is made) and once three quarters of them are
+    # finished; the fields are the same.  ``ids`` maps working rows to
+    # lanes, ``out`` holds the full batch's fields.  A finished lane's d
+    # and c go on changing but are never read again.
     ids = torch.arange(b, device=dev)
-    out = [torch.empty_like(res), torch.empty_like(done),
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)[:, None]
+    nbits = torch.zeros((32, b), dtype=torch.bool, device=dev)
+    out = [torch.empty_like(res), torch.empty_like(live),
            torch.empty_like(t), torch.empty_like(att)]
-    full_flat = flat
-    for _ in range(budget - 1):
-        n_live = int((~done).sum())
+    # The weights and the pad mass as rows over the lanes, (n + 1, b): a
+    # level's bit plane is one shift, its running sums one scan down the
+    # outer axis (a lane a thread; the card's scan along a short inner
+    # row is slow), the last two sums the real mass and the column sum.
+    planes = torch.cat([flat.t(), reject_w[None]]).contiguous()
+    for it in range(budget - 1):
+        boundary = it % 32 == 0
+        n_live = int(live.sum())
         if n_live == 0:
             break
-        if 4 * n_live < b:
-            for f, w in zip(out, (res, done, t, att)):
+        if n_live < b and (boundary or 4 * n_live < b):
+            for f, w in zip(out, (res, live, t, att)):
                 f[ids] = w
-            keep = ~done
-            ids, flat, bit_words, k_lvl, reject_w, res, done, d, c, t, att = (
-                a[keep] for a in (ids, flat, bit_words, k_lvl, reject_w, res,
-                                  done, d, c, t, att))
+            keep = torch.nonzero(live).squeeze(1)   # one host sync
+            planes, nbits = planes[:, keep], nbits[:, keep]
+            ids, km1, res, live, d, c, t, att = (
+                a[keep] for a in (ids, km1, res, live, d, c, t, att))
             b = n_live
-        active = ~done
-        bit = rng_lib.get_bit(bit_words, t)
-        d2 = 2 * d + (1 - bit)
-        # Bit-plane column at level c: MSB-first bit of each weight.
-        shift = k_lvl - 1 - c
-        sh = torch.clamp_min(shift, 0)
-        col = torch.where((shift >= 0)[:, None], (flat >> sh[:, None]) & 1, 0)
-        rcol = torch.where(shift >= 0, (reject_w >> sh) & 1, 0)
-        cum = torch.cumsum(col, dim=-1)
-        colsum = cum[:, -1] + rcol
+        if boundary:
+            nbits = ((~words.column(it // 32, ids) >> shifts) & 1).bool()
+        d2 = torch.add(nbits[it % 32], d, alpha=2)       # 2d + 1 - bit
+        # Bit-plane column at level c: MSB-first bit of each weight (a
+        # live lane has c <= k - 1).
+        sh = torch.clamp_min(km1 - c, 0)
+        cum = torch.cumsum((planes >> sh) & 1, dim=0)
+        real_sum, colsum = cum[-2], cum[-1]
         hit = d2 < colsum
-        # first index with cum == d2+1; if none (leaf is the rejection
-        # pad), sel lands past the real outcomes
-        ge = cum >= (d2 + 1)[:, None]
-        sel = torch.argmax(ge.to(torch.int32), dim=-1)
-        is_real = hit & ge.gather(1, sel[:, None])[:, 0]
-        is_rej = hit & ~is_real
-        overflow = (~hit) & (c + 1 >= k_lvl)
-        restart = (is_rej | overflow) & active
-        finish = is_real & active
-        done = done | finish
+        real = d2 < real_sum            # the leaf is a real outcome
+        # the first index with cum > d2 (the real outcome's leaf): the
+        # count of the non-decreasing cum's entries <= d2
+        sel = (cum <= d2).sum(dim=0)
+        walking = live & ~real
+        # a rejection leaf, or past the last level with no leaf
+        restart = walking & (hit | (c >= km1))
+        finish = live & real
         res = torch.where(finish, sel, res)
-        d = torch.where(restart, 0, torch.where(hit, d, d2 - colsum))
-        c = torch.where(restart, 0, torch.where(hit, c, c + 1))
-        t = t + active
+        d = torch.where(hit, d, d2 - colsum).masked_fill_(restart, 0)
+        c = torch.where(hit, c, c + 1).masked_fill_(restart, 0)
+        t = t + live
         att = att + restart
-    for f, w in zip(out, (res, done, t, att)):
+        live = walking
+    for f, w in zip(out, (res, live, t, att)):
         f[ids] = w
-    res, done, t, att = out
+    res, live, t, att = out
+    done = ~live
     # Fallback for (astronomically unlikely) budget exhaustion.
-    res = torch.where(done, res, torch.argmax(full_flat, dim=-1))
+    res = torch.where(done, res, argmax0)
     return KYResult(sample=res.to(torch.int32), bits_used=t.to(torch.int32),
                     attempts=att.to(torch.int32), ok=done)
 
@@ -145,7 +172,9 @@ def ky_sample(
       weights: (..., n) non-negative int32; rows must not be all-zero.
       max_attempts: restart budget; non-terminating lanes fall back to
         argmax and are flagged ``ok=False``.
-      bit_words: optional pre-generated (..., W) int32 bit stream.
+      bit_words: optional pre-generated (..., W) int32 bit stream;
+        without it the walk makes the words of the key's draw as it
+        reads them (:class:`repro_torch.core.rng.LaneWords`).
       lane0: global index of the first lane: lane ``i`` reads the words
         of lane ``lane0 + i`` of the key's draw (a lane shard's rows).
       row_map: optional ``(N, colpos)``: lane ``i`` reads the words of
@@ -162,9 +191,9 @@ def ky_sample(
 
     k_static = 31  # static per-attempt level cap (int32 weights)
     if bit_words is None:
-        bit_words = rng_lib.random_bit_words(
-            key, (b,), k_static * max_attempts, device=w.device, lane0=lane0,
-            row_map=row_map)
+        bit_words = rng_lib.LaneWords(
+            key, b, rng_lib.bit_budget_words(k_static * max_attempts),
+            lane0=lane0, row_map=row_map, device=w.device)
     else:
         bit_words = bit_words.reshape((b, -1))
 

@@ -149,6 +149,32 @@ def random_bit_words(key, shape: tuple, max_bits: int, device=None,
         tuple(shape) + (words,))
 
 
+class LaneWords:
+    """The words of a ``random_bit_words(key, (lanes,), 32 * n_words,
+    lane0=lane0, row_map=row_map)`` draw, made only as they are read.
+
+    ``column(j, rows)`` returns word ``j`` of the given rows (an int64
+    tensor of indices in ``[0, lanes)``) as the whole draw holds it: the
+    hash of counter ``(lane0 + r) * n_words + j``, or of ``mapped_rows(
+    ...)[r] * n_words + j`` under a row map.  ``n_words`` is the whole
+    budget even where most columns are never made, since the counters
+    depend on it.  The plain KY walk reads one column at a time, for the
+    lanes still walking (:func:`repro_torch.core.ky.ky_walk`)."""
+
+    def __init__(self, key, lanes: int, n_words: int, *, lane0: int = 0,
+                 row_map=None, device=None):
+        self.key = key
+        self.lanes, self.n_words, self.lane0 = int(lanes), int(n_words), \
+            int(lane0)
+        self._rows = (None if row_map is None
+                      else mapped_rows(self.lanes, lane0, row_map, device))
+
+    def column(self, j: int, rows: torch.Tensor) -> torch.Tensor:
+        g = rows + self.lane0 if self._rows is None else self._rows[rows]
+        return _as_int32_bits(_counter_bits(self.key,
+                                            g * self.n_words + int(j)))
+
+
 def lane_word(k0: int, k1: int, i: int, j: int, n_words: int,
               lane0: int = 0, row_map=None) -> int:
     """Word ``j`` of lane ``i`` of a ``(lanes, n_words)`` draw under key

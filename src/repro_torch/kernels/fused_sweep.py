@@ -9,8 +9,8 @@ and everything downstream runs in one launch with the row in registers:
 The kernel (``csrc/fused_sweep.cu``, CUDA C++ for ``sm_90a``) replaces
 the JAX package's Pallas kernel ``repro.kernels.fused_sweep._fused_kernel``.
 Its plain PyTorch version is :func:`fused_gibbs_sample_ref`: the two-stage
-``masked_exp_weights`` → ``ky_walk`` path on bit words from
-``rng.random_bit_words``.
+``masked_exp_weights`` → ``ky_walk`` path, which makes the words of
+``rng.random_bit_words``'s draw as it reads them (``rng.LaneWords``).
 
 Bitwise contract: the kernel takes the color's key, not words, and makes
 word ``j`` of lane ``i`` itself, when the lane's cursor first reaches it:
@@ -125,14 +125,13 @@ def _lane_card(card, b: int, device) -> torch.Tensor:
 
 
 def _words(key, b: int, max_attempts: int, device,
-           lane0: int = 0, row_map=None) -> torch.Tensor:
+           lane0: int = 0, row_map=None) -> rng_lib.LaneWords:
     """The exact stream ``ky_sample(key, ..., lane0=lane0,
     row_map=row_map)`` draws for rows ``[lane0, lane0 + b)`` of the
-    global lane axis, or for the rows the map names: the plain version's
-    input."""
-    return rng_lib.random_bit_words(key, (b,), 31 * max_attempts,
-                                    device=device, lane0=lane0,
-                                    row_map=row_map)
+    global lane axis, or for the rows the map names, made as the plain
+    version reads it."""
+    return rng_lib.LaneWords(key, b, rng_lib.bit_budget_words(
+        31 * max_attempts), lane0=lane0, row_map=row_map, device=device)
 
 
 @functools.cache
@@ -199,10 +198,11 @@ def _count_launch(b: int, L: int) -> None:
         fused_gibbs_sample.shapes[(b, L)] += 1
 
 
-def _plain(logw: torch.Tensor, card: torch.Tensor, words: torch.Tensor,
+def _plain(logw: torch.Tensor, card: torch.Tensor, words,
            table: interp_lib.InterpTable, *, k: int, use_iu: bool,
            mask_value: float) -> KYResult:
-    """The kernel's plain PyTorch version on the same inputs."""
+    """The kernel's plain PyTorch version on the same inputs; ``words`` is
+    a ``(b, W)`` tensor or a ``rng.LaneWords``, as ``ky_walk`` takes."""
     w = interp_lib.masked_exp_weights(
         logw, card, k, use_iu=use_iu, table=table, mask_value=mask_value)
     return ky_walk(w, words)
@@ -274,7 +274,8 @@ def fused_gibbs_sample_ref(
     row_map=None,
 ) -> KYResult:
     """Plain PyTorch twin of :func:`fused_gibbs_sample` on any device:
-    the shared helpers on the same bit words."""
+    the shared helpers on the same bit words, made as the walk reads
+    them."""
     _check_lane0(lane0)
     logw = torch.as_tensor(logw, dtype=torch.float32)
     b = logw.shape[0]

@@ -39,9 +39,9 @@ position's total against the H100's 80 GB), ``collectives`` (copies and
 bytes by kind, a step), ``traffic`` (their totals, as
 ``partition.TRAFFIC`` counts them) and ``roofline``
 (:func:`repro_torch.launch.roofline.roofline_cell` at H100 constants).
-Cells the port refuses are ``skipped`` with the ROADMAP item that will
-lift the refusal.  JSONs go to ``reports/torch/dryrun/`` (the reference's
-``reports/dryrun/`` is read by its own tests).
+Cells the port refuses are ``skipped`` with the refusal's text.  JSONs
+go to ``reports/torch/dryrun/`` (the reference's ``reports/dryrun/`` is
+read by its own tests).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
@@ -54,7 +54,6 @@ import argparse
 import contextlib
 import json
 import os
-import re
 import time
 import traceback
 import weakref
@@ -252,11 +251,6 @@ def _layer_param_bytes(mesh, model, pspecs: dict, stack: str) -> Counter:
     return out
 
 
-def _refusal(e: NotImplementedError) -> str:
-    m = re.search(r"ROADMAP Queue 1 item (\w+)", str(e))
-    return f"ROADMAP Queue 1 item {m.group(1)}" if m else str(e)
-
-
 def _arguments(tally: Tally, tree) -> None:
     """Register every stored tensor of ``tree`` (a model, a state, a
     batch or cache, placed or not) with the tally as an argument."""
@@ -297,7 +291,7 @@ def trace_cell(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg, *,
     devices with a "data" and a "model" axis) at ``shape``; returns its
     record (``status``, ``t_trace_s``, ``memory``, ``collectives``,
     ``traffic``, ``scale``, ``segments``), or ``status`` "skipped" with
-    the ROADMAP item where the port refuses the cell.  ``trainer``
+    the refusal's text where the port refuses the cell.  ``trainer``
     (train shapes): trace the step as ``launch/train.py`` builds it
     (``make_train_step``, without the builders' activation constraints:
     the layer carry is stored whole, not split over "model")."""
@@ -305,8 +299,7 @@ def trace_cell(cfg: ModelConfig, mesh: DeviceMesh, shape: ShapeCfg, *,
     try:
         return _trace(cfg, mesh, shape, t0, trainer)
     except NotImplementedError as e:
-        return {"status": "skipped", "reason": _refusal(e),
-                "detail": str(e)}
+        return {"status": "skipped", "reason": str(e)}
     finally:
         partition.TRACER = None
 

@@ -23,8 +23,8 @@ the specs are the reference's ``_act_specs``:
   names "model" on the heads, all of them otherwise.
 
 Any other spec, and any spec outside a mesh run, raises
-``NotImplementedError`` (ROADMAP Queue 1 item 4): a spec is never
-dropped silently.
+``NotImplementedError`` (no cell of the port lays activations out so):
+a spec is never dropped silently.
 """
 from __future__ import annotations
 
@@ -50,8 +50,7 @@ def activation_specs(specs: dict):
 def _refuse(name: str, spec) -> NotImplementedError:
     return NotImplementedError(
         f"activation sharding ({name!r}: {spec}) outside a mesh run or in "
-        "another layout is not ported to repro_torch (ROADMAP Queue 1 "
-        "item 4)")
+        "another layout: no cell of repro_torch lays activations out so")
 
 
 def constrain(x: torch.Tensor, name: str,

@@ -71,6 +71,8 @@ _BACKWARD = {"broadcast": "partial sum", "partial sum": "broadcast",
 _SEGMENT: ContextVar = ContextVar("traffic_segment", default="step")
 # the dry run's tracer while it traces a program on a meta mesh
 TRACER = None
+# functions told of each copy between two mesh positions (observe_copies)
+_OBSERVERS: list = []
 
 
 def reset_traffic() -> None:
@@ -95,11 +97,26 @@ def tracing() -> bool:
     return TRACER is not None
 
 
+@contextlib.contextmanager
+def observe_copies(fn):
+    """Call ``fn(t, src_pos, dst_pos, kind)`` for each copy of a tensor
+    ``t`` between two different mesh positions counted in this block
+    (the reduce-scatter a gather's backward counts again is not a copy
+    of its own).  ``fn`` observes; it changes nothing."""
+    _OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _OBSERVERS.remove(fn)
+
+
 def _count(t: torch.Tensor, src_pos, dst_pos, device, kind: str,
            seg: str | None = None) -> None:
     if src_pos != dst_pos:
         n = t.numel() * t.element_size()
         _add(n, n if t.device != torch.device(device) else 0, kind, seg)
+        for fn in _OBSERVERS:
+            fn(t, src_pos, dst_pos, kind)
 
 
 def _add(crossed: int, moved: int, kind: str, seg: str | None = None) -> None:

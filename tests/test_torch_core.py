@@ -1,5 +1,6 @@
 """The port's core math against the JAX package on the CPU: threefry bit
 streams, the IU weight tail, and the Knuth-Yao walk — bit for bit."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -137,7 +138,13 @@ def test_masked_exp_weights_exp_within_one_weight(k):
         jnp.asarray(logw), jnp.asarray(card), k, use_iu=False))
     got = t_interp.masked_exp_weights(
         torch.as_tensor(logw), torch.as_tensor(card), k, use_iu=False).numpy()
-    assert np.abs(got.astype(np.int64) - want).max() <= 1
+    diff = np.abs(got.astype(np.int64) - want)
+    far = tuple(np.argwhere(diff > 1)[:5].T)
+    cpu = torch.backends.cpu.get_cpu_capability()
+    assert diff.max() <= 1, (
+        f"weights {got[far]} against JAX's {want[far]} at {far} (logw "
+        f"{logw[far[0]]}, card {card[far[0]]}); torch threads "
+        f"{torch.get_num_threads()}, CPU {cpu}")
 
 
 def test_interp_table_nodes_and_values():
@@ -184,6 +191,102 @@ def test_ky_sample_matches_single_lane_reference():
         bits = [(int(wu[i, t // 32]) >> (t % 32)) & 1 for t in range(992)]
         s, used = t_ky.ky_sample_ref(w[i].tolist(), bits)
         assert (s, used) == (int(res.sample[i]), int(res.bits_used[i]))
+
+
+# The plain walk's key paths make their words as they read them
+# (``rng.LaneWords``); each case holds them against the words-in walk on
+# the whole ``random_bit_words`` draw under the same key.  ``heavy`` rows
+# have a total of 2**20 + 1, so about half their walks restart and many
+# lanes read past word 0.
+KEY_PATH_CASES = {
+    "L2": dict(b=300, L=2),
+    "L5": dict(b=300, L=5),
+    "L16": dict(b=300, L=16),
+    "L64": dict(b=200, L=64),
+    "lane0": dict(b=300, L=5, lane0=1000),
+    "row_map": dict(b=12 * 7, L=3, lane0=3, row_map=(20, [0, 2, 3, 7, 11,
+                                                           12, 19])),
+    "compact": dict(b=40_000, L=2),
+    "not_ok": dict(b=20_000, L=5, max_attempts=1),
+    "word_count": dict(b=2000, L=5, count=True),
+}
+
+
+def _key_path_inputs(case: str, b: int, L: int):
+    """(int32 weights, float32 log-weights, int32 cards) with a quarter
+    of heavy rows, from a seed."""
+    r = np.random.default_rng(len(case) * 1000 + L)
+    w = r.integers(0, 1 << 12, size=(b, L)).astype(np.int32)
+    logw = (r.standard_normal((b, L)) * 3.0).astype(np.float32)
+    card = r.integers(1, L + 1, size=b).astype(np.int32)
+    heavy = r.random(b) < 0.25
+    w[heavy] = 0
+    w[heavy, 0], w[heavy, L - 1] = 1 << 20, 1
+    # exp(-11) * (2**20 - 1) ~ 17: a total just past 2**20
+    logw[heavy, 0], logw[heavy, 1] = 0.0, -11.0
+    card[heavy] = 2
+    w[w.sum(axis=1) == 0, 0] = 1
+    return w, logw, card
+
+
+@pytest.mark.parametrize("case", list(KEY_PATH_CASES))
+def test_key_paths_equal_the_words_in_walk(case, monkeypatch):
+    """``ky_sample``, ``fused_gibbs_sample`` (the CPU takes the plain
+    version) and ``fused_gibbs_sample_ref`` under a key return the four
+    fields of the words-in walk on ``random_bit_words`` bit for bit; the
+    ``word_count`` case counts the words the key paths make: one a lane
+    for each 32 bits it reads, never the whole budget."""
+    from repro_torch.kernels import fused_sweep as fs
+
+    c = dict(KEY_PATH_CASES[case])
+    b, L, count = c.pop("b"), c.pop("L"), c.pop("count", False)
+    max_attempts = c.get("max_attempts", 32)
+    rows = dict(lane0=c.get("lane0", 0))
+    if "row_map" in c:
+        rows["row_map"] = (c["row_map"][0], torch.tensor(c["row_map"][1]))
+    w, logw, card = _key_path_inputs(case, b, L)
+    key = t_rng.PRNGKey(len(case) + 7 * L)
+    words = t_rng.random_bit_words(key, (b,), 31 * max_attempts, **rows)
+    made = [0]
+    counter_bits = t_rng._counter_bits
+
+    def counting(k, idx):
+        made[0] += idx.numel()
+        return counter_bits(k, idx)
+
+    if count:
+        monkeypatch.setattr(t_rng, "_counter_bits", counting)
+    got = t_ky.ky_sample(key, torch.as_tensor(w), max_attempts=max_attempts,
+                         **rows)
+    want = t_ky.ky_walk(torch.as_tensor(w), words)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    bits = got.bits_used.to(torch.int64)
+    if case == "not_ok":
+        assert not bool(got.ok.all())
+    else:
+        assert bool(got.ok.all())
+    if case in ("compact", "word_count"):
+        assert int(bits.max()) > 32          # lanes read past word 0
+    if count:
+        eager = b * t_rng.bit_budget_words(31 * max_attempts)
+        assert made[0] == int(((bits + 31) // 32).sum()) < eager / 20
+    if L > fs.MAX_FUSED_L:
+        return
+    opts = dict(k=20, max_attempts=max_attempts, **rows)
+    want = fs._plain(torch.as_tensor(logw), torch.as_tensor(card), words,
+                     t_interp._EXP_DEFAULT, k=20, use_iu=True,
+                     mask_value=fs.MASK_NEG)
+    for fn in (fs.fused_gibbs_sample, fs.fused_gibbs_sample_ref):
+        made[0] = 0
+        got = fn(key, torch.as_tensor(logw), torch.as_tensor(card), **opts)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        bits = got.bits_used.to(torch.int64)
+        if count:
+            assert made[0] == int(((bits + 31) // 32).sum())
+            assert int(bits.max()) > 32
+    assert bool(got.ok.all()) != (case == "not_ok")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 0xACE1])

@@ -19,6 +19,7 @@ CPU, a checkpoint round trip of a state on the card).
 Needs an NVIDIA card and ``nvcc``; imports no JAX, so it runs on a machine
 with only PyTorch:  ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Skips without a card (decided inside the fixture, never at import)."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import dataclasses
 
 import pytest

@@ -14,6 +14,7 @@ traces without reading a value, and refused cells keep the reference's
 reason.
 The reference's ``dryrun``/``hillclimb`` set a 512-device XLA flag at
 import, so its hill-climb table is read from source, not imported."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import ast
 import copy
 import json
@@ -33,6 +34,7 @@ from repro_torch.core import rng  # noqa: E402
 from repro_torch.launch import builders, dryrun, hillclimb  # noqa: E402
 from repro_torch.launch.mesh import make_lm_mesh  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.sharding import ctx as t_ctx  # noqa: E402
 from repro_torch.sharding import partition  # noqa: E402
 from repro_torch.training import train_step as ts  # noqa: E402
 from repro_torch.training.data import make_batch  # noqa: E402
@@ -47,6 +49,24 @@ SHAPES = {"train": ShapeCfg("t", 1024, 8, "train"),
 
 def _cfg(arch):
     return t_configs.get_config(arch, smoke=True).replace(microbatch=2)
+
+
+@pytest.fixture(scope="module")
+def traced_cell():
+    """``get(arch, kind)``: ``build_cell``'s cell of ``arch``'s smoke
+    config at ``SHAPES[kind]``, traced on a 2 x 2 mesh of ``meta`` devices
+    once for the module; the tests that hold the same cell read one
+    record (none changes it)."""
+    memo = {}
+
+    def get(arch, kind):
+        if (arch, kind) not in memo:
+            memo[arch, kind] = dryrun.trace_cell(
+                _cfg(arch), make_lm_mesh(2, 2, devices=[META] * 4),
+                SHAPES[kind])
+        return memo[arch, kind]
+
+    return get
 
 
 def _placed_bytes(tree) -> Counter:
@@ -112,7 +132,8 @@ def _whole_step(cfg, shape):
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-20b",
                                   "grok-1-314b", "hymba-1.5b"])
-def test_traced_cell_counts_what_the_whole_step_does(arch, kind):
+def test_traced_cell_counts_what_the_whole_step_does(arch, kind,
+                                                    traced_cell):
     """One traced layer (its activations for every batch shard) times
     the layers, one chunk times the chunks, one microbatch times the
     microbatches, plus the embedding, the head, the batch's split and
@@ -123,8 +144,7 @@ def test_traced_cell_counts_what_the_whole_step_does(arch, kind):
     shards'."""
     cfg, shape = _cfg(arch), SHAPES[kind]
     want, held = _whole_step(cfg, shape)
-    rec = dryrun.trace_cell(cfg, make_lm_mesh(2, 2, devices=[META] * 4),
-                            shape)
+    rec = traced_cell(arch, kind)
     assert rec["status"] == "ok", rec
     assert rec["traffic"]["crossed_bytes"] == want["crossed_bytes"] > 0
     assert rec["traffic"]["crossed_copies"] == want["crossed_copies"]
@@ -144,22 +164,22 @@ def test_traced_cell_counts_what_the_whole_step_does(arch, kind):
     assert mem["total_per_device"] >= mem["argument_bytes"]
 
 
-def test_trainer_step_is_traced_as_the_trainer_runs_it():
+def test_trainer_step_is_traced_as_the_trainer_runs_it(traced_cell):
     """``trainer=True``: ``make_train_step``'s step (``launch/train.py``'s,
     and ``chip_smoke.py``'s ``lm_mesh``: no activation specs, the carry
     whole at home), exactly; fewer bytes than the builders' cell, whose
     carry is split over "model"."""
-    _trainer_traced("phi4-mini-3.8b")
+    _trainer_traced("phi4-mini-3.8b", traced_cell)
 
 
-def test_hybrid_trainer_step_is_traced_as_the_trainer_runs_it():
+def test_hybrid_trainer_step_is_traced_as_the_trainer_runs_it(traced_cell):
     """The same for hymba smoke (``chip_smoke.py``'s
     ``lm_mesh_families``): its attention, MLP and SSM projections over
     "model"."""
-    _trainer_traced("hymba-1.5b")
+    _trainer_traced("hymba-1.5b", traced_cell)
 
 
-def _trainer_traced(arch):
+def _trainer_traced(arch, traced_cell):
     cfg, shape = _cfg(arch), SHAPES["train"]
     mesh = make_lm_mesh(2, 2, devices=[CPU] * 4)
     model = tt.place_model(mesh, tt.init_model(
@@ -176,7 +196,7 @@ def _trainer_traced(arch):
     assert rec["traffic"] == want
     assert rec["memory"]["argument_bytes_sum"] == sum(
         _placed_bytes(state).values())
-    cell = dryrun.trace_cell(cfg, meta, shape)
+    cell = traced_cell(arch, "train")
     assert cell["traffic"]["crossed_bytes"] > rec["traffic"]["crossed_bytes"]
 
 
@@ -204,11 +224,14 @@ def test_decode_traces_without_reading_a_value():
     assert torch.equal(a, b)
 
 
-def test_skips_name_the_reference_reason_and_the_roadmap_item(tmp_path):
-    """Cells ``cell_runnable`` refuses carry the reference's reason; the
-    MoE, SSM and hybrid families trace on a "model" axis; the "dots"
-    remat on a mesh traces, its transients above "full"'s by the saved
-    matrix products, its bytes between positions the same."""
+def test_skips_name_the_reference_reason_and_the_roadmap_item(
+        tmp_path, monkeypatch, traced_cell):
+    """Cells ``cell_runnable`` refuses carry the reference's reason; a
+    layout the port refuses is skipped with the refusal's own text, which
+    says no cell of the port lays activations out so; the MoE, SSM and
+    hybrid families trace on a "model" axis; the "dots" remat on a mesh traces, its
+    transients above "full"'s by the saved matrix products, its bytes
+    between positions the same."""
     for arch in t_configs.ARCH_IDS:
         for s in t_configs.SHAPES:
             ok, why = j_configs.cell_runnable(j_configs.get_config(arch),
@@ -220,13 +243,29 @@ def test_skips_name_the_reference_reason_and_the_roadmap_item(tmp_path):
                                "mesh": "16x16", "status": "skipped",
                                "reason": why}
     mesh = make_lm_mesh(2, 2, devices=[META] * 4)
+    spec = ("data", None, "model")
+    with t_ctx.activation_specs({"residual": spec}):
+        with pytest.raises(NotImplementedError) as refused:
+            t_ctx.constrain(torch.zeros(2, 4, 8), "residual")
+    why = str(refused.value)
+    assert "no cell of repro_torch" in why and "'residual'" in why
+    assert "ROADMAP" not in why
+
+    def refusing(*args):
+        raise t_ctx._refuse("residual", spec)
+
+    monkeypatch.setattr(dryrun, "_trace", refusing)
+    assert dryrun.trace_cell(_cfg("phi4-mini-3.8b"), mesh,
+                             SHAPES["train"]) == {"status": "skipped",
+                                                  "reason": why}
+    monkeypatch.undo()
     for arch in ("grok-1-314b", "llama4-scout-17b-a16e", "mamba2-130m",
                  "hymba-1.5b"):
         rec = dryrun.trace_cell(t_configs.get_config(arch, smoke=True),
                                 mesh, SHAPES["train"])
         assert rec["status"] == "ok", rec
         assert rec["collectives"]["reshard"]["bytes"] > 0
-    full = dryrun.trace_cell(_cfg("phi4-mini-3.8b"), mesh, SHAPES["train"])
+    full = traced_cell("phi4-mini-3.8b", "train")
     rec = dryrun.trace_cell(_cfg("phi4-mini-3.8b").replace(remat="dots"),
                             mesh, SHAPES["train"])
     assert rec["status"] == "ok", rec

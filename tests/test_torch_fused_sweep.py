@@ -1,6 +1,7 @@
 """The port's fused sweep wrapper against the JAX package's Pallas kernel
 (interpret mode on the CPU) on every case of ``test_fused_sweep.py``.
 The CUDA kernel itself is tested on the card in ``test_torch_cuda.py``."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

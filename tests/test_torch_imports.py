@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module and
 ``chip_smoke.py`` pulls in no ``jax``, no ``networkx`` and nothing of the
 JAX package; and its entry points default to the card."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import os
 import subprocess
 import sys

@@ -5,6 +5,7 @@ sampler, the CDF baseline and the IU equal the reference bit for bit
 contracts ``y0 + frac * (y1 - y0)`` into an FMA); flash attention agrees
 within the JAX tests' tolerances.  Inputs are made with numpy from a
 seed and handed to both packages."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -18,6 +18,7 @@
   and the runners' placement by them, and site blocks read and written
   across blocks.
 """
+import _threads  # noqa: F401  (torch threads under xdist)
 import dataclasses
 
 import pytest
@@ -148,8 +149,7 @@ def test_pad_sites_do_not_bias_boundary_marginals():
     symmetric Potts grid (exact marginal 0.5 everywhere) padded to
     18 x 14 on a 2 x 2 mesh; the boundary row, column and corner stay at
     0.5 and agree with the single-device sweep on the same sites.  The
-    reference's 64 chains x (40 + 120) sweeps become 128 x (20 + 40):
-    the plain path's cost is in its bit words, one set a chain a sweep."""
+    reference's 64 chains x (40 + 120) sweeps become 128 x (20 + 40)."""
     h, w, beta = 17, 13, 0.6
     mrf = MRFGrid.potts(np.zeros((h, w, 2), np.float32), beta=beta)
     mesh = _cpu_mesh((2, 2))

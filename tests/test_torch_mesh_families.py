@@ -27,6 +27,7 @@ Tolerances: the reference's ``tests/test_distributed.py`` (loss within
 one bf16 step of its size, as ``tests/test_torch_sharding.py``), and
 ``tests/test_torch_models.py``'s for logits (within 1e-5 of the largest,
 greedy tokens equal)."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import copy
 from collections import Counter
 

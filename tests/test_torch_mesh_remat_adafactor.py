@@ -22,6 +22,7 @@ Tolerances, fixed before the tests were run:
   parameter).
 * The bytes the update copies between mesh positions equal the
   statistics reckoned here from the layouts, element by element."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import copy
 
 import pytest

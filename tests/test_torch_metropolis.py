@@ -5,6 +5,7 @@ cardinalities, a torus, an evidence pattern) — labels, ``accept_rate``
 and ``bits_used`` bit for bit (IU on); and the reference's own
 statistical checks (``tests/test_pgm.py::TestMetropolis``,
 ``tests/test_sparse_compile.py::TestFgMetropolis``) on the port."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

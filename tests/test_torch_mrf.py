@@ -5,6 +5,7 @@ the sparse lowering of a grid, the engine on a mixed-family batch
 (Bayes net + MRF + Ising), the CLI's MRF/Ising traffic and request
 files, and ``run_mcmc``'s MRF branch — bit for bit (IU on; the
 ``use_iu=False`` path within one weight)."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import dataclasses
 import json
 import sys

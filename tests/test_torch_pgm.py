@@ -1,6 +1,7 @@
 """The port's PGM layer against the JAX package on the CPU: networks,
 graph orders, the networkx-free DSatur coloring, compiled plans, and
 ``run_gibbs`` states/counts/stats — bit for bit."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -8,6 +8,7 @@ and the same ``submit_many`` + ``flush`` traffic goes through the
 reference's queue (JAX engine) and the port's: the same dispatch log, the
 same backfills, and results equal bit for bit.  The policy functions are
 held to the reference's on the same inputs."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import time
 
 import pytest

@@ -25,6 +25,7 @@ Invariants (the queue's contract under streaming traffic):
 """
 from __future__ import annotations
 
+import _threads  # noqa: F401  (torch threads under xdist)
 import itertools
 import threading
 from collections import defaultdict

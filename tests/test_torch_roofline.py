@@ -5,6 +5,7 @@ cell; at the H100 default only the times, the bottleneck and the
 fraction differ.  Pure Python arithmetic in both, so the comparison is
 exact.  ``repro.launch.roofline`` sets no XLA flag and starts no JAX
 backend."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 pytest.importorskip("torch")

@@ -3,6 +3,7 @@
 (``src/repro/launch/run_mcmc.py``) it records the query with a
 ``Telemetry`` and writes its Chrome/Perfetto trace-event JSON and the
 engine's ``stats()`` snapshot, and says where."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import json
 
 import pytest

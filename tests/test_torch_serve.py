@@ -2,6 +2,7 @@
 ``PosteriorEngine.answer_batch`` (marginals, MAP, temporal warm starts,
 both retirement rules), the CLI's synthetic traffic, and the persisted
 plan format in both directions — bit for bit under the same seed."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import dataclasses
 
 import pytest

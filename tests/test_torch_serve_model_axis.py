@@ -17,6 +17,7 @@ word, at smaller sizes):
   ``partition.KINDS``, equal the plans' reckoning (halo sites, bank
   lookups).
 """
+import _threads  # noqa: F401  (torch threads under xdist)
 import dataclasses
 
 import pytest

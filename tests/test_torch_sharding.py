@@ -9,6 +9,7 @@ Weights come from a seeded ``torch.Generator`` or the reference's
 ``TokenDataset``/``make_batch`` (numpy, seeded).  Tolerances are the
 reference's ``tests/test_distributed.py`` ones (loss within 1e-4,
 parameters within 5e-4 after one float32 step) unless stated."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import copy
 
 import pytest
@@ -216,6 +217,30 @@ def test_gather_backward_sums_consumers_in_order_and_counts_traffic():
     got = partition.Sharded(mesh, sh.spec, sh.shape,
                             {c: t.grad for c, t in sh.shards.items()})
     torch.testing.assert_close(got.gather(CPU), want, rtol=0, atol=0)
+
+
+def test_observe_copies_sees_each_copy_between_positions():
+    """``partition.observe_copies`` tells its function of each copy
+    between two mesh positions made in its block, and of nothing else:
+    the copies it sees are those :data:`partition.TRAFFIC` counts."""
+    x = torch.arange(24.0).reshape(4, 6)
+    seen = []
+
+    def observe(t, src, dst, kind):
+        seen.append((tuple(t.shape), t.numel() * t.element_size(), src,
+                     dst, kind))
+
+    partition.reset_traffic()
+    with partition.observe_copies(observe):
+        partition.move(x, CPU, (0, 0), (0, 1))
+        partition.move(x[:2], CPU, (1, 0), (0, 0), "input")
+        partition.move(x, CPU, (1, 1), (1, 1))            # not a copy
+    partition.move(x, CPU, (0, 0), (1, 0))                # not observed
+    assert seen == [((4, 6), 96, (0, 0), (0, 1), "reshard"),
+                    ((2, 6), 48, (1, 0), (0, 0), "input")]
+    assert partition.TRAFFIC["crossed_copies"] == 3
+    assert partition.TRAFFIC["crossed_bytes"] == 96 + 48 + 96
+    assert not partition._OBSERVERS
 
 
 # --------------------------------------------------------------------------

@@ -3,6 +3,7 @@ the CPU: ``color_graph`` (DSatur and iterated MIS), the compiled plan
 arrays, the sparse KY weights (a degree-16 and a degree-32 bucket
 included), ``run_fg_gibbs`` and the Ising engine path — bit for bit
 (IU on; the ``use_iu=False`` path within one weight)."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -5,6 +5,7 @@ exposition, JSON snapshot), Chrome/Perfetto trace shape + per-query span
 tiling, null-recorder default, engine.stats(), and the
 answer_batch-vs-queued metrics identity — plus delivery after the
 service span."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import json
 import re
 

@@ -4,6 +4,7 @@ on the same integer weights and key, ``ky_sample_tokens``' weights within
 1 of the reference's (the exact ``exp`` may differ in its last ulp) with
 the same tokens wherever the weights agree, and the categorical
 baseline."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import pytest
 
 torch = pytest.importorskip("torch")

@@ -6,6 +6,7 @@ packages, the fault-tolerance hooks and the launcher.
 Weights and optimizer state are the reference's, carried over by
 ``convert.train_state_from_numpy``; gradients and batches are made with
 numpy from a seed.  Tolerances are stated where they are used."""
+import _threads  # noqa: F401  (torch threads under xdist)
 import os
 
 import pytest

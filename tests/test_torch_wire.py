@@ -16,6 +16,7 @@
   against the port's workers and queue."""
 from __future__ import annotations
 
+import _threads  # noqa: F401  (torch threads under xdist)
 import copy
 import itertools
 import json
