@@ -29,9 +29,7 @@ line is printed:
 5. kernel at the main path's inputs — the first recorded call of each
    (b, L) launched again, held against the recorded result and the plain
    version, then timed; the bound counts every recorded launch.
-6. profile — torch.profiler over one warm group: device busy share and
-   device launches per colour update.
-7. mrf_gibbs — the paper's MRF configs through ``run_mcmc``'s MRF branch
+6. mrf_gibbs — the paper's MRF configs through ``run_mcmc``'s MRF branch
    at their published sizes (aia-mrf-penguin 500 x 333, L 2;
    aia-mrf-art 288 x 384, L 16; 16 chains): 20 and 10 sweeps with
    ``sampler="cuda"`` equal to ``"torch"`` bit for bit (labels, bits,
@@ -39,10 +37,8 @@ line is printed:
    (site samples per second, bits per sample, accuracy against the
    task's truth), exactly 2 launches a sweep, and the kernel at
    (2,664,000, 2) and (1,769,472, 16) held to the recorded result and
-   the plain version and timed with a cold L2 beside its bound; then
-   torch.profiler over 5 warm penguin sweeps (busy share, launches a
-   half-step, the fused kernel's share).
-8. mesh_gibbs — distributed halo-exchange Gibbs on a 2 x 2 tile mesh
+   the plain version and timed with a cold L2 beside its bound.
+7. mesh_gibbs — distributed halo-exchange Gibbs on a 2 x 2 tile mesh
    (``cuda:0..3`` on a host with four cards, else ``cuda:0`` four times;
    a line says which) at aia-mrf-penguin's 500 x 333 (pads to 500 x
    334), 16 chains: 10 sweeps ``sampler="cuda"`` equal to ``"torch"``
@@ -50,32 +46,32 @@ line is printed:
    each copies per half-step beside the per-tile formulas; 200 sweeps
    timed (site samples per second, bits per sample, accuracy at least
    0.95, 2 launches a tile a sweep); the clamped step once.
-9. metropolis — ``mrf_metropolis`` on aia-mrf-penguin (100 sweeps) and
+8. metropolis — ``mrf_metropolis`` on aia-mrf-penguin (100 sweeps) and
    ``fg_metropolis`` on the 65,536-spin sparse glass on the card
    (acceptance rate, bits), and both on the card against the CPU at
    50 x 34 / 4,096 spins, bit for bit.
-10. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
+9. serve_mrf — ``mrf_penguin`` served at 500 x 333: 8 ``MrfQuery`` over
    2 scribble patterns, 8 chains a query, cold and warm, every query
    of both passes bitwise against ``sampler="torch"``
    (``plain_identity``); launches counted, no host bit words.
-11. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
+10. serve_ising — ``ising_torus`` at side 256 (65,536 spins, iterated-MIS
    colouring): 16 ``IsingQuery`` over 2 clamp patterns, cold and warm,
    every query of both passes bitwise against ``sampler="torch"``;
    ``run_fg_gibbs`` on a random
    sparse spin glass of 65,536 spins with a degree-16 bucket, bitwise;
    and the torus at β 0.6 started all up within 0.03 of Onsager's
    magnetization.
-12. serve_queue — phase 4's 64 queries through ``AdmissionQueue`` on the
+11. serve_queue — phase 4's 64 queries through ``AdmissionQueue`` on the
    card (``submit_many`` + ``flush``, one group a pattern): its dispatcher
    thread launches the kernel, and the results must equal phase 4's cold
    ``answer_batch`` bit for bit; dispatch log, groups and backfills.
-13. serve_sharded — phase 4's traffic through ``PosteriorEngine(mesh=
+12. serve_sharded — phase 4's traffic through ``PosteriorEngine(mesh=
    make_serve_mesh((4,), ...))`` (lanes split over four batch shards,
    each launching at its ``lane0``): equal to phase 4's cold pass bit for
    bit; one 500 x 333 ``MrfQuery`` and one side-256 ``IsingQuery``
    sharded and unsharded, bitwise; a lane-padding case (6 chains a
    query) within 0.05 of exact.
-14. serve_model_axis — the serve mesh's "model" axis on a 2 x 2
+13. serve_model_axis — the serve mesh's "model" axis on a 2 x 2
    ``make_serve_mesh`` over ``cuda:0..3`` (else the card four times):
    ``ising_torus(1024)`` (1,048,576 spins) and ``random_sparse_ising(
    2**20)`` held as site blocks, IsingQuery traffic cold and warm with
@@ -87,21 +83,21 @@ line is printed:
    between "model" positions counted by ``partition.KINDS`` equal to the
    plans' reckoning; the largest site-block launch re-run against its
    recorded result and the plain version, timed beside its bound.
-15. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
+14. serve_stream — ``cli.measure_stream`` on 4 hailfinder_scale sensor
    streams x 4 slices (``synthetic_stream_traffic``), replayed open-loop
    at 4x the measured one-at-a-time rate through the deadline scheduler:
    queries/s, p50/p99 ms, speedup, every later slice warm-started, the
    trace and metrics exports parsed; the card's busy share by
    torch.profiler over a second replay; a sprinkler stream within 0.03
    of exact slice by slice.
-16. serve_wire — a two-worker ``WorkerPool`` on the card behind
+15. serve_wire — a two-worker ``WorkerPool`` on the card behind
    ``ServeFrontEnd`` (127.0.0.1, ephemeral port): one /v2/batch of 16
    hailfinder_scale queries, a MAP query and a scribble-mask
    ``MrfQuery`` at 500 x 333, each response bitwise equal to the
    in-process ``answer_batch``; a WebSocket stream of 3 slices of one
    stream (slices 1-2 warm-started); a 429 on a quota overrun;
    ``/healthz``, ``/stats``, ``/metrics``.
-17. ky_sampler — the stand-alone kernel API's KY sampler,
+16. ky_sampler — the stand-alone kernel API's KY sampler,
    ``ops.ky_sample_kernel``, at the sizes of
    ``benchmarks/bench_ky_vs_cdf.py`` (65536 rows, n in {4, 16, 64},
    Dirichlet 0.3, 12-bit weights), a ragged (133, 7) case with an
@@ -109,11 +105,11 @@ line is printed:
    equal to the plain version on the card; bits per sample beside
    ``cdf_sample``'s 32; at 65536 x 64 also the device time of one whole
    call (``call_ms``) and of its bit words alone (``words_ms``).
-18. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
+17. interp_lut — ``ops.interp_kernel`` at ``benchmarks/bench_interp.py``'s
    (4096, 1024) for the exp and sigmoid tables, inputs past both ends of
    the range, and ragged (37, 64) and (1, 1000): bitwise equal to the
    plain version.
-19. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
+18. flash_attention — ``flash_mha`` at phi4-mini's attention (B 1,
    S 4096, 24 heads, 8 kv heads, dh 128, causal) and ``flash_attention``
    at the five shapes of ``tests/test_kernels.py``, each in bfloat16 and
    float16 (the tensor-core kernel) and float32 (the CUDA-core kernel),
@@ -121,7 +117,7 @@ line is printed:
    same inputs; the bfloat16 and float16 cases also per row, within 2e-2
    (bfloat16) or 2e-3 (float16) of the row's largest output; each
    route's launches counted; both routes timed at full width beside SDPA.
-20. lm_generate — the LM serving path (``models.sampling.generate``, the
+19. lm_generate — the LM serving path (``models.sampling.generate``, the
    ``--arch`` half of ``launch/serve.py``) on the card at full width with
    random weights from a seeded generator: phi4-mini-3.8b (bf16, 32
    layers, vocab 200,064) and mamba2-130m, batch 4, prompt 16, 32 new
@@ -135,7 +131,7 @@ line is printed:
    bit for bit on the same integer weights.  No kernel of the port is on
    this path (the reference's models call no Pallas kernel, and its KY
    token walks are plain XLA): every launch count must stay 0 over it.
-21. lm_train — first every family at smoke size, the card against the
+20. lm_train — first every family at smoke size, the card against the
    CPU: loss and every gradient leaf, one train step for each optimizer
    kind, microbatch 2 against the full batch.  Then the training path
    (``launch/train.py``'s loop: ``init_train_state``, ``make_train_step``,
@@ -150,7 +146,7 @@ line is printed:
    once more, equal to the live state's next step bit for bit; zero
    retries.  No kernel of the port is on this path either: every launch
    count must stay 0 over it.
-22. lm_mesh — the training path on a ("data", "model") mesh
+21. lm_mesh — the training path on a ("data", "model") mesh
    (``launch/train.py --mesh 2x2``: ``place_model``, ``init_train_state``,
    ``make_train_step(mesh=)``, ``StepGuard``): phi4-mini-3.8b at full
    width with its config's settings on a 2 x 2 mesh over
@@ -174,7 +170,7 @@ line is printed:
    its experts over "model" (llama4 and grok-1 smoke on 2 x 2) and with
    its expert ffn over "model" (grok-1 smoke on 1 x 4) and of the hybrid
    (hymba smoke on 2 x 2), and hymba smoke's builders' cells.
-23. lm_mesh_families — the MoE, SSM and hybrid families on a "model"
+22. lm_mesh_families — the MoE, SSM and hybrid families on a "model"
    axis of 2 (LM_FAMILIES_MESH), over ``mesh_devices(4)``:
    hymba-1.5b at full width and depth with its config's training
    settings, batch 8 x 128, 1 warm-up and 2 timed steps on 1 x 1 and on
@@ -198,13 +194,13 @@ line is printed:
    under segment "ssm_state" too); the decode ms a step is printed beside
    LM_FAMILIES_DECODE_MS_BEFORE.  No kernel of the port: every launch
    count must stay 0.
-24. lm_mesh_optim — the training step's "dots" remat and Adafactor's
+23. lm_mesh_optim — the training step's "dots" remat and Adafactor's
    update where its blocks lie, on a ("data", "model") mesh over
    ``mesh_devices(4)`` (LM_MESH_OPTIM): phi4-mini-3.8b at full width on
    2 x 2 with remat "dots" (its config's settings otherwise, batch 8 x
    128, 1 warm-up and 2 timed steps: ms a step, peak memory, bytes
    between positions, a profiled step's launches and busy share, each
-   beside phase 22's "full" figures); at 2 layers in bf16 the matrix
+   beside phase 21's "full" figures); at 2 layers in bf16 the matrix
    products one microbatch dispatches forward and backward under "full"
    and "dots", and the loss, grad norm and parameters after one step
    equal to "full"'s bit for bit; the dots step's bytes between
@@ -220,23 +216,23 @@ line is printed:
    state, within LM_MESH_BF16 of 1 x 1 (the whole step's gradients and
    parameters measured against it and printed).  No kernel of the port:
    every launch count must stay 0; at most 150 s.
-25. lm_dryrun — the planning tools (``launch/dryrun.py``,
-   ``launch/roofline.py``) held against phases 22 and 23: the dry run of
+24. lm_dryrun — the planning tools (``launch/dryrun.py``,
+   ``launch/roofline.py``) held against phases 21 and 22: the dry run of
    the same configuration (phi4-mini-3.8b at full width, 2 x 2, batch 8 x
    128, microbatch 2, remat "full", AdamW) over four ``meta`` devices,
    one layer traced and scaled, must count the bytes between mesh
-   positions phase 22 counted within 0.01 % (the layout's reckoning
+   positions phase 21 counted within 0.01 % (the layout's reckoning
    printed beside them), and its argument bytes summed over positions
    must equal the bytes of the placed state's shards counted from the
    tensors; its transient bytes are printed beside the measured peak
    less that state (no gate); the same two checks for hymba-1.5b's 2 x 2
-   step of phase 23.  Then phi4-mini's four production cells on the 16 x
+   step of phase 22.  Then phi4-mini's four production cells on the 16 x
    16 mesh of ``meta`` devices: status, GB a device, bottleneck and
    roofline fraction at H100 constants.  No kernel launches; at most 120
    s.
 
-Phases 4, 7, 8 and 10-25 each zero their kernel's launch count (phases
-20-25: every kernel's) just before their main path and read it just
+Phases 4, 6, 7 and 9-24 each zero their kernel's launch count (phases
+19-24: every kernel's) just before their main path and read it just
 after; the fused kernel's entry of the per-kernel JSON line carries each
 path's launches, shapes and times under ``paths`` (``lm_generate``,
 ``lm_train``, ``lm_mesh``, ``lm_mesh_families``, ``lm_mesh_optim`` and
@@ -867,51 +863,6 @@ def phase_main_path_kernel(rec) -> dict:
                 shapes=[[r["b"], r["L"], r["n"]] for r in rows])
 
 
-def profile_group(engine, traffic) -> dict:
-    """Where a warm group's time goes: torch.profiler over one group of
-    the serve phase (the queries of its first evidence pattern) —
-    device busy share of the wall time, device launches per colour
-    update, the fused kernel's share of the device time, and the kernels
-    that take most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    group = traffic[::SERVE_PATTERNS]    # one evidence pattern
-    engine.answer_batch(group)      # warm the plan cache
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = engine.answer_batch(group)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    fused = [e for e in kernels if "fused_gibbs_" in e.key]
-    fused_us = sum(e.self_device_time_total for e in fused)
-    fused_n = sum(e.count for e in fused)
-    if not fused_n:
-        raise AssertionError("profiled group launched no fused kernel")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:6]
-    out = {"phase": "profile", "queries": len(group),
-           "rounds": max(r.n_sweeps for r in res) // engine.sweeps_per_round,
-           "wall_s": wall, "device_busy_s": busy_us / 1e6,
-           "device_busy_share": busy_us / 1e6 / wall,
-           "kernel_launches": int(sum(e.count for e in kernels)),
-           "fused_launches": int(fused_n),
-           # one fused launch per colour update
-           "launches_per_color_update": sum(e.count for e in kernels) / fused_n,
-           "fused_device_ms_per_launch": fused_us / fused_n / 1e3,
-           "fused_share_of_busy": fused_us / busy_us,
-           "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
-                           e.count] for e in top]}
-    emit(out)
-    return out
-
-
 def same_results(a, b) -> bool:
     if len(a) != len(b):
         return False
@@ -1019,8 +970,7 @@ def phase_serve(card_name: str) -> dict:
             if not (np.isfinite(m).all() and abs(m.sum() - 1.0) < 1e-9):
                 raise AssertionError(f"bad marginal {m}")
     torch.cuda.synchronize()
-    return {"engine": engine, "traffic": traffic, "record": rec,
-            "cold": cold}
+    return {"traffic": traffic, "record": rec, "cold": cold}
 
 
 def path_entry(rec, kern: dict) -> dict:
@@ -1107,48 +1057,6 @@ def phase_mrf_gibbs(card_name: str) -> dict:
     rec["calls"].clear()
     del run, labels
     torch.cuda.empty_cache()
-    return out
-
-
-def profile_mrf(card_name: str, sweeps: int = 5) -> dict:
-    """Where a warm aia-mrf-penguin sweep's time goes: torch.profiler
-    over ``sweeps`` sweeps of ``run_mrf`` (wall = its synchronized sweep
-    time) — device busy share, device launches per half-step, the fused
-    kernel's share of the device time and the busiest kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs.aia_paper import PENGUIN
-    from repro_torch.launch.run_mcmc import run_mrf
-
-    run_mrf(PENGUIN, sweeps=2, chains=PENGUIN.n_chains)      # warm
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run = run_mrf(PENGUIN, sweeps=sweeps, chains=PENGUIN.n_chains)
-    torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    fused = [e for e in kernels if "fused_gibbs_" in e.key]
-    fused_n = sum(e.count for e in fused)
-    if fused_n != 2 * sweeps:
-        raise AssertionError(f"profiled {fused_n} fused launches for "
-                             f"{sweeps} sweeps")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:8]
-    out = {"phase": "profile_mrf", "card": card_name, "config": PENGUIN.name,
-           "sweeps": sweeps, "wall_s": run["seconds"],
-           "device_busy_s": busy_us / 1e6,
-           "device_busy_share": busy_us / 1e6 / run["seconds"],
-           "launches_per_halfstep": sum(e.count for e in kernels) / fused_n,
-           "fused_device_ms_per_launch": sum(
-               e.self_device_time_total for e in fused) / fused_n / 1e3,
-           "fused_share_of_busy": sum(
-               e.self_device_time_total for e in fused) / busy_us,
-           "top_device": [[e.key[:70], e.self_device_time_total / 1e3,
-                           e.count] for e in top]}
-    emit(out)
     return out
 
 
@@ -4956,14 +4864,12 @@ def main() -> int:
     rec = serve.pop("record")
     main_path = phase_main_path_kernel(rec)
     rec["calls"].clear()            # free the recorded tensors
-    profile_group(serve["engine"], serve["traffic"])
     traffic = serve["traffic"]
     del serve
     torch.cuda.empty_cache()
     paths = {"bn_serve": path_entry(rec, main_path)}
     lap("serve")
     mrf = phase_mrf_gibbs(card_name)
-    profile_mrf(card_name)
     paths["mrf_gibbs"] = mrf["aia-mrf-penguin"]
     paths["mrf_gibbs_art"] = mrf["aia-mrf-art"]
     lap("mrf_gibbs")

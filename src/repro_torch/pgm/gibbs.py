@@ -17,6 +17,7 @@ package's labels, bits and attempts bit for bit under the same key.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -28,6 +29,8 @@ from repro_torch.core.ky import ky_sample
 from repro_torch.kernels.fused_sweep import fused_gibbs_sample
 from repro_torch.pgm.compile import _check_sampler, _exp_on
 from repro_torch.pgm.graph import MRFGrid
+from repro_torch.serve import telemetry
+from repro_torch.serve.telemetry import NULL_SPAN
 
 
 class SweepStats(NamedTuple):
@@ -106,46 +109,62 @@ def checkerboard_halfstep(
     ``(-e) - max(-e)`` is the plain path's ``-(e - min e)``).  The
     sampler's rows are sites, chain-major; a lane shard whose first chain
     is global chain ``lane0`` reads the bits of rows from ``lane0·H·W``.
+
+    Recorded through :func:`telemetry.current` when it is live: a
+    ``pgm.halfstep`` span over the call holding ``pgm.energies`` (the
+    site energies, β scaling and, for the kernel, negation),
+    ``pgm.sample`` and ``pgm.select`` (the parity mask, the update and
+    the stats sums), and the counter ``pgm_halfsteps_total{L}``.  The
+    spans lie on the calling thread's track, so the half-steps of groups
+    that a server runs on several threads do not overlap on one.
     """
-    dev = labels.device
-    _check_sampler(sampler, dev)
-    b, h, w = labels.shape
-    unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
-    pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
-    l = unary.shape[-1]
-    if beta is None:
-        energies = None
-    else:
-        energies = unary[None] + neighbor_pair_energy(labels, pairwise)
-        bb = torch.as_tensor(beta, dtype=energies.dtype, device=dev)
-        energies = energies * (bb[:, None, None, None] if bb.ndim == 1
-                               else bb)
-    if sampler == "cuda":
-        if energies is None:
+    tel = telemetry.current()
+    on = tel.enabled
+    if on:
+        tid = tel.track(threading.current_thread().name)
+        tel.count("pgm_halfsteps_total", L=len(pairwise))
+    with (tel.span("pgm.halfstep", tid, parity=int(parity),
+                   lanes=labels.numel(), L=len(pairwise))
+          if on else NULL_SPAN):
+        dev = labels.device
+        _check_sampler(sampler, dev)
+        b, h, w = labels.shape
+        unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
+        pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+        l = unary.shape[-1]
+        with tel.span("pgm.energies", tid) if on else NULL_SPAN:
             energies = unary[None] + neighbor_pair_energy(labels, pairwise)
-        res = fused_gibbs_sample(
-            key, (-energies).reshape((-1, l)), l, k=k, use_iu=use_iu,
-            table=_exp_on(str(dev)), lane0=lane0 * h * w)
-    else:
-        if energies is None:
-            wts = site_weights(labels, unary, pairwise, k=k, use_iu=use_iu)
-        else:
-            wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
-        res = ky_sample(key, wts.reshape((-1, l)), lane0=lane0 * h * w)
-    new = res.sample.reshape((b, h, w)).to(labels.dtype)
-    ar_h = torch.arange(h, device=dev)
-    ar_w = torch.arange(w, device=dev)
-    mask = (((ar_h[:, None] + ar_w[None, :]) % 2) == int(parity))[None]
-    if clamp is not None:
-        clamp = torch.as_tensor(clamp, dtype=torch.bool, device=dev)
-        mask = mask & ~(clamp if clamp.ndim == 3 else clamp[None])
-    labels = torch.where(mask, new, labels)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    stats = SweepStats(
-        bits_used=torch.where(mask, res.bits_used.reshape(labels.shape),
-                              zero).sum(),
-        attempts=torch.where(mask, res.attempts.reshape(labels.shape),
-                             zero).sum())
+            if beta is not None:
+                bb = torch.as_tensor(beta, dtype=energies.dtype, device=dev)
+                energies = energies * (bb[:, None, None, None] if bb.ndim == 1
+                                       else bb)
+            if sampler == "cuda":
+                energies = -energies
+        with (tel.span("pgm.sample", tid, sampler=sampler) if on
+              else NULL_SPAN):
+            if sampler == "cuda":
+                res = fused_gibbs_sample(
+                    key, energies.reshape((-1, l)), l, k=k, use_iu=use_iu,
+                    table=_exp_on(str(dev)), lane0=lane0 * h * w)
+            else:
+                wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
+                res = ky_sample(key, wts.reshape((-1, l)),
+                                lane0=lane0 * h * w)
+        with tel.span("pgm.select", tid) if on else NULL_SPAN:
+            new = res.sample.reshape((b, h, w)).to(labels.dtype)
+            ar_h = torch.arange(h, device=dev)
+            ar_w = torch.arange(w, device=dev)
+            mask = (((ar_h[:, None] + ar_w[None, :]) % 2) == int(parity))[None]
+            if clamp is not None:
+                clamp = torch.as_tensor(clamp, dtype=torch.bool, device=dev)
+                mask = mask & ~(clamp if clamp.ndim == 3 else clamp[None])
+            labels = torch.where(mask, new, labels)
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            stats = SweepStats(
+                bits_used=torch.where(
+                    mask, res.bits_used.reshape(labels.shape), zero).sum(),
+                attempts=torch.where(
+                    mask, res.attempts.reshape(labels.shape), zero).sum())
     return labels, stats
 
 
@@ -166,21 +185,28 @@ def mrf_gibbs(
 
     ``clamp`` ((H, W) or (B, H, W) bool) freezes evidence sites for the
     whole run — pin their labels in ``labels0`` first (see
-    :func:`clamp_labels`).
+    :func:`clamp_labels`).  A live :func:`telemetry.current` records the
+    call as a ``pgm.mrf_gibbs`` span around its half-steps' spans, on the
+    calling thread's track.
     """
-    dev = labels0.device
-    _check_sampler(sampler, dev)
-    unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
-    pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
-    labels = labels0
-    bits = att = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(n_sweeps):
-        key, k0, k1 = rng_lib.split(key, 3)
-        for parity, sub in ((0, k0), (1, k1)):
-            labels, s = checkerboard_halfstep(
-                sub, labels, unary, pairwise, parity, clamp=clamp, k=k,
-                use_iu=use_iu, sampler=sampler)
-            bits, att = bits + s.bits_used, att + s.attempts
+    tel = telemetry.current()
+    with (tel.span("pgm.mrf_gibbs", tel.track(threading.current_thread().name),
+                   n_sweeps=n_sweeps, lanes=labels0.numel(), L=len(pairwise),
+                   sampler=sampler)
+          if tel.enabled else NULL_SPAN):
+        dev = labels0.device
+        _check_sampler(sampler, dev)
+        unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
+        pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+        labels = labels0
+        bits = att = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(n_sweeps):
+            key, k0, k1 = rng_lib.split(key, 3)
+            for parity, sub in ((0, k0), (1, k1)):
+                labels, s = checkerboard_halfstep(
+                    sub, labels, unary, pairwise, parity, clamp=clamp, k=k,
+                    use_iu=use_iu, sampler=sampler)
+                bits, att = bits + s.bits_used, att + s.attempts
     return labels, SweepStats(bits_used=bits, attempts=att)
 
 

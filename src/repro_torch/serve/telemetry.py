@@ -1,36 +1,51 @@
-"""Serving-stack telemetry: query-lifecycle tracing + metrics registry.
+"""Telemetry of the port: span tracer + metrics registry.
 
 The AIA chip justifies its headline numbers (1277 MSample/s, 20
 GSample/s/W) with per-core counters that attribute every cycle to
 sample generation, interpolation, or transfer; this module is the
-serving stack's equivalent.  It has two halves:
+port's equivalent.  It has two halves:
 
 * a **span tracer** recording the full query lifecycle — submit →
   bucket wait → admit → plan-cache lookup/compile → per-round sweep
   steps (lane occupancy, backfill, the ESS trajectory the retirement
-  rule already computes) → retirement (with reason) → delivery — as
-  structured events with monotonic timestamps, exportable as
-  Chrome/Perfetto trace-event JSON (:meth:`Telemetry.chrome_trace`,
-  load it at https://ui.perfetto.dev);
+  rule already computes) → retirement (with reason) → delivery — and,
+  below the engine, the MCMC driver and its colour update
+  (``pgm.mrf_gibbs``, ``pgm.halfstep`` and its phases), as structured
+  events with monotonic timestamps, exportable as Chrome/Perfetto
+  trace-event JSON (:meth:`Telemetry.chrome_trace`, load it at
+  https://ui.perfetto.dev);
 * a **metrics registry** of counters, gauges, and fixed log-spaced-bin
   histograms fed from :class:`repro_torch.serve.engine.PosteriorEngine`,
   :class:`repro_torch.serve.engine.GroupRun`, :class:`repro_torch.serve.
-  queue.AdmissionQueue` and the plan cache, exportable as Prometheus text
-  exposition (:meth:`Telemetry.prometheus`) and as a JSON snapshot
-  (:meth:`Telemetry.metrics_snapshot`) that ``benchmarks.bench_serve``
-  merges into its report.
+  queue.AdmissionQueue`, the plan cache and the MCMC driver, exportable
+  as Prometheus text exposition (:meth:`Telemetry.prometheus`) and as a
+  JSON snapshot (:meth:`Telemetry.metrics_snapshot`).
 
 Telemetry is a **no-op by default**: the engine holds the shared
-:data:`NULL` instance (the null-recorder pattern), every hot-path call
-site guards on ``telemetry.enabled``, and CI gates the enabled-recorder
-overhead at ≤ 5% ESS/s (``benchmarks/check_serve_regression.py``).
+:data:`NULL` instance (the null-recorder pattern) and every hot-path
+call site guards on ``telemetry.enabled``.  Code that holds no engine
+(the MCMC driver, the colour update) records through the process-wide
+recorder that :func:`current` returns: :data:`NULL` unless
+:func:`install` has set a live one.  With :data:`NULL` such a site
+reads no clock and builds nothing: it takes :func:`current`, tests
+``enabled`` and enters the shared no-op :data:`NULL_SPAN`.  The live
+recorder's cost is measured on the card, not gated: slices of the
+benchmark's loop with and without a live recorder installed, set
+against each other in one process, and the traced second's rate
+against the plain window's (``bench/trace_spans.py``).
 
 Clock discipline: span math uses ``time.monotonic()`` exclusively
 (wall clocks step under NTP and would corrupt durations and deadline
-math); wall-clock time appears only once, as the human-readable
-``trace_start_iso`` metadata stamp.
+math).  A live recorder samples ``time.time_ns()`` beside its first
+monotonic reading, so its spans map onto the clock of a
+``torch.profiler`` capture (kineto stamps host and device events in
+Unix-epoch nanoseconds): :attr:`Telemetry.profiler_offset_ns`,
+:func:`profiler_ns`.
 
-Worked examples live in ``docs/observability.md`` (doctest-checked).
+``docs/observability_torch.md`` documents the MCMC driver's spans and
+counters, :func:`install`/:func:`current` and the clock offset;
+``docs/observability.md`` has the worked examples of the JAX package's
+recorder, whose serving half this one mirrors.
 """
 from __future__ import annotations
 
@@ -42,9 +57,10 @@ from bisect import bisect_left
 from typing import Iterable
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL",
-    "NullTelemetry", "Telemetry", "lifecycle_breakdown", "log_bins",
-    "monotonic", "set_clock",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL", "NULL_SPAN",
+    "NullTelemetry", "Telemetry", "current", "install",
+    "lifecycle_breakdown", "log_bins", "monotonic", "profiler_ns",
+    "set_clock",
 ]
 
 # One shared monotonic clock for every duration/deadline in the serving
@@ -72,6 +88,30 @@ def set_clock(clock=None) -> None:
     this."""
     global _clock
     _clock = clock if clock is not None else time.monotonic
+
+
+def _unix_minus_monotonic_ns() -> int | None:
+    """``time.time_ns()`` less the shared clock's reading in nanoseconds,
+    the two read side by side (the narrowest of three brackets).  None
+    under a clock installed by :func:`set_clock`, which has no fixed
+    relation to Unix time."""
+    if _clock is not time.monotonic:
+        return None
+    width = off = None
+    for _ in range(3):
+        a = time.time_ns()
+        m = time.monotonic_ns()
+        b = time.time_ns()
+        if width is None or b - a < width:
+            width, off = b - a, (a + b) // 2 - m
+    return off
+
+
+def profiler_ns(ts: float, offset_ns: int) -> int:
+    """An event's ``ts`` (microseconds from its recorder's birth) on the
+    profiler's clock (Unix-epoch nanoseconds), given the recorder's
+    ``profiler_offset_ns``."""
+    return offset_ns + round(ts * 1e3)
 
 
 # -- metrics ---------------------------------------------------------------
@@ -277,6 +317,40 @@ def _fmt_labels(labels: dict) -> str:
 
 
 # -- tracer ----------------------------------------------------------------
+class _NullSpan:
+    """The shared no-op span: enters and exits, reads no clock, records
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+#: The one no-op span every disabled site enters.
+NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """One live span: a ``ph: "X"`` event from enter to exit."""
+
+    __slots__ = ("tel", "name", "tid", "args", "t0")
+
+    def __init__(self, tel: "Telemetry", name: str, tid: int, args: dict):
+        self.tel, self.name, self.tid, self.args = tel, name, tid, args
+
+    def __enter__(self):
+        self.t0 = _clock()      # monotonic(), read without the extra call
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.tel._complete(self.name, self.tid, self.t0, _clock(), self.args)
+        return None
+
+
 class Telemetry:
     """Live recorder: span tracer + metrics registry, one per engine.
 
@@ -288,6 +362,9 @@ class Telemetry:
 
     Timestamps: :func:`monotonic` seconds in, microseconds relative to
     the tracer's birth out (the trace-event ``ts`` contract).
+    ``profiler_offset_ns`` is the Unix-epoch nanosecond of ``ts`` 0, the
+    clock of a ``torch.profiler`` capture, sampled at birth beside the
+    first monotonic reading; None under :func:`set_clock`.
     """
 
     enabled = True
@@ -298,7 +375,10 @@ class Telemetry:
         self._events: list[dict] = []
         self._lock = threading.Lock()
         self._tids: dict[str, int] = {}
+        off = _unix_minus_monotonic_ns()
         self._t0 = monotonic()
+        self.profiler_offset_ns = (None if off is None
+                                   else off + round(self._t0 * 1e9))
         self.trace_start_iso = time.strftime(
             "%Y-%m-%dT%H:%M:%S%z", time.localtime())
 
@@ -323,14 +403,40 @@ class Telemetry:
     def complete(self, name: str, tid: int, t0: float, t1: float,
                  **args) -> None:
         """One finished span [t0, t1] (monotonic seconds) on a track."""
-        if not self._trace:
-            return
+        if self._trace:
+            self._complete(name, tid, t0, t1, args)
+
+    def _complete(self, name: str, tid: int, t0: float, t1: float,
+                  args: dict) -> None:
         ev = {"name": name, "cat": "serve", "ph": "X", "pid": 1, "tid": tid,
               "ts": self._us(t0), "dur": max((t1 - t0) * 1e6, 0.0)}
         if args:
             ev["args"] = args
         with self._lock:
             self._events.append(ev)
+
+    def span(self, name: str, tid: int = 0, **args):
+        """Context manager: one span from its enter to its exit, recorded
+        as :meth:`complete` records it; spans on one track nest by
+        time."""
+        if not self._trace:
+            return NULL_SPAN
+        return _Span(self, name, tid, args)
+
+    def to_profiler_ns(self, ts: float) -> int:
+        """A recorder timestamp (an event's ``ts``, microseconds from
+        birth) on the profiler's clock (Unix-epoch nanoseconds)."""
+        if self.profiler_offset_ns is None:
+            raise ValueError("no profiler clock offset: the recorder is "
+                             "NULL or ran on a clock installed by "
+                             "set_clock")
+        return profiler_ns(ts, self.profiler_offset_ns)
+
+    def sample_offset_ns(self) -> int | None:
+        """``profiler_offset_ns`` sampled again now; the difference from
+        the birth sample is how far the two clocks drifted or stepped."""
+        off = _unix_minus_monotonic_ns()
+        return None if off is None else off + round(self._t0 * 1e9)
 
     def instant(self, name: str, tid: int, **args) -> None:
         if not self._trace:
@@ -379,8 +485,10 @@ class Telemetry:
         """Chrome/Perfetto trace-event JSON (the ``traceEvents`` form).
 
         Load at https://ui.perfetto.dev or chrome://tracing.  ``ts`` and
-        ``dur`` are microseconds on the shared monotonic clock; the only
-        wall-clock field is the human-readable ``trace_start_iso``.
+        ``dur`` are microseconds on the shared monotonic clock;
+        ``otherData`` holds the human-readable ``trace_start_iso`` and
+        ``profiler_offset_ns``, which places ``ts`` on a profiler
+        capture's clock (``profiler_offset_ns + 1000 * ts``).
         """
         with self._lock:
             events = list(self._events)
@@ -389,7 +497,8 @@ class Telemetry:
                 {"name": "process_name", "ph": "M", "pid": 1,
                  "args": {"name": "repro_torch.serve"}}] + events,
             "displayTimeUnit": "ms",
-            "otherData": {"trace_start_iso": self.trace_start_iso},
+            "otherData": {"trace_start_iso": self.trace_start_iso,
+                          "profiler_offset_ns": self.profiler_offset_ns},
         }
 
     def metrics_snapshot(self) -> dict:
@@ -411,11 +520,12 @@ class NullTelemetry(Telemetry):
     """The default recorder: every operation is a no-op.
 
     Hot paths additionally guard on ``telemetry.enabled`` so the
-    disabled engine never even builds event-args dicts — the overhead
-    CI gates is the cost of *this* class, i.e. nothing.
+    disabled engine never even builds event-args dicts: the cost of
+    telemetry off is the cost of *this* class, i.e. nothing.
     """
 
     enabled = False
+    profiler_offset_ns = None
 
     def __init__(self):  # no registry, no event buffer, no lock
         self.metrics = None
@@ -423,6 +533,9 @@ class NullTelemetry(Telemetry):
 
     def track(self, name: str) -> int:
         return 0
+
+    def sample_offset_ns(self) -> None:
+        return None
 
     def complete(self, *a, **k) -> None:
         pass
@@ -458,6 +571,23 @@ class NullTelemetry(Telemetry):
 #: Shared no-op recorder — the engine default.  Stateless, so one
 #: instance serves every engine in the process.
 NULL = NullTelemetry()
+
+_current: Telemetry = NULL
+
+
+def current() -> Telemetry:
+    """The process-wide recorder of code that holds no engine (the MCMC
+    driver, the colour update): :data:`NULL` unless :func:`install` set
+    a live one."""
+    return _current
+
+
+def install(tel: Telemetry | None) -> Telemetry:
+    """Make ``tel`` the process-wide recorder (None restores
+    :data:`NULL`) and return the one it replaces."""
+    global _current
+    prev, _current = _current, (NULL if tel is None else tel)
+    return prev
 
 
 # -- trace post-processing -------------------------------------------------

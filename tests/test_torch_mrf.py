@@ -34,6 +34,7 @@ from repro_torch.pgm import sparse_compile as t_sc  # noqa: E402
 from repro_torch.serve import cli as t_cli  # noqa: E402
 from repro_torch.serve import families  # noqa: E402
 from repro_torch.serve import query as t_query  # noqa: E402
+from repro_torch.serve import telemetry  # noqa: E402
 from repro_torch.serve.engine import PosteriorEngine as TEngine  # noqa: E402
 
 TASKS = {
@@ -135,6 +136,108 @@ def test_mrf_gibbs_bitwise(name):
     assert (int(want[1].bits_used), int(want[1].attempts)) == (
         int(got[1].bits_used), int(got[1].attempts))
     assert (got[0].numpy()[:, clamp] == 1).all()
+
+
+def _inside(child, parent):
+    return (parent["ts"] <= child["ts"] and child["ts"] + child["dur"]
+            <= parent["ts"] + parent["dur"] + 1e-6)
+
+
+def _no_clock():
+    raise AssertionError("the clock was read")
+
+
+@pytest.mark.parametrize("name", sorted(TASKS))
+def test_mrf_gibbs_spans_under_a_live_recorder(name):
+    """Under a live process-wide recorder ``mrf_gibbs`` records one
+    ``pgm.mrf_gibbs`` span holding 2·n_sweeps ``pgm.halfstep`` spans,
+    each holding one ``pgm.energies``, ``pgm.sample`` and ``pgm.select``,
+    and counts its half-steps; labels, bits and attempts equal a run
+    under ``NULL``, which reads no clock."""
+    _, tm = _task(name)
+    lt = t_gibbs.init_labels(t_rng.PRNGKey(3), tm, 2, device="cpu")
+    n_sweeps = 3
+
+    def run():
+        return t_gibbs.mrf_gibbs(t_rng.PRNGKey(1), lt, tm.unary, tm.pairwise,
+                                 n_sweeps=n_sweeps, sampler="torch")
+
+    assert telemetry.current() is telemetry.NULL
+    telemetry.set_clock(_no_clock)
+    try:
+        plain = run()
+    finally:
+        telemetry.set_clock(None)
+    tel = telemetry.Telemetry()
+    telemetry.install(tel)
+    try:
+        traced = run()
+    finally:
+        telemetry.install(None)
+    assert torch.equal(plain[0], traced[0])
+    assert int(plain[1].bits_used) == int(traced[1].bits_used)
+    assert int(plain[1].attempts) == int(traced[1].attempts)
+
+    spans = [e for e in tel.events() if e["ph"] == "X"]
+    (top,) = [e for e in spans if e["name"] == "pgm.mrf_gibbs"]
+    L = tm.n_labels
+    assert top["args"] == {"n_sweeps": n_sweeps, "lanes": lt.numel(), "L": L,
+                           "sampler": "torch"}
+    halves = [e for e in spans if e["name"] == "pgm.halfstep"]
+    assert len(halves) == 2 * n_sweeps
+    assert [e["args"]["parity"] for e in halves] == [0, 1] * n_sweeps
+    for h in halves:
+        assert _inside(h, top)
+        assert h["args"]["lanes"] == lt.numel() and h["args"]["L"] == L
+        for child in ("pgm.energies", "pgm.sample", "pgm.select"):
+            assert sum(e["name"] == child and _inside(e, h)
+                       for e in spans) == 1, child
+    assert {e["name"] for e in spans} == {
+        "pgm.mrf_gibbs", "pgm.halfstep", "pgm.energies", "pgm.sample",
+        "pgm.select"}
+    assert tel.metrics_snapshot() == {
+        f"pgm_halfsteps_total{{L={L}}}": 2 * n_sweeps}
+
+
+def test_mrf_gibbs_spans_lie_on_the_calling_threads_track():
+    """Two threads under one live recorder: each thread's spans lie on
+    its own named track and nest there, and each gives the labels it
+    gives alone."""
+    import threading
+
+    _, tm = _task("potts_L2")
+    lt = t_gibbs.init_labels(t_rng.PRNGKey(3), tm, 2, device="cpu")
+
+    def run(seed):
+        return t_gibbs.mrf_gibbs(t_rng.PRNGKey(seed), lt, tm.unary,
+                                 tm.pairwise, n_sweeps=2, sampler="torch")
+
+    alone = {seed: run(seed)[0] for seed in (1, 2)}
+    got = {}
+    tel = telemetry.Telemetry()
+    telemetry.install(tel)
+    try:
+        threads = [threading.Thread(target=lambda s=s: got.update({s: run(s)}),
+                                    name=f"group-{s}") for s in (1, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        telemetry.install(None)
+    for seed in (1, 2):
+        assert torch.equal(got[seed][0], alone[seed])
+    names = {e["args"]["name"]: e["tid"] for e in tel.events()
+             if e["ph"] == "M"}
+    assert set(names) == {"group-1", "group-2"}
+    for tid in names.values():
+        mine = [e for e in tel.events() if e["ph"] == "X" and e["tid"] == tid]
+        (top,) = [e for e in mine if e["name"] == "pgm.mrf_gibbs"]
+        halves = [e for e in mine if e["name"] == "pgm.halfstep"]
+        assert len(halves) == 4 and len(mine) == 1 + 4 * 4
+        assert all(_inside(e, top) for e in mine)
+        for h in halves:
+            assert sum(_inside(e, h) for e in mine) == 4   # itself + 3
 
 
 def test_init_mrf_states_bitwise():

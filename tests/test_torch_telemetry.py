@@ -19,8 +19,9 @@ from repro_torch.pgm import networks  # noqa: E402
 from repro_torch.serve.engine import PosteriorEngine  # noqa: E402
 from repro_torch.serve.query import Query  # noqa: E402
 from repro_torch.serve.queue import AdmissionQueue  # noqa: E402
+from repro_torch.serve import telemetry  # noqa: E402
 from repro_torch.serve.telemetry import (  # noqa: E402
-    NULL, Histogram, MetricsRegistry, NullTelemetry, Telemetry,
+    NULL, NULL_SPAN, Histogram, MetricsRegistry, NullTelemetry, Telemetry,
     lifecycle_breakdown, log_bins)
 
 RESULT_TIMEOUT = 300.0
@@ -190,6 +191,102 @@ class TestTracer:
         assert bd["wait"]["p50_ms"] == pytest.approx(150.0)
         phase_sum = sum(bd[p]["total_s"] for p in ("wait", "plan", "service"))
         assert phase_sum == pytest.approx(bd["e2e_total_s"])
+
+
+# -- spans, the process-wide recorder, the profiler's clock ---------------
+def _no_clock():
+    raise AssertionError("the clock was read")
+
+
+class TestSpans:
+    def test_span_nests_and_carries_its_args(self):
+        tel = Telemetry()
+        with tel.span("outer", tid=3, lanes=8, L=2) as sp:
+            assert sp is not None
+            with tel.span("inner", tid=3):
+                pass
+        inner, outer = [e for e in tel.events() if e["ph"] == "X"]
+        assert (outer["name"], inner["name"]) == ("outer", "inner")
+        assert outer["args"] == {"lanes": 8, "L": 2} and "args" not in inner
+        assert outer["tid"] == inner["tid"] == 3
+        assert outer["ts"] <= inner["ts"]
+        assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-6
+
+    def test_span_records_when_its_body_raises(self):
+        tel = Telemetry()
+        with pytest.raises(KeyError):
+            with tel.span("failing"):
+                raise KeyError("x")
+        assert [e["name"] for e in tel.events()] == ["failing"]
+
+    def test_null_span_records_nothing_and_reads_no_clock(self):
+        recorders = (NULL, NullTelemetry(), Telemetry(trace=False))
+        telemetry.set_clock(_no_clock)
+        try:
+            for tel in recorders:
+                sp = tel.span("pgm.halfstep", parity=0)
+                assert sp is NULL_SPAN
+                with sp:
+                    pass
+            assert NULL.events() == []
+        finally:
+            telemetry.set_clock(None)
+
+    def test_install_and_current_restore_null(self):
+        assert telemetry.current() is NULL
+        tel = Telemetry()
+        assert telemetry.install(tel) is NULL
+        try:
+            assert telemetry.current() is tel
+            other = Telemetry()
+            assert telemetry.install(other) is tel
+            assert telemetry.install(tel) is other
+        finally:
+            assert telemetry.install(None) is tel
+        assert telemetry.current() is NULL
+
+    def test_to_profiler_ns_lands_inside_a_record_function_span(self):
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        tel = Telemetry()
+        x = torch.ones(4096)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("outer"):
+                x.sum()
+                with tel.span("inner"):
+                    x.sum()
+                x.sum()
+        outer = next(e for e in prof.profiler.kineto_results.events()
+                     if e.name() == "outer")
+        (inner,) = tel.events()
+        a = tel.to_profiler_ns(inner["ts"])
+        b = tel.to_profiler_ns(inner["ts"] + inner["dur"])
+        assert outer.start_ns() < a <= b < outer.end_ns()
+
+    def test_offset_is_steady_and_exported(self):
+        tel = Telemetry()
+        assert abs(tel.sample_offset_ns() - tel.profiler_offset_ns) < 100_000
+        other = tel.chrome_trace()["otherData"]
+        assert other["profiler_offset_ns"] == tel.profiler_offset_ns
+        assert tel.to_profiler_ns(0.0) == tel.profiler_offset_ns
+        assert tel.to_profiler_ns(2.5) == tel.profiler_offset_ns + 2500
+        assert telemetry.profiler_ns(2.5, tel.profiler_offset_ns) \
+            == tel.to_profiler_ns(2.5)
+
+    def test_fake_clock_has_no_profiler_offset(self):
+        telemetry.set_clock(lambda: 5.0)
+        try:
+            tel = Telemetry()
+            with tel.span("s"):
+                pass
+            assert tel.profiler_offset_ns is None
+            assert tel.sample_offset_ns() is None
+            with pytest.raises(ValueError, match="set_clock"):
+                tel.to_profiler_ns(0.0)
+        finally:
+            telemetry.set_clock(None)
+        with pytest.raises(ValueError):
+            NULL.to_profiler_ns(0.0)
 
 
 # -- engine integration ----------------------------------------------------
