@@ -251,6 +251,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from typing import NamedTuple
 
 import numpy as np
 
@@ -580,6 +581,21 @@ def roofline(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def grid_bound_ms(B: int, H: int, W: int, L: int, kept: int,
+                  words_made: int, bits_total: int,
+                  lut_nodes: int) -> tuple[float, str]:
+    """Least time the card could take for one grid colour update
+    (``fused_mrf_halfstep``), and what bounds it.  Bytes: the int32
+    labels read once, the (H, W, L) unary, the (L, L) table and the LUT
+    once, and the ``kept`` sites' labels written once.  Ops: 5 adds a
+    label for the energies and ~10 for the weight tail at each kept site,
+    ~4 per label per DDG level walked, one threefry per word reached."""
+    nbytes = 4 * B * H * W + 4 * H * W * L + 4 * L * L + 4 * kept \
+        + 4 * lut_nodes
+    ops = kept * L * 15 + bits_total * L * 4 + words_made * THREEFRY_OPS
+    return roofline(nbytes, ops, FP32_OPS_PER_S)
+
+
 def kernel_inputs(b: int, L: int, seed: int, device):
     import torch
 
@@ -680,19 +696,43 @@ def phase_kernel_vs_plain(device) -> dict:
             "cases": len(cases)}
 
 
+class GridCall(NamedTuple):
+    """A recorded grid colour update (``fused_mrf_halfstep``): its key,
+    the labels it started from, its fields and parity, its other keywords
+    (no accumulator), the labels it wrote and the stats it added."""
+    key: object
+    labels: object
+    unary: object
+    pairwise: object
+    parity: int
+    kw: dict
+    out: object
+    stats: object
+
+
+def call_shape(call) -> tuple[int, int]:
+    """A recorded call's ``(b, L)``: the lanes a gathered launch walks, or
+    a grid's B·H·W sites, as the launch counter keys them."""
+    if isinstance(call, GridCall):
+        return call.labels.numel(), call.unary.shape[-1]
+    return tuple(call[1].shape)
+
+
 @contextlib.contextmanager
 def record_main_path(keep_all: bool = True):
     """Zero the launch counts just before a main path and read them just
     after.  Meanwhile keep the fused calls the colour updates make (inputs
-    and result, by reference: no device work is added) — every call, or
+    and result, by reference: no device work is added; a grid colour
+    update, which writes its labels in place, is kept as copies of its
+    labels before and after and of the stats it added) — every call, or
     with ``keep_all=False`` the first of each ``(b, L)`` only, for paths
     whose calls would not fit in memory together — the launches of each
     ``GroupRun.step`` (one engine round), and the calls of
     ``rng.random_bit_words`` and ``rng.LaneWords.column`` (the kernel
     makes its own words, so the CUDA route should make none).  The fused
-    sampler is read by name in the BN compile chain, the MRF half-step,
-    the sparse colour update and the mesh step's tiles; all four are
-    recorded."""
+    sampler is read by name in the BN compile chain, the sparse colour
+    update and the mesh step's tiles, and the grid launcher in the MRF
+    half-step; all four are recorded."""
     from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
@@ -701,8 +741,9 @@ def record_main_path(keep_all: bool = True):
     from repro_torch.pgm import sparse_compile as sparse_mod
     from repro_torch.serve.engine import GroupRun
 
-    mods = (compile_mod, gibbs_mod, sparse_mod, mesh_mod)
+    mods = (compile_mod, sparse_mod, mesh_mod)
     fused, step = fs.fused_gibbs_sample, GroupRun.step
+    launcher = gibbs_mod.fused_mrf_launcher
     bit_words, column = rng.random_bit_words, rng.LaneWords.column
     rec = {"calls": [], "per_round": Counter(), "word_calls": 0,
            "row_maps": Counter()}
@@ -726,6 +767,24 @@ def record_main_path(keep_all: bool = True):
             rec["calls"].append((key, logw, card, kw, res))
         return res
 
+    def recording_launcher(labels, unary, pairwise, **kw):
+        launch = launcher(labels, unary, pairwise, **kw)
+        shape = (labels.numel(), unary.shape[-1])
+        acc = kw["acc"]
+
+        def recording_launch(key, parity):
+            keep = keep_all or shape not in seen
+            if keep:
+                before, acc0 = labels.clone(), acc.clone()
+            launch(key, parity)
+            if keep:
+                seen.add(shape)
+                rec["calls"].append(GridCall(
+                    key, before, unary, pairwise, parity,
+                    {k: v for k, v in kw.items() if k != "acc"},
+                    labels.clone(), acc - acc0))
+        return recording_launch
+
     def recording_step(self):
         n0 = fs.fused_gibbs_sample.launches
         out = step(self)
@@ -734,6 +793,7 @@ def record_main_path(keep_all: bool = True):
 
     for m in mods:
         m.fused_gibbs_sample = recording_fused
+    gibbs_mod.fused_mrf_launcher = recording_launcher
     GroupRun.step = recording_step
     rng.random_bit_words = counting_bit_words
     rng.LaneWords.column = counting_column
@@ -746,6 +806,7 @@ def record_main_path(keep_all: bool = True):
         rec["shapes"] = Counter(fs.fused_gibbs_sample.shapes)
         for m in mods:
             m.fused_gibbs_sample = fused
+        gibbs_mod.fused_mrf_launcher = launcher
         GroupRun.step = step
         rng.random_bit_words = bit_words
         rng.LaneWords.column = column
@@ -771,24 +832,112 @@ def main_path_bound(rec) -> tuple[float, str]:
     import torch
 
     calls = rec["calls"]
-    per_call = torch.stack([torch.stack([
-        ((res.bits_used.to(torch.int64) + 31) // 32).sum(),
-        res.bits_used.to(torch.int64).sum()]) for *_, res in calls])
+    per_call = torch.stack([torch.stack(
+        grid_words_bits(c) if isinstance(c, GridCall) else [
+            ((c[-1].bits_used.to(torch.int64) + 31) // 32).sum(),
+            c[-1].bits_used.to(torch.int64).sum()]) for c in calls])
     per_call = per_call.cpu().tolist()
-    kept = Counter(tuple(c[1].shape) for c in calls)
+    kept = Counter(call_shape(c) for c in calls)
     total = weight = 0.0
     bys = Counter()
-    for (_, logw, _, kw, _), (words_made, bits) in zip(calls, per_call):
-        b, L = logw.shape
+    for call, (words_made, bits) in zip(calls, per_call):
+        b, L = call_shape(call)
         w = rec["shapes"][(b, L)] / kept[(b, L)]
+        kw = call.kw if isinstance(call, GridCall) else call[3]
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
-        cols = (kw["row_map"][1].numel()
-                if kw.get("row_map") is not None else 0)
-        bound, by = fused_bound_ms(b, L, words_made, bits, lut, cols)
+        if isinstance(call, GridCall):
+            sites = grid_kept(call).expand(call.labels.shape)
+            bound, by = grid_bound_ms(*call.labels.shape, L,
+                                      int(sites.sum()), words_made, bits,
+                                      lut)
+        else:
+            cols = (kw["row_map"][1].numel()
+                    if kw.get("row_map") is not None else 0)
+            bound, by = fused_bound_ms(b, L, words_made, bits, lut, cols)
         total += bound * w
         weight += w
         bys[by] += w
     return total / weight, bys.most_common(1)[0][0]
+
+
+def grid_kept(call: GridCall):
+    """(B or 1, H, W) bool: the sites a recorded grid call resampled."""
+    import torch
+
+    _, H, W = call.labels.shape
+    dev = call.labels.device
+    ar_h, ar_w = torch.arange(H, device=dev), torch.arange(W, device=dev)
+    keep = (((ar_h[:, None] + ar_w[None, :]) % 2) == call.parity)[None]
+    clamp = call.kw.get("clamp")
+    return keep if clamp is None else keep & ~clamp.reshape(-1, H, W)
+
+
+def grid_plain(call: GridCall):
+    """The plain twin on a recorded grid call's inputs: (labels written,
+    stats added, the draw of every site)."""
+    import torch
+
+    from repro_torch.kernels import fused_sweep as fs
+
+    lab = call.labels.clone()
+    acc = torch.zeros(2, dtype=torch.int64, device=lab.device)
+    res = fs.fused_mrf_halfstep_ref(call.key, lab, call.unary, call.pairwise,
+                                    call.parity, acc=acc, **call.kw)
+    return lab, acc, res
+
+
+def grid_words_bits(call: GridCall) -> list:
+    """[words the kept sites' cursors reached, bits they read] of a
+    recorded grid call, from the plain twin's draw (the kernel returns
+    only the sums), as 0-d int64 tensors."""
+    import torch
+
+    _, acc, res = grid_plain(call)
+    bits = torch.where(grid_kept(call),
+                       res.bits_used.reshape(call.labels.shape).long(), 0)
+    return [((bits + 31) // 32).sum(), acc[0]]
+
+
+def grid_kernel_row(call: GridCall, n: int) -> tuple[dict, dict | None]:
+    """:func:`phase_main_path_kernel`'s row for a grid shape: the kernel
+    launched again from the recorded labels must write the recorded
+    labels and stats and the plain twin's; then timed as the gathered
+    shapes are (the timed launches update a copy in place, half-step
+    after half-step)."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.kernels import fused_sweep as fs
+
+    dev = call.labels.device
+    b, L = call_shape(call)
+    lab = call.labels.clone()
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    fs.fused_mrf_halfstep(call.key, lab, call.unary, call.pairwise,
+                          call.parity, acc=acc, **call.kw)
+    p_lab, p_acc, _ = grid_plain(call)
+    eq_rec = torch.equal(lab, call.out) and torch.equal(acc, call.stats)
+    eq_plain = torch.equal(lab, p_lab) and torch.equal(acc, p_acc)
+    err = max(int((lab.long() - x.long()).abs().max())
+              for x in (call.out, p_lab))
+    bad = None if eq_rec and eq_plain else dict(
+        b=b, L=L, grid=True, equals_recorded=eq_rec, equals_plain=eq_plain)
+    x = call.labels.clone()
+
+    def launch():
+        fs.fused_mrf_halfstep(call.key, x, call.unary, call.pairwise,
+                              call.parity, acc=acc, **call.kw)
+
+    with torch.cuda.device(dev):
+        row = dict(
+            n=n, b=b, L=L, max_abs_err=err,
+            ms=cold_device_ms(launch, 3, dev, calls=100),
+            call_ms=time_ms(launch, 200),
+            plain_ms=time_ms(lambda: grid_plain(call), 5, warmup=1),
+            words_ms=time_ms(lambda: rng.random_bit_words(
+                call.key, (b,), 31 * 32, device=dev,
+                lane0=call.kw.get("lane0", 0)), 20))
+    return row, bad
 
 
 def phase_main_path_kernel(rec) -> dict:
@@ -812,9 +961,14 @@ def phase_main_path_kernel(rec) -> dict:
 
     first = {}
     for call in rec["calls"]:
-        first.setdefault(tuple(call[1].shape), call)
+        first.setdefault(call_shape(call), call)
     rows, bad = [], []
     for (b, L), n in rec["shapes"].items():
+        if isinstance(first[(b, L)], GridCall):
+            row, fault = grid_kernel_row(first[(b, L)], n)
+            rows.append(row)
+            bad += [fault] if fault else []
+            continue
         key, logw, card, kw, res = first[(b, L)]
         again = fs.fused_gibbs_sample(key, logw, card, **kw)
         plain = fs.fused_gibbs_sample_ref(key, logw, card, **kw)

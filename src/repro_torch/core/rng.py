@@ -12,7 +12,8 @@ A key is a 2-word uint32 value passed explicitly, as in JAX.  Keys are
 small and live on the host (numpy ``uint32`` of shape ``(2,)``); bit
 words are generated on the device of the lanes that read them.  torch's
 uint32 support is thin, so the device arithmetic runs in int64 masked
-with ``0xffffffff``; numpy runs the same code on ``uint64``.
+with ``0xffffffff``; the host's few key hashes run the same code on
+Python ints.
 
 Bit words are returned as int32 tensors holding the uint32 bit
 patterns, which is what the fused sweep kernel reads.
@@ -33,7 +34,7 @@ def _rotl(v, r: int):
 def _threefry2x32(k0: int, k1: int, x0, x1):
     """20-round threefry2x32 of counter words ``(x0, x1)`` under key
     ``(k0, k1)`` — JAX's ``_threefry2x32_lowering``.  ``x0``/``x1`` are
-    int64 tensors or uint64 numpy arrays holding values < 2**32."""
+    int64 tensors or Python ints holding values < 2**32."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -57,24 +58,20 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([(seed >> 32) & _MASK, seed & _MASK], np.uint32)
 
 
-def _host_hash(key, n: int) -> tuple[np.ndarray, np.ndarray]:
-    k0, k1 = _key_words(key)
-    idx = np.arange(n, dtype=np.uint64)
-    return _threefry2x32(k0, k1, idx >> np.uint64(32), idx & np.uint64(_MASK))
-
-
 def split(key, num: int = 2) -> np.ndarray:
     """``jax.random.split``: ``(num, 2)`` uint32 keys (fold-like split of
-    the partitionable layout: key ``i`` is the hash of counter ``i``)."""
-    a, b = _host_hash(key, num)
-    return np.stack([a, b], axis=1).astype(np.uint32)
+    the partitionable layout: key ``i`` is the hash of counter ``i``).
+    Hashed on Python ints: a split is a few keys, where numpy's cost an
+    operation would dominate (``mrf_gibbs`` splits once a sweep)."""
+    k0, k1 = _key_words(key)
+    return np.array([_threefry2x32(k0, k1, i >> 32, i & _MASK)
+                     for i in range(num)], np.uint32).reshape(num, 2)
 
 
 def fold_in(key, data: int) -> np.ndarray:
     """``jax.random.fold_in``: hash of the counter pair ``(0, data)``."""
     k0, k1 = _key_words(key)
-    a, b = _threefry2x32(k0, k1, np.uint64(0), np.uint64(int(data) & _MASK))
-    return np.array([a, b], np.uint32)
+    return np.array(_threefry2x32(k0, k1, 0, int(data) & _MASK), np.uint32)
 
 
 def bit_budget_words(max_bits: int) -> int:

@@ -1,7 +1,8 @@
 // Fused Gibbs sweep kernel for Hopper (sm_90a): label mask -> max-subtract
 // -> IU-exp LUT -> k-bit floor -> non-normalized Knuth-Yao DDG walk, on the
-// (b, L) log-weight tile of one colour, with the random bit words made
-// inside the kernel.
+// (b, L) log-weight tile of one colour or on the energies of one colour of
+// an MRF grid made in the kernel, with the random bit words made inside
+// the kernel.
 //
 // Replaces: src/repro/kernels/fused_sweep.py::_fused_kernel, the TPU Pallas
 // kernel launched by fused_gibbs_sample (pallas_call at fused_sweep.py:165).
@@ -24,25 +25,60 @@
 // update's bits.  Without one (colpos null) row r is lane0 + r, as before.
 // The map costs one int64 load a row, made only by rows that walk.
 //
-// Bound on an H100: bytes.  Per lane the function reads the L float32
-// log-weights and the int32 card and writes sample, bits and attempts
-// (int32) and ok (1 byte); the 4.1 kB LUT is read once: b * (4L + 4 + 13)
-// + 4100 bytes per launch, at 3.35 TB/s, and with a row map its n_loc
-// int64 columns besides.  The arithmetic (a few dozen
-// flops a label, ~10 DDG levels of L-wide integer work and one 20-round
-// threefry per 32 bits walked) is far under the card's rates.  At serving
-// sizes (b of a few thousand lanes) that is well under a MB and under
-// 0.1 us, so a launch is bound by launch latency and the serial walk.
+// Two sources of log-weights, chosen at compile time (the kernel's second
+// template parameter); both feed the same distribution generation and
+// walk (distribution(), walk()).
+//
+// Gathered source: lane i's L log-weights are row i of a (b, L) tile that
+// the caller gathered (the Bayes-net, factor-graph and Ising colour
+// updates, the served queue).  Bound on an H100: bytes.  Per lane the
+// function reads the L float32 log-weights and the int32 card and writes
+// sample, bits and attempts (int32) and ok (1 byte); the 4.1 kB LUT is
+// read once: b * (4L + 4 + 13) + 4100 bytes per launch, at 3.35 TB/s, and
+// with a row map its n_loc int64 columns besides.  The arithmetic (a few
+// dozen flops a label, ~10 DDG levels of L-wide integer work and one
+// 20-round threefry per 32 bits walked) is far under the card's rates.
+// At serving sizes (b of a few thousand lanes) that is well under a MB and
+// under 0.1 us, so a launch is bound by launch latency and the serial walk.
+//
+// Grid source: one checkerboard colour update of a pairwise MRF grid
+// (pgm/gibbs.py::checkerboard_halfstep) in one launch.  Lane i is the
+// i-th site of the kept parity: (b, h, m) over (B, H, ceil(width / 2)),
+// at column w = 2m + ((h + parity) & 1); a lane past the grid's edge or on
+// a clamped site walks nothing, keeps its label and is not counted.  The
+// group makes its site's energies itself: thread l adds pairwise[l, m] of
+// the in-grid neighbours' labels m to +0.0 in the order up, down, left,
+// right, then the unary term, then multiplies by beta[b] where one is
+// given, and negates -- the plain path's float association, one rounded
+// op a stage.  The (L, L) table sits in shared memory (at most 4 kB,
+// transposed so a group reads consecutive words).  The new label is
+// written in place: a kept site reads only neighbours of the other
+// parity, which no lane of the launch writes.  The walk reads the words
+// of global row lane0 + (b * H + h) * width + w, the row the all-sites draw
+// gave the site, so labels, bits and attempts equal the plain path's.
+// Bits and attempts of the kept sites are summed in the block (warp
+// reductions, then one atomicAdd a block into a two-entry int64
+// accumulator: integer sums, exact in any order).  Bytes a half-step: the
+// int32 labels read once (4 B H width; a sector holds both parities),
+// the unary once (4 H width L), the table (4 L^2) and LUT per block from
+// L2, the kept labels written (4 B ceil(H width / 2)), and the clamp mask
+// (H width or B H width bytes) and beta (4 B) where given: penguin
+// (16 x 500 x 333, L 2) 17.3 MB, 5.2 us at 3.35 TB/s; Art (16 x 288 x
+// 384, L 16) 17.7 MB, 5.3 us.
+// The walk's latency bounds it, as in the gathered source; the energies
+// cost a few loads and 5 adds a label.
 //
 // Design: a group of G = next_pow2(L) threads per lane (2 <= G <= 32,
 // 32 / G lanes a warp).  Thread l holds label l; the row max, the integer
 // total and the argmax (ties to the lowest label) are shuffles within the
 // group, exact and so independent of order; at each DDG level the column
 // sum is __popc(__ballot_sync(group, bit)) and the leaf the label whose
-// prefix popc under lanemask_le equals d + 1; d, c, the cursor and the
-// current word are replicated in the group.  (One thread per lane, the row
-// in registers, measured slower at the serve path's shapes: PERF.md.)
-// Later work: a CUDA graph over a round, and the gather fused in.
+// prefix popc under lanemask_le equals d + 1; d, the level, the cursor
+// and the current word are replicated in the group.  (One thread per
+// lane, the row in registers, measured slower at the serve path's shapes:
+// PERF.md.)
+// Later work: a CUDA graph over a served round, the gather of the
+// Bayes-net and factor-graph colour updates fused in as sources.
 //
 // Bit identity with the reference: every float stage is one separately
 // rounded float32 op (__fsub_rn/__fmul_rn/__fadd_rn, built with
@@ -54,6 +90,8 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int MAX_L = 32;  // widest label axis a group holds
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -80,43 +118,35 @@ __device__ __forceinline__ uint32_t lane_word(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-struct Params {
-  const float* logw;
-  const int* card;
+// What the distribution generation and the walk read, whichever source
+// gives the log-weights
+struct Walk {
   const float* table;
-  int* sample;
-  int* bits;
-  int* att;
-  bool* ok;
   uint32_t k0, k1;  // the colour's key
-  unsigned long long lane0;  // global row of this launch's first lane
-  const long long* colpos;   // row map columns (null: no map)
-  long long n_loc;           // columns of the map
-  unsigned long long stride; // the colour's node count N
-  int b, L, W;      // lanes, labels, words of budget per lane
+  int L, W;         // labels, words of budget per lane
   float wscale;     // 2^k - 1
   int use_iu, n_seg;
-  float lo, scale, mask_value;
+  float lo, scale;
 };
 
 // one label's k-bit weight from its masked log-weight and the row max
-__device__ __forceinline__ int label_weight(const Params& p, float lw,
+__device__ __forceinline__ int label_weight(const Walk& c, float lw,
                                             float mx) {
   const float z = __fsub_rn(lw, mx);
   float y;
-  if (p.use_iu) {
-    float t = __fmul_rn(__fsub_rn(z, p.lo), p.scale);
-    t = fminf(fmaxf(t, 0.0f), (float)p.n_seg);
+  if (c.use_iu) {
+    float t = __fmul_rn(__fsub_rn(z, c.lo), c.scale);
+    t = fminf(fmaxf(t, 0.0f), (float)c.n_seg);
     int idx = (int)t;
-    if (idx > p.n_seg - 1) idx = p.n_seg - 1;
+    if (idx > c.n_seg - 1) idx = c.n_seg - 1;
     const float frac = __fsub_rn(t, (float)idx);
-    const float y0 = p.table[idx];
-    const float y1 = p.table[idx + 1];
+    const float y0 = c.table[idx];
+    const float y1 = c.table[idx + 1];
     y = __fadd_rn(y0, __fmul_rn(frac, __fsub_rn(y1, y0)));
   } else {
     y = expf(z);
   }
-  return (int)floorf(__fmul_rn(y, p.wscale));
+  return (int)floorf(__fmul_rn(y, c.wscale));
 }
 
 // K = max(ceil_log2(total), 1): the bit length of total - 1
@@ -125,27 +155,30 @@ __device__ __forceinline__ int levels(int total) {
   return K < 1 ? 1 : K;
 }
 
+// the threads of this thread's group in its warp
 template <int G>
-__global__ void fused_gibbs_group_kernel(const Params p) {
-  // 64-bit: b * G threads pass 2^31 from b = 2^26 lanes at G = 32
-  const long long lane =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  if (lane >= p.b) return;  // the whole group leaves together
-  const int wl = threadIdx.x & 31;          // position in the warp
-  const int l = wl & (G - 1);               // this thread's label
-  const unsigned gmask =
-      G == 32 ? 0xffffffffu : ((1u << G) - 1) << (wl & ~(G - 1));
-  const bool real = l < p.L;
+__device__ __forceinline__ unsigned group_mask(int wl) {
+  return G == 32 ? 0xffffffffu : ((1u << G) - 1) << (wl & ~(G - 1));
+}
 
-  // ---- distribution generation: mask -> max-subtract -> exp -> floor ----
-  float lw = __int_as_float((int)0xff800000);  // -inf
-  if (real)
-    lw = l < p.card[lane] ? p.logw[(size_t)lane * p.L + l] : p.mask_value;
+// A lane's distribution: this thread's k-bit weight, the row total and
+// the first argmax; det when the argmax holds the whole mass
+struct Dist {
+  int w, total, amax;
+  bool det;
+};
+
+// ---- distribution generation: max-subtract -> exp -> floor ------------
+// lw: this thread's masked log-weight (-inf for l >= L)
+template <int G>
+__device__ __forceinline__ Dist distribution(const Walk& c, float lw,
+                                             bool real, unsigned gmask,
+                                             int l) {
   float mx = lw;
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(gmask, mx, off, G));
-  int w = real ? label_weight(p, lw, mx) : 0;
+  int w = real ? label_weight(c, lw, mx) : 0;
   int total = w;
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
@@ -164,67 +197,217 @@ __global__ void fused_gibbs_group_kernel(const Params p) {
       amax = ol;
     }
   }
+  return {w, total, amax, wmax == total};
+}
 
-  // ---- Knuth-Yao DDG walk with the per-lane bit cursor -----------------
-  const int budget = p.W * 32;
-  int res = amax, t = 0, att = 1;
-  bool done = (wmax == total);  // deterministic-row bypass
-  if (!done) {
-    const int K = levels(total);
-    const long long rej = (1LL << K) - total;
+// A lane's draw: label, bits read, attempts, and whether it ended on a
+// leaf (or bypassed the walk)
+struct Draw {
+  int res, t, att;
+  bool done;
+};
+
+// the draw of a deterministic row: its argmax, no bits
+__device__ __forceinline__ Draw bypass(const Dist& d) {
+  return {d.amax, 0, 1, true};
+}
+
+// ---- Knuth-Yao DDG walk with the per-lane bit cursor -------------------
+// on the words of global row `row`
+template <int G>
+__device__ __forceinline__ Draw walk(const Walk& c, const Dist& dist,
+                                     bool real, unsigned gmask, int wl,
+                                     unsigned long long row) {
+  const int budget = c.W * 32;
+  Draw out{dist.amax, 0, 1, false};
+  const int K = levels(dist.total);
+  const long long rej = (1LL << K) - dist.total;
+  const unsigned long long base = row * (unsigned long long)c.W;
+  const unsigned le = (2u << wl) - 1;  // lanemask_le (all ones at 31)
+  long long d = 0;
+  int lev = 0, wj = -1;
+  uint32_t word = 0;
+  while (out.t < budget - 1) {
+    if ((out.t >> 5) != wj) {  // the cursor reached a new word
+      wj = out.t >> 5;
+      word = lane_word(c.k0, c.k1, base + wj);
+    }
+    const int bit = (word >> (out.t & 31)) & 1;
+    const long long d2 = 2 * d + (1 - bit);
+    const int shift = K - 1 - lev;
+    const bool mine = shift >= 0 && real && ((dist.w >> shift) & 1);
+    const unsigned col = __ballot_sync(gmask, mine) & gmask;
+    const int cum = __popc(col);
+    const long long colsum = cum + ((shift >= 0) ? ((rej >> shift) & 1) : 0);
+    const bool hit = d2 < colsum;
+    ++out.t;
+    if (hit && d2 < cum) {  // leaf: the label whose prefix count is d2 + 1
+      const bool leaf = mine && __popc(col & le) == d2 + 1;
+      out.res = (__ffs(__ballot_sync(gmask, leaf) & gmask) - 1) & (G - 1);
+      out.done = true;
+      break;
+    }
+    if (hit || lev + 1 >= K) {  // rejection pad (or level overflow)
+      d = 0;
+      lev = 0;
+      ++out.att;
+    } else {
+      d = d2 - colsum;
+      ++lev;
+    }
+  }
+  return out;
+}
+
+// ---- gathered source: a (b, L) tile of log-weights ----------------------
+struct Gathered {
+  Walk c;
+  const float* logw;
+  const int* card;
+  int* sample;
+  int* bits;
+  int* att;
+  bool* ok;
+  unsigned long long lane0;  // global row of this launch's first lane
+  const long long* colpos;   // row map columns (null: no map)
+  long long n_loc;           // columns of the map
+  unsigned long long stride; // the colour's node count N
+  long long lanes;           // b
+  float mask_value;
+};
+
+template <int G>
+__device__ __forceinline__ void gibbs_group(const Gathered& p) {
+  // 64-bit: b * G threads pass 2^31 from b = 2^26 lanes at G = 32
+  const long long lane =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (lane >= p.lanes) return;  // the whole group leaves together
+  const int wl = threadIdx.x & 31;          // position in the warp
+  const int l = wl & (G - 1);               // this thread's label
+  const unsigned gmask = group_mask<G>(wl);
+  const bool real = l < p.c.L;
+
+  float lw = __int_as_float((int)0xff800000);  // -inf
+  if (real)  // the label mask
+    lw = l < p.card[lane] ? p.logw[(size_t)lane * p.c.L + l] : p.mask_value;
+  const Dist dist = distribution<G>(p.c, lw, real, gmask, l);
+  Draw d = bypass(dist);
+  if (!dist.det) {
     unsigned long long row = p.lane0 + (unsigned long long)lane;
     if (p.colpos != nullptr)
       row = (p.lane0 + (unsigned long long)(lane / p.n_loc)) * p.stride +
             (unsigned long long)p.colpos[lane % p.n_loc];
-    const unsigned long long base = row * (unsigned long long)p.W;
-    const unsigned le = (2u << wl) - 1;  // lanemask_le (all ones at 31)
-    long long d = 0;
-    int c = 0, wj = -1;
-    uint32_t word = 0;
-    while (t < budget - 1) {
-      if ((t >> 5) != wj) {  // the cursor reached a new word
-        wj = t >> 5;
-        word = lane_word(p.k0, p.k1, base + wj);
-      }
-      const int bit = (word >> (t & 31)) & 1;
-      const long long d2 = 2 * d + (1 - bit);
-      const int shift = K - 1 - c;
-      const bool mine = shift >= 0 && real && ((w >> shift) & 1);
-      const unsigned col = __ballot_sync(gmask, mine) & gmask;
-      const int cum = __popc(col);
-      const long long colsum = cum + ((shift >= 0) ? ((rej >> shift) & 1) : 0);
-      const bool hit = d2 < colsum;
-      ++t;
-      if (hit && d2 < cum) {  // leaf: the label whose prefix count is d2 + 1
-        const bool leaf = mine && __popc(col & le) == d2 + 1;
-        res = (__ffs(__ballot_sync(gmask, leaf) & gmask) - 1) & (G - 1);
-        done = true;
-        break;
-      }
-      if (hit || c + 1 >= K) {  // rejection pad (or level overflow)
-        d = 0;
-        c = 0;
-        ++att;
-      } else {
-        d = d2 - colsum;
-        ++c;
-      }
-    }
+    d = walk<G>(p.c, dist, real, gmask, wl, row);
   }
   if (l == 0) {
-    p.sample[lane] = res;
-    p.bits[lane] = t;
-    p.att[lane] = att;
-    p.ok[lane] = done;
+    p.sample[lane] = d.res;
+    p.bits[lane] = d.t;
+    p.att[lane] = d.att;
+    p.ok[lane] = d.done;
   }
 }
 
+// ---- grid source: one colour of a (B, H, W) MRF grid --------------------
+struct Grid {
+  Walk c;
+  int* labels;              // (B, H, W); the kept parity written in place
+  const float* unary;       // (H, W, L)
+  const float* pairwise;    // (L, L)
+  const bool* clamp;        // frozen sites, null: none
+  long long clamp_chain;    // clamp's stride between chains (0: shared)
+  const float* beta;        // inverse temperature, null: none
+  long long beta_chain;     // beta's stride between chains (0: shared)
+  unsigned long long* acc;  // [bits, attempts] of the kept sites, added to
+  unsigned long long lane0; // global row of site (0, 0, 0)
+  long long lanes;          // B * H * half
+  int H, width, half, parity;
+};
+
 template <int G>
-int launch_group(const Params& p, int block, cudaStream_t stream) {
-  const long long threads = (long long)p.b * G;
+__device__ __forceinline__ void gibbs_group(const Grid& p) {
+  __shared__ float pwt[MAX_L * MAX_L];  // pwt[m * L + l] = pairwise[l, m]
+  __shared__ unsigned sums[2][32];      // a warp's bits and attempts
+  const int L = p.c.L;
+  for (int i = threadIdx.x; i < L * L; i += blockDim.x)
+    pwt[(i % L) * L + i / L] = p.pairwise[i];
+  __syncthreads();
+
+  // no thread returns early: every one reaches the block's sums
+  const long long lane =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int wl = threadIdx.x & 31;
+  const int l = wl & (G - 1);
+  const unsigned gmask = group_mask<G>(wl);
+  const bool real = l < L;
+  bool keep = lane < p.lanes;  // the group's site is kept and free
+  int b = 0, h = 0, w = 0;
+  long long site = 0;
+  if (keep) {  // lanes < 2^31, so 32-bit division
+    const unsigned bh = (unsigned)lane / (unsigned)p.half;  // b * H + h
+    h = (int)(bh % (unsigned)p.H);
+    b = (int)(bh / (unsigned)p.H);
+    w = 2 * (int)((unsigned)lane - bh * (unsigned)p.half) +
+        ((h + p.parity) & 1);
+    site = (long long)bh * p.width + w;
+    keep = w < p.width &&
+           !(p.clamp != nullptr &&
+             p.clamp[b * p.clamp_chain + (long long)h * p.width + w]);
+  }
+  unsigned bits = 0, att = 0;
+  if (keep) {
+    float lw = __int_as_float((int)0xff800000);  // -inf
+    if (real) {
+      float s = 0.0f;  // up, down, left, right; off-grid adds nothing
+      if (h > 0) s = __fadd_rn(s, pwt[p.labels[site - p.width] * L + l]);
+      if (h < p.H - 1)
+        s = __fadd_rn(s, pwt[p.labels[site + p.width] * L + l]);
+      if (w > 0) s = __fadd_rn(s, pwt[p.labels[site - 1] * L + l]);
+      if (w < p.width - 1) s = __fadd_rn(s, pwt[p.labels[site + 1] * L + l]);
+      float e = __fadd_rn(p.unary[((long long)h * p.width + w) * L + l], s);
+      if (p.beta != nullptr) e = __fmul_rn(e, p.beta[b * p.beta_chain]);
+      lw = -e;
+    }
+    const Dist dist = distribution<G>(p.c, lw, real, gmask, l);
+    Draw d = bypass(dist);
+    if (!dist.det)
+      d = walk<G>(p.c, dist, real, gmask, wl,
+                  p.lane0 + (unsigned long long)site);
+    if (l == 0) {
+      p.labels[site] = d.res;
+      bits = d.t;
+      att = d.att;
+    }
+  }
+  // a block sums at most 512 lanes of at most 31 * 32 bits each
+  bits = __reduce_add_sync(0xffffffffu, bits);
+  att = __reduce_add_sync(0xffffffffu, att);
+  if (wl == 0) {
+    sums[0][threadIdx.x >> 5] = bits;
+    sums[1][threadIdx.x >> 5] = att;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const bool w_in = threadIdx.x < (blockDim.x >> 5);
+    bits = __reduce_add_sync(0xffffffffu, w_in ? sums[0][threadIdx.x] : 0u);
+    att = __reduce_add_sync(0xffffffffu, w_in ? sums[1][threadIdx.x] : 0u);
+    if (threadIdx.x == 0 && att) {  // att > 0 iff a lane was kept
+      atomicAdd(p.acc, (unsigned long long)bits);
+      atomicAdd(p.acc + 1, (unsigned long long)att);
+    }
+  }
+}
+
+template <int G, class Source>
+__global__ void fused_gibbs_group_kernel(const Source p) {
+  gibbs_group<G>(p);
+}
+
+template <int G, class Source>
+int launch_group(const Source& p, int block, cudaStream_t stream) {
+  const long long threads = p.lanes * G;
   const long long grid = (threads + block - 1) / block;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fused_gibbs_group_kernel<G><<<(unsigned)grid, block, 0, stream>>>(p);
+  fused_gibbs_group_kernel<G, Source><<<(unsigned)grid, block, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -232,6 +415,24 @@ int next_pow2(int x) {
   int g = 1;
   while (g < x) g <<= 1;
   return g;
+}
+
+// the launch at G = next_pow2(L) threads a lane (at least 2)
+template <class Source>
+int launch(const Source& p, int block, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (p.c.L < 2 ? 2 : next_pow2(p.c.L)) {
+    case 2: return launch_group<2>(p, block, s);
+    case 4: return launch_group<4>(p, block, s);
+    case 8: return launch_group<8>(p, block, s);
+    case 16: return launch_group<16>(p, block, s);
+    default: return launch_group<32>(p, block, s);
+  }
+}
+
+bool bad_shape(int L, int W, int block) {
+  return L < 1 || L > MAX_L || W < 1 || block < 32 || block > 1024 ||
+         block % 32;
 }
 
 }  // namespace
@@ -251,23 +452,58 @@ extern "C" int fused_gibbs_sample_launch(
     int L, int W, float wscale, int use_iu, int n_seg, float lo, float scale,
     float mask_value, int block, void* stream) {
   if (b <= 0) return 0;
-  if (L < 1 || L > 32 || W < 1 || block < 32 || block > 1024 || block % 32)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(L, W, block)) return (int)cudaErrorInvalidValue;
   if (colpos != nullptr && (n_loc < 1 || b % n_loc))
     return (int)cudaErrorInvalidValue;
-  const int g = L < 2 ? 2 : next_pow2(L);  // threads per lane
-  const Params p{static_cast<const float*>(logw), static_cast<const int*>(card),
-                 static_cast<const float*>(table), static_cast<int*>(sample),
-                 static_cast<int*>(bits), static_cast<int*>(att),
-                 static_cast<bool*>(ok), k0, k1, lane0,
-                 static_cast<const long long*>(colpos), n_loc, row_stride,
-                 b, L, W, wscale, use_iu, n_seg, lo, scale, mask_value};
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (g) {
-    case 2: return launch_group<2>(p, block, s);
-    case 4: return launch_group<4>(p, block, s);
-    case 8: return launch_group<8>(p, block, s);
-    case 16: return launch_group<16>(p, block, s);
-    default: return launch_group<32>(p, block, s);
-  }
+  const Walk c{static_cast<const float*>(table), k0, k1, L, W, wscale,
+               use_iu, n_seg, lo, scale};
+  const Gathered p{c, static_cast<const float*>(logw),
+                   static_cast<const int*>(card), static_cast<int*>(sample),
+                   static_cast<int*>(bits), static_cast<int*>(att),
+                   static_cast<bool*>(ok), lane0,
+                   static_cast<const long long*>(colpos), n_loc, row_stride,
+                   b, mask_value};
+  return launch(p, block, stream);
+}
+
+// One checkerboard colour update of the (B, H, width) int32 labels in
+// place: unary (H, width, L) and pairwise (L, L) float32; clamp (bool,
+// null for none) with clamp_chain 0 for an (H, width) mask or H * width
+// for a (B, H, width) one; beta (float32, null for none) with beta_chain 0
+// for one value or 1 for one a chain; acc two int64 sums (bits, attempts)
+// the kept sites are added to; lane0 the global row of site (0, 0, 0).
+// B * H * ceil(width / 2) lanes of next_pow2(L) threads (at least 2),
+// launched on `stream` of card `device` (made current for the launch and
+// restored after).  The arguments that change from one colour update of
+// a field to the next come last.  kernels/fused_sweep.py::
+// fused_mrf_launcher checks what this refuses.
+extern "C" int fused_mrf_halfstep_launch(
+    void* labels, const void* unary, const void* pairwise, const void* clamp,
+    long long clamp_chain, const void* beta, long long beta_chain, void* acc,
+    unsigned long long lane0, const void* table, int B, int H, int width,
+    int L, int W, float wscale, int use_iu, int n_seg, float lo, float scale,
+    int block, int device, void* stream, uint32_t k0, uint32_t k1,
+    int parity) {
+  if (B <= 0 || H <= 0 || width <= 0) return 0;
+  if (bad_shape(L, W, block) || (parity & ~1))
+    return (int)cudaErrorInvalidValue;
+  const int half = (width + 1) / 2;
+  const long long lanes = (long long)B * H * half;
+  if (lanes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Walk c{static_cast<const float*>(table), k0, k1, L, W, wscale,
+               use_iu, n_seg, lo, scale};
+  const Grid p{c, static_cast<int*>(labels),
+               static_cast<const float*>(unary),
+               static_cast<const float*>(pairwise),
+               static_cast<const bool*>(clamp), clamp_chain,
+               static_cast<const float*>(beta), beta_chain,
+               static_cast<unsigned long long*>(acc), lane0, lanes, H, width,
+               half, parity};
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = launch(p, block, stream);
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
 }

@@ -30,10 +30,21 @@ as ``sampler="torch"`` and as the reference's ``sampler="pallas"``/
 ``"xla"`` under the same key.  A group of ``next_pow2(L)`` threads (at
 least 2) walks each lane.
 
-:func:`fused_gibbs_sample` takes the plain version only for tensors that
-lie on the CPU; on a CUDA tensor it launches the kernel or raises.
-``fused_gibbs_sample.launches`` counts kernel launches, and
-``fused_gibbs_sample.shapes`` counts them by ``(b, L)``.
+:func:`fused_mrf_halfstep` launches the same kernel on an MRF grid: one
+checkerboard colour update in one launch, the site energies made in the
+kernel from the labels, the unary and the pairwise table, only the kept
+parity walked, the labels written in place and the stats summed on the
+card.  Site ``g`` (flat over ``(B, H, W)``) reads the words of global row
+``lane0 + g``, the row the all-sites draw gives it, so the kept sites'
+labels, bits and attempts are those of the plain version,
+:func:`fused_mrf_halfstep_ref`: the energies of every site, the plain
+sampler over all of them and the parity selected.
+
+:func:`fused_gibbs_sample` and :func:`fused_mrf_halfstep` take the plain
+version only for tensors that lie on the CPU; on a CUDA tensor they
+launch the kernel or raise.  ``fused_gibbs_sample.launches`` counts the
+kernel's launches from both, and ``fused_gibbs_sample.shapes`` counts
+them by ``(b, L)`` (``b = B * H * W`` for a grid's colour update).
 """
 from __future__ import annotations
 
@@ -62,6 +73,12 @@ MAX_FUSED_L = 32
 
 # the kernel takes the lane count as a C int
 MAX_FUSED_LANES = (1 << 31) - 1
+
+# words of bit budget a lane: 31 bits an attempt, 32 attempts
+_WORDS = rng_lib.bit_budget_words(31 * 32)
+
+# threads a block of a grid colour update's launch
+GRID_BLOCK = 256
 
 _COUNT_LOCK = threading.Lock()
 
@@ -145,6 +162,20 @@ def _entry():
     fn.argtypes = ([p, p, u, u, ctypes.c_uint64, p, ctypes.c_longlong,
                     ctypes.c_uint64] + [p] * 5
                    + [i, i, i, f, i, i, f, f, f, i, p])
+    fn.restype = i
+    return fn
+
+
+@functools.cache
+def _mrf_entry():
+    """The grid colour update's C entry point, as :func:`_entry`."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fused_sweep").fused_mrf_halfstep_launch
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    q = ctypes.c_longlong
+    fn.argtypes = ([p, p, p, p, q, p, q, p, ctypes.c_uint64, p]
+                   + [i] * 5 + [f, i, i, f, f, i, i, p, u, u, i])
     fn.restype = i
     return fn
 
@@ -285,3 +316,203 @@ def fused_gibbs_sample_ref(
     words = _words(key, b, max_attempts, logw.device, lane0, row_map)
     return _plain(logw, card, words, table or interp_lib._EXP_DEFAULT, k=k,
                   use_iu=use_iu, mask_value=mask_value)
+
+
+def _mrf_operands(labels, unary, pairwise, acc, clamp, beta, lane0: int):
+    """Check a grid colour update's operands as the kernel reads them,
+    with no card needed, and return ``(clamp, clamp_chain, beta,
+    beta_chain)``: the clamp mask (``(H, W)``, or ``(B, H, W)``/``(1, H,
+    W)``) and β (scalar, ``(1,)`` or ``(B,)``, flattened) as contiguous
+    tensors on the labels' device, None where not given, and their
+    strides between chains (0 where every chain shares them)."""
+    name = "fused MRF half-step"
+    if not (isinstance(labels, torch.Tensor) and labels.ndim == 3):
+        raise ValueError(f"{name}: labels must be a (B, H, W) tensor")
+    B, H, W = labels.shape
+    dev = labels.device
+    _common.check_device(dev, name)
+    L = unary.shape[-1] if unary.ndim else 0
+    launch_geometry(B * H * W, L, GRID_BLOCK)
+    _common.check_input(labels, torch.int32, (B, H, W), dev, name)
+    _common.check_input(unary, torch.float32, (H, W, L), dev, name)
+    _common.check_input(pairwise, torch.float32, (L, L), dev, name)
+    _common.check_input(acc, torch.int64, (2,), dev, name)
+    _check_lane0(lane0)
+    _check_lane0(int(lane0) + max(B * H * W - 1, 0))
+    clamp_chain = beta_chain = 0
+    if clamp is not None:
+        clamp = torch.as_tensor(clamp, dtype=torch.bool, device=dev)
+        if not (tuple(clamp.shape) == (H, W) or (
+                clamp.ndim == 3 and tuple(clamp.shape[1:]) == (H, W)
+                and clamp.shape[0] in (1, B))):
+            raise ValueError(f"{name}: clamp must be (H, W) or (B, H, W) = "
+                             f"{(B, H, W)} (got {tuple(clamp.shape)})")
+        clamp = clamp.contiguous()
+        if clamp.ndim == 3 and clamp.shape[0] > 1:
+            clamp_chain = H * W
+    if beta is not None:
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+        if beta.ndim > 1 or beta.numel() not in (1, B):
+            raise ValueError(f"{name}: beta must be a scalar or (B,) = "
+                             f"({B},) (got {tuple(beta.shape)})")
+        beta = beta.reshape(-1).contiguous()
+        beta_chain = int(beta.numel() > 1)
+    return clamp, clamp_chain, beta, beta_chain
+
+
+def _check_parity(parity) -> None:
+    if parity not in (0, 1):
+        raise ValueError(f"fused MRF half-step: parity must be 0 or 1 (got "
+                         f"{parity})")
+
+
+def fused_mrf_launcher(
+    labels: torch.Tensor,      # (B, H, W) int32, updated in place
+    unary: torch.Tensor,       # (H, W, L) float32
+    pairwise: torch.Tensor,    # (L, L) float32
+    *,
+    acc: torch.Tensor,         # (2,) int64: bits, attempts added to
+    clamp=None,                # (H, W) or (B, H, W) bool, True = frozen
+    beta=None,                 # inverse temperature, scalar or (B,)
+    k: int,
+    use_iu: bool = True,
+    table: interp_lib.InterpTable | None = None,
+    lane0: int = 0,
+):
+    """Check one label field's operands once and return ``launch(key,
+    parity)``, which runs :func:`fused_mrf_halfstep` on them: a caller
+    that updates the same field half-step after half-step (``mrf_gibbs``)
+    pays the checks and the placing of the mask, β and the LUT once, and
+    each launch only its key.  Every launch goes to the card's current
+    stream as it was when the launcher was made.  The tensors are held,
+    not copied: ``labels`` and ``acc`` are updated in place by every
+    launch.  Refuses what the kernel does not take before anything runs;
+    ``launch`` refuses a parity other than 0 or 1."""
+    _check_k(k)
+    clamp, clamp_chain, beta, beta_chain = _mrf_operands(
+        labels, unary, pairwise, acc, clamp, beta, lane0)
+    table = table or interp_lib._EXP_DEFAULT
+    dev = labels.device
+    if dev.type == "cpu":
+        def launch(key, parity) -> None:
+            _check_parity(parity)
+            _plain_mrf(key, labels, unary, pairwise, parity, acc, clamp,
+                       beta, k=k, use_iu=use_iu, table=table, lane0=lane0)
+        return launch
+    B, H, W = labels.shape
+    L = unary.shape[-1]
+    tab = table.table.to(device=dev, dtype=torch.float32).contiguous()
+    if tab.numel() != (1 << table.m) + 1:
+        raise ValueError("LUT must hold 2**m + 1 nodes")
+    entry = _mrf_entry()
+    fixed = (labels.data_ptr(), unary.data_ptr(), pairwise.data_ptr(),
+             None if clamp is None else clamp.data_ptr(), clamp_chain,
+             None if beta is None else beta.data_ptr(), beta_chain,
+             acc.data_ptr(), int(lane0), tab.data_ptr(), B, H, W, L, _WORDS,
+             float(2 ** k - 1), int(bool(use_iu)), 1 << table.m,
+             float(table.lo), float(table.scale), GRID_BLOCK, dev.index,
+             _common.stream(dev))
+    held = (labels, unary, pairwise, acc, clamp, beta, tab)
+
+    def launch(key, parity) -> None:
+        _check_parity(parity)
+        k0, k1 = rng_lib._key_words(key)
+        _common.raise_on(entry(*fixed, k0, k1, int(parity)),
+                         "fused_mrf_halfstep")
+        _count_launch(B * H * W, L)
+    launch.held = held     # the pointers' tensors live as long as launch
+    return launch
+
+
+def fused_mrf_halfstep(
+    key,
+    labels: torch.Tensor,      # (B, H, W) int32, updated in place
+    unary: torch.Tensor,       # (H, W, L) float32
+    pairwise: torch.Tensor,    # (L, L) float32
+    parity: int,
+    *,
+    acc: torch.Tensor,         # (2,) int64: bits, attempts added to
+    clamp=None,                # (H, W) or (B, H, W) bool, True = frozen
+    beta=None,                 # inverse temperature, scalar or (B,)
+    k: int,
+    use_iu: bool = True,
+    table: interp_lib.InterpTable | None = None,
+    lane0: int = 0,
+) -> None:
+    """One checkerboard colour update of an MRF grid in one launch.
+
+    Resamples the sites ``(h + w) % 2 == parity`` of every chain that
+    ``clamp`` does not freeze, from their energies against the current
+    labels (``unary[h, w, l]`` plus ``pairwise[l, m]`` of the in-grid
+    neighbours, times β where given), writing the new labels into
+    ``labels`` and adding the random bits the kept sites read and their
+    attempts to ``acc``.  ``lane0`` is the global row of site ``(0, 0,
+    0)``: a lane shard whose first chain is global chain ``c`` passes
+    ``c * H * W``.  Equal bit for bit to ``checkerboard_halfstep``'s
+    plain path under the same key.  CPU tensors run
+    :func:`fused_mrf_halfstep_ref`; CUDA tensors launch the kernel.
+    Refuses what the kernel does not take before anything runs.
+    """
+    _check_parity(parity)
+    fused_mrf_launcher(labels, unary, pairwise, acc=acc, clamp=clamp,
+                       beta=beta, k=k, use_iu=use_iu, table=table,
+                       lane0=lane0)(key, parity)
+
+
+def _plain_mrf(key, labels, unary, pairwise, parity, acc, clamp, beta, *,
+               k: int, use_iu: bool, table: interp_lib.InterpTable,
+               lane0: int) -> KYResult:
+    """The grid colour update's plain version on checked operands."""
+    # the plain energies live in pgm.gibbs, which imports this module
+    from repro_torch.pgm.gibbs import neighbor_pair_energy
+
+    B, H, W = labels.shape
+    L = unary.shape[-1]
+    dev = labels.device
+    e = unary[None] + neighbor_pair_energy(labels, pairwise)
+    if beta is not None:
+        e = e * beta[:, None, None, None]
+    n = B * H * W
+    res = _plain(-e.reshape(n, L), _lane_card(L, n, dev),
+                 _words(key, n, 32, dev, lane0), table, k=k, use_iu=use_iu,
+                 mask_value=MASK_NEG)
+    ar_h = torch.arange(H, device=dev)
+    ar_w = torch.arange(W, device=dev)
+    keep = (((ar_h[:, None] + ar_w[None, :]) % 2) == int(parity))[None]
+    if clamp is not None:
+        keep = keep & ~clamp.reshape(-1, H, W)
+    labels.copy_(torch.where(keep, res.sample.reshape(B, H, W), labels))
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    acc += torch.stack([
+        torch.where(keep, f.reshape(B, H, W), zero).sum()
+        for f in (res.bits_used, res.attempts)])
+    return res
+
+
+def fused_mrf_halfstep_ref(
+    key,
+    labels: torch.Tensor,
+    unary: torch.Tensor,
+    pairwise: torch.Tensor,
+    parity: int,
+    *,
+    acc: torch.Tensor,
+    clamp=None,
+    beta=None,
+    k: int,
+    use_iu: bool = True,
+    table: interp_lib.InterpTable | None = None,
+    lane0: int = 0,
+) -> KYResult:
+    """Plain PyTorch twin of :func:`fused_mrf_halfstep` on any device:
+    every site's energies, β and negation, :func:`fused_gibbs_sample_ref`
+    over all ``B * H * W`` rows, and the kept sites selected; ``labels``
+    and ``acc`` are updated in place as the kernel updates them.  Returns
+    the draw of every site (the kept sites' rows are the kernel's)."""
+    _check_k(k)
+    _check_parity(parity)
+    clamp, _, beta, _ = _mrf_operands(labels, unary, pairwise, acc, clamp,
+                                      beta, lane0)
+    return _plain_mrf(key, labels, unary, pairwise, parity, acc, clamp, beta,
+                      k=k, use_iu=use_iu,
+                      table=table or interp_lib._EXP_DEFAULT, lane0=lane0)

@@ -5,15 +5,18 @@ energies → max-subtracted ``exp`` through the IU LUT → fixed-point
 integer weights → non-normalized Knuth-Yao sample.  No per-site
 normalization sum is ever computed.
 
-All sites of all chains are drawn in one call per half-step and one
-checkerboard parity is kept — the reference's scheme, which fixes the
-bit words each site reads: word ``j`` of site ``i`` (flat over
-``(B, H, W)``) is threefry of counter ``i * 31 + j``.  With
-``sampler="cuda"`` the draw is one launch of the fused kernel
-(``kernels/csrc/fused_sweep.cu``) over all ``B * H * W`` lanes; with
-``sampler="torch"`` it is the plain :func:`site_weights` →
-:func:`repro_torch.core.ky.ky_sample` path.  Both return the JAX
-package's labels, bits and attempts bit for bit under the same key.
+The reference draws all sites of all chains in one call per half-step
+and keeps one checkerboard parity, which fixes the bit words each site
+reads: word ``j`` of site ``i`` (flat over ``(B, H, W)``) is threefry of
+counter ``i * 31 + j``.  With ``sampler="torch"`` a half-step is that
+scheme in plain PyTorch: :func:`site_weights` →
+:func:`repro_torch.core.ky.ky_sample` over every site, then the parity
+selected.  With ``sampler="cuda"`` it is one launch of the fused kernel
+(``kernels/fused_sweep.py::fused_mrf_halfstep``), which makes the kept
+sites' energies itself, walks only those sites on their own words,
+writes their labels in place and sums their stats on the card.  Both
+return the JAX package's labels, bits and attempts bit for bit under the
+same key.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.core import rng as rng_lib
 from repro_torch.core.fixedpoint import DEFAULT_K
 from repro_torch.core.interp import InterpTable
 from repro_torch.core.ky import ky_sample
-from repro_torch.kernels.fused_sweep import fused_gibbs_sample
+from repro_torch.kernels.fused_sweep import fused_mrf_launcher
 from repro_torch.pgm.compile import _check_sampler, _exp_on
 from repro_torch.pgm.graph import MRFGrid
 from repro_torch.serve import telemetry
@@ -84,6 +87,44 @@ def site_weights(labels: torch.Tensor, unary: torch.Tensor,
     return _weights_from_energies(energies, k=k, table=table, use_iu=use_iu)
 
 
+def _fused_halfstep(launch, key, parity: int, *, lanes: int, L: int) -> None:
+    """One colour update on the fused kernel: ``launch(key, parity)`` of a
+    :func:`fused_mrf_launcher` writes the labels in place and adds the kept
+    sites' bits and attempts to its accumulator.  Recorded as a
+    ``pgm.halfstep`` span holding one ``pgm.sample`` (the launch) and the
+    counters ``pgm_halfsteps_total{L}`` and ``pgm_fused_halfsteps_total{L}``
+    where :func:`telemetry.current` is live."""
+    tel = telemetry.current()
+    if not tel.enabled:
+        launch(key, parity)
+        return
+    tid = tel.track(threading.current_thread().name)
+    tel.count("pgm_halfsteps_total", L=L)
+    tel.count("pgm_fused_halfsteps_total", L=L)
+    with tel.span("pgm.halfstep", tid, parity=int(parity), lanes=lanes, L=L):
+        with tel.span("pgm.sample", tid, sampler="cuda"):
+            launch(key, parity)
+
+
+def _launcher(labels: torch.Tensor, unary, pairwise, acc, *, clamp, beta,
+              k: int, use_iu: bool, lane0: int):
+    """The fused kernel's launcher on ``labels`` (updated in place) with
+    the shared exp LUT; ``lane0`` is the first chain's global index."""
+    h, w = labels.shape[1:]
+    return fused_mrf_launcher(labels, unary, pairwise, acc=acc, clamp=clamp,
+                              beta=beta, k=k, use_iu=use_iu,
+                              table=_exp_on(str(labels.device)),
+                              lane0=lane0 * h * w)
+
+
+def _placed(labels: torch.Tensor, unary, pairwise):
+    """The unary and pairwise fields as contiguous float32 on the labels'
+    device (no copy where they already are)."""
+    return tuple(torch.as_tensor(x, dtype=torch.float32,
+                                 device=labels.device).contiguous()
+                 for x in (unary, pairwise))
+
+
 def checkerboard_halfstep(
     key,
     labels: torch.Tensor,        # (B, H, W) int32
@@ -103,21 +144,35 @@ def checkerboard_halfstep(
     ``clamp`` marks evidence (observed-pixel) sites: they are skipped by
     the update and by the bit accounting, but their fixed labels still
     contribute pairwise energy to their neighbours.  ``beta`` scales the
-    site energies before the sampler branch (the MAP mode's annealing);
-    None is ordinary Gibbs.  ``sampler="cuda"`` hands the negated
-    energies to the fused kernel (negation is exact, so the kernel's
-    ``(-e) - max(-e)`` is the plain path's ``-(e - min e)``).  The
-    sampler's rows are sites, chain-major; a lane shard whose first chain
-    is global chain ``lane0`` reads the bits of rows from ``lane0·H·W``.
+    site energies before the sampler (the MAP mode's annealing); None is
+    ordinary Gibbs.  The sampler's rows are sites, chain-major; a lane
+    shard whose first chain is global chain ``lane0`` reads the bits of
+    rows from ``lane0·H·W``.  ``labels`` is not written: the result is a
+    new tensor.  ``sampler="cuda"`` is one launch of the fused kernel on a
+    copy of ``labels`` (int32).  ``sampler="torch"`` computes every site's
+    energies, hands them to the plain sampler and selects the parity.
 
     Recorded through :func:`telemetry.current` when it is live: a
-    ``pgm.halfstep`` span over the call holding ``pgm.energies`` (the
-    site energies, β scaling and, for the kernel, negation),
-    ``pgm.sample`` and ``pgm.select`` (the parity mask, the update and
-    the stats sums), and the counter ``pgm_halfsteps_total{L}``.  The
-    spans lie on the calling thread's track, so the half-steps of groups
-    that a server runs on several threads do not overlap on one.
+    ``pgm.halfstep`` span and the counter ``pgm_halfsteps_total{L}``.  On
+    the torch path the span covers the call and holds ``pgm.energies``
+    (the site energies and β scaling), ``pgm.sample`` and ``pgm.select``
+    (the parity mask, the update and the stats sums); on the fused path
+    it covers the launch (the copy, the accumulator and the launcher's
+    checks come before it) and holds one ``pgm.sample`` around it, and
+    ``pgm_fused_halfsteps_total{L}`` counts it too.  The spans lie on the
+    calling thread's track, so the half-steps of groups that a server
+    runs on several threads do not overlap on one.
     """
+    _check_sampler(sampler, labels.device)
+    if sampler == "cuda":
+        unary, pairwise = _placed(labels, unary, pairwise)
+        out = labels.clone(memory_format=torch.contiguous_format)
+        acc = torch.zeros(2, dtype=torch.int64, device=labels.device)
+        launch = _launcher(out, unary, pairwise, acc, clamp=clamp, beta=beta,
+                           k=k, use_iu=use_iu, lane0=lane0)
+        _fused_halfstep(launch, key, parity, lanes=out.numel(),
+                        L=len(pairwise))
+        return out, SweepStats(bits_used=acc[0], attempts=acc[1])
     tel = telemetry.current()
     on = tel.enabled
     if on:
@@ -127,7 +182,6 @@ def checkerboard_halfstep(
                    lanes=labels.numel(), L=len(pairwise))
           if on else NULL_SPAN):
         dev = labels.device
-        _check_sampler(sampler, dev)
         b, h, w = labels.shape
         unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
         pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
@@ -138,18 +192,10 @@ def checkerboard_halfstep(
                 bb = torch.as_tensor(beta, dtype=energies.dtype, device=dev)
                 energies = energies * (bb[:, None, None, None] if bb.ndim == 1
                                        else bb)
-            if sampler == "cuda":
-                energies = -energies
         with (tel.span("pgm.sample", tid, sampler=sampler) if on
               else NULL_SPAN):
-            if sampler == "cuda":
-                res = fused_gibbs_sample(
-                    key, energies.reshape((-1, l)), l, k=k, use_iu=use_iu,
-                    table=_exp_on(str(dev)), lane0=lane0 * h * w)
-            else:
-                wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
-                res = ky_sample(key, wts.reshape((-1, l)),
-                                lane0=lane0 * h * w)
+            wts = _weights_from_energies(energies, k=k, use_iu=use_iu)
+            res = ky_sample(key, wts.reshape((-1, l)), lane0=lane0 * h * w)
         with tel.span("pgm.select", tid) if on else NULL_SPAN:
             new = res.sample.reshape((b, h, w)).to(labels.dtype)
             ar_h = torch.arange(h, device=dev)
@@ -182,12 +228,16 @@ def mrf_gibbs(
 ) -> tuple[torch.Tensor, SweepStats]:
     """``n_sweeps`` full checkerboard sweeps (2 half-steps each) on the
     device of ``labels0``; stats are int64 totals on that device.
+    ``labels0`` is not written.
 
     ``clamp`` ((H, W) or (B, H, W) bool) freezes evidence sites for the
     whole run — pin their labels in ``labels0`` first (see
-    :func:`clamp_labels`).  A live :func:`telemetry.current` records the
-    call as a ``pgm.mrf_gibbs`` span around its half-steps' spans, on the
-    calling thread's track.
+    :func:`clamp_labels`).  With ``sampler="cuda"`` the fields are placed
+    once, ``labels0`` is copied once and each half-step is one launch of
+    the fused kernel on that copy, its stats summed on the card into one
+    accumulator.  A live :func:`telemetry.current` records the call as a
+    ``pgm.mrf_gibbs`` span around its half-steps' spans, on the calling
+    thread's track.
     """
     tel = telemetry.current()
     with (tel.span("pgm.mrf_gibbs", tel.track(threading.current_thread().name),
@@ -196,8 +246,18 @@ def mrf_gibbs(
           if tel.enabled else NULL_SPAN):
         dev = labels0.device
         _check_sampler(sampler, dev)
-        unary = torch.as_tensor(unary, dtype=torch.float32, device=dev)
-        pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+        unary, pairwise = _placed(labels0, unary, pairwise)
+        if sampler == "cuda":
+            labels = labels0.clone(memory_format=torch.contiguous_format)
+            acc = torch.zeros(2, dtype=torch.int64, device=dev)
+            launch = _launcher(labels, unary, pairwise, acc, clamp=clamp,
+                               beta=None, k=k, use_iu=use_iu, lane0=0)
+            for _ in range(n_sweeps):
+                key, k0, k1 = rng_lib.split(key, 3)
+                for parity, sub in ((0, k0), (1, k1)):
+                    _fused_halfstep(launch, sub, parity,
+                                    lanes=labels.numel(), L=len(pairwise))
+            return labels, SweepStats(bits_used=acc[0], attempts=acc[1])
         labels = labels0
         bits = att = torch.zeros((), dtype=torch.int64, device=dev)
         for _ in range(n_sweeps):

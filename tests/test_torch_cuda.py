@@ -217,6 +217,129 @@ def test_halfstep_beta_cuda_equals_torch(cuda_device):
     assert int(outs[0][1].bits_used) == int(outs[1][1].bits_used)
 
 
+# (L, H, W, B, clamp, beta, first chain): the cells' own grids, odd and
+# even sides, clamp as (H, W) and (B, H, W), β as a scalar and (B,)
+_GRID_CASES = [
+    (2, 500, 333, 2, None, None, 0),
+    (16, 288, 384, 2, None, None, 0),
+    (3, 7, 9, 3, "hw", "scalar", 0),
+    (32, 6, 10, 3, "bhw", "chains", 5),
+    (16, 9, 8, 4, "bhw", "scalar", 2),
+    (2, 8, 7, 4, "hw", "chains", 1),
+    (3, 500, 333, 1, "hw", None, 3),
+    (32, 288, 384, 1, None, "chains", 0),
+]
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("case", _GRID_CASES, ids=[
+    f"L{c[0]}-{c[1]}x{c[2]}x{c[3]}-{c[4]}-{c[5]}-c{c[6]}"
+    for c in _GRID_CASES])
+def test_grid_launch_equals_torch_halfstep(cuda_device, case, parity):
+    """One grid launch (``checkerboard_halfstep(sampler="cuda")``) against
+    the plain half-step on the card under the same key: labels, bits and
+    attempts bit for bit; the kernel called directly on a copy equals its
+    plain twin, and the launch is counted once at (B·H·W, L)."""
+    from repro_torch.pgm import gibbs
+
+    L, H, W, B, kind_c, kind_b, chain0 = case
+    r = np.random.default_rng(L * 7 + H)
+    lab = torch.tensor(r.integers(0, L, (B, H, W)), dtype=torch.int32,
+                       device=cuda_device)
+    unary = torch.tensor(r.normal(0, 2, (H, W, L)), dtype=torch.float32,
+                         device=cuda_device)
+    pw = torch.tensor(r.normal(0, 1, (L, L)), dtype=torch.float32,
+                      device=cuda_device)
+    clamp = {None: None, "hw": r.random((H, W)) < 0.3,
+             "bhw": r.random((B, H, W)) < 0.3}[kind_c]
+    clamp = None if clamp is None else torch.tensor(clamp, device=cuda_device)
+    beta = {None: None, "scalar": 0.7,
+            "chains": torch.linspace(0.5, 3.0, B, device=cuda_device)}[kind_b]
+    key = rng.PRNGKey(17 + parity)
+    before = lab.clone()
+    n0, s0 = fs.fused_gibbs_sample.launches, fs.fused_gibbs_sample.shapes[
+        (B * H * W, L)]
+    got, sc = gibbs.checkerboard_halfstep(key, lab, unary, pw, parity,
+                                          clamp=clamp, beta=beta,
+                                          lane0=chain0, sampler="cuda")
+    assert fs.fused_gibbs_sample.launches == n0 + 1
+    assert fs.fused_gibbs_sample.shapes[(B * H * W, L)] == s0 + 1
+    want, st = gibbs.checkerboard_halfstep(key, lab, unary, pw, parity,
+                                           clamp=clamp, beta=beta,
+                                           lane0=chain0, sampler="torch")
+    assert torch.equal(lab, before)
+    assert torch.equal(got, want)
+    assert (int(sc.bits_used), int(sc.attempts)) == (int(st.bits_used),
+                                                     int(st.attempts))
+    table = interp.exp_table().to(cuda_device)
+    outs = []
+    for fn in (fs.fused_mrf_halfstep, fs.fused_mrf_halfstep_ref):
+        x, acc = before.clone(), torch.zeros(2, dtype=torch.int64,
+                                             device=cuda_device)
+        fn(key, x, unary, pw, parity, acc=acc, clamp=clamp, beta=beta, k=14,
+           table=table, lane0=chain0 * H * W)
+        outs.append((x, acc))
+    assert torch.equal(outs[0][0], want) and torch.equal(outs[1][0], want)
+    assert torch.equal(outs[0][1], outs[1][1])
+    del lab, got, want, outs
+
+
+def test_mrf_gibbs_leaves_labels0_unwritten(cuda_device):
+    """``mrf_gibbs`` on the kernel copies ``labels0`` once and writes the
+    copy."""
+    from repro_torch.pgm import gibbs, networks
+
+    mrf, _ = networks.art_task(24, 20, n_labels=6)
+    lab = gibbs.init_labels(rng.PRNGKey(2), mrf, 3)
+    before = lab.clone()
+    out, st = gibbs.mrf_gibbs(rng.PRNGKey(5), lab, mrf.unary, mrf.pairwise,
+                              n_sweeps=3, sampler="cuda")
+    assert torch.equal(lab, before) and not torch.equal(out, before)
+    assert out.data_ptr() != lab.data_ptr() and int(st.attempts) > 0
+
+
+def test_fused_halfstep_is_one_sample_span_and_one_launch(cuda_device):
+    """Under a live recorder a fused half-step is one ``pgm.halfstep``
+    span holding exactly one ``pgm.sample`` and no other span, around
+    exactly one launch of the fused kernel and no other kernel."""
+    from repro_torch.pgm import gibbs, networks
+    from repro_torch.serve import telemetry
+
+    mrf, _ = networks.penguin_task(40, 33)
+    lab = gibbs.init_labels(rng.PRNGKey(0), mrf, 2)
+    unary = torch.as_tensor(mrf.unary, dtype=torch.float32,
+                            device=cuda_device)
+    pw = torch.as_tensor(mrf.pairwise, dtype=torch.float32,
+                         device=cuda_device)
+    x = lab.clone()
+    acc = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    launch = gibbs._launcher(x, unary, pw, acc, clamp=None, beta=None, k=14,
+                             use_iu=True, lane0=0)
+    kw = dict(lanes=x.numel(), L=2)
+    gibbs._fused_halfstep(launch, rng.PRNGKey(1), 0, **kw)
+    torch.cuda.synchronize()
+    tel = telemetry.Telemetry()
+    telemetry.install(tel)
+    n0 = fs.fused_gibbs_sample.launches
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            gibbs._fused_halfstep(launch, rng.PRNGKey(1), 1, **kw)
+            torch.cuda.synchronize()
+    finally:
+        telemetry.install(None)
+    assert fs.fused_gibbs_sample.launches == n0 + 1
+    spans = [e for e in tel.events() if e["ph"] == "X"]
+    assert sorted(e["name"] for e in spans) == ["pgm.halfstep", "pgm.sample"]
+    assert tel.metrics_snapshot() == {"pgm_halfsteps_total{L=2}": 1,
+                                      "pgm_fused_halfsteps_total{L=2}": 1}
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels and all("fused_gibbs_group_kernel" in e.name
+                           for e in kernels), [e.name for e in kernels]
+    assert len(kernels) == 1
+
+
 def test_run_fg_gibbs_cuda_equals_torch(cuda_device):
     """A random sparse spin glass with a degree-16 bucket, and clamped
     spins: states, counts and stats."""
