@@ -2,7 +2,9 @@
 
 Selectable via ``--config aia-mrf-penguin`` etc. in
 ``repro_torch/launch/run_mcmc.py``.  A plain copy of the reference's
-``repro.configs.aia_paper``: same names, sizes and knobs.
+``repro.configs.aia_paper``: same names, sizes and knobs, plus
+``bn-munin-scale``, the port's own (a net at Munin's published counts,
+``pgm/networks.py::munin_scale``; 1,024 chains).
 """
 from dataclasses import dataclass
 
@@ -45,6 +47,8 @@ BAYESNETS = {
                                network="alarm_scale", n_chains=256),
     "aia-bn-hailfinder": MCMCConfig(name="aia-bn-hailfinder", kind="bayesnet",
                                     network="hailfinder_scale", n_chains=128),
+    "bn-munin-scale": MCMCConfig(name="bn-munin-scale", kind="bayesnet",
+                                 network="munin_scale", n_chains=1024),
 }
 
 MCMC_CONFIGS = {PENGUIN.name: PENGUIN, ART.name: ART, **BAYESNETS}

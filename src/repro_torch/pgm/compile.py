@@ -16,11 +16,21 @@ bank, followed by the IU-exp → KY-sample pipeline.  All nodes of a color
 update in parallel, chains batch on top.  Compiling is numpy and gives
 the same plans as the JAX package; the sweep runs on torch tensors of
 any device, with ``sampler="cuda"`` (the fused kernel) or ``"torch"``
-(the two-stage plain path).
+(the two-stage plain path).  :func:`bn_gibbs` is the offline driver
+(sweeps from given states, stats left on the device); :func:`run_gibbs`
+runs it from random states and tallies the marginals.
+
+A live :func:`repro_torch.serve.telemetry.current` records a call of
+:func:`bn_gibbs` as a ``pgm.bn_gibbs`` span, and each colour update as a
+``pgm.color_update`` span holding ``pgm.gather`` and ``pgm.sample``, with
+the counters ``pgm_color_updates_total{L}`` and
+``pgm_bn_label_slots_total{kind}`` (see :func:`_color_update`).
 """
 from __future__ import annotations
 
 import functools
+import threading
+import weakref
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
@@ -34,6 +44,8 @@ from repro_torch.core.ky import ky_sample
 from repro_torch.kernels.fused_sweep import fused_gibbs_sample
 from repro_torch.pgm.coloring import color_bayesnet
 from repro_torch.pgm.graph import BayesNet
+from repro_torch.serve import telemetry
+from repro_torch.serve.telemetry import NULL_SPAN
 
 _NEG = -60.0  # log-domain floor (exp() underflows the k<=24 grid anyway)
 
@@ -204,14 +216,36 @@ def sum_sweep_stats(stats: "BNSweepStats") -> "BNSweepStats":
                         attempts=total(stats.attempts))
 
 
+# a plan -> label slots of one chain's colour update that hold a real
+# state of a real table (set for placed plans by plans_on, so a traced
+# colour update reads it without a copy from the device)
+_REAL_SLOTS: "weakref.WeakKeyDictionary[ColorPlan, int]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _real_slots(plan: ColorPlan) -> int:
+    """``sum_v card_v * (1 + children_v)`` over the plan's nodes (padded
+    child slots have a zero ``ch_vstride``)."""
+    n = _REAL_SLOTS.get(plan)
+    if n is None:
+        card = np.asarray(torch.as_tensor(plan.card).cpu())
+        n_ch = (np.asarray(torch.as_tensor(plan.ch_vstride).cpu())
+                != 0).sum(-1)
+        n = _REAL_SLOTS[plan] = int((card * (1 + n_ch)).sum())
+    return n
+
+
 def plans_on(plans, device) -> tuple[ColorPlan, ...]:
     """The plans' index arrays as int64 tensors on ``device`` — made once
     per runner so a sweep does no host-to-device copies."""
-    return tuple(
-        ColorPlan(**{f.name: torch.as_tensor(
+    out = []
+    for p in plans:
+        placed = ColorPlan(**{f.name: torch.as_tensor(
             np.asarray(getattr(p, f.name)), dtype=torch.int64, device=device)
             for f in fields(ColorPlan)})
-        for p in plans)
+        _REAL_SLOTS[placed] = _real_slots(p)
+        out.append(placed)
+    return tuple(out)
 
 
 @functools.cache
@@ -266,70 +300,100 @@ def _color_update(
     sampler: str = "torch",
     beta: torch.Tensor | None = None,   # inverse temperature, (B,) or scalar
     lane0: int = 0,             # global chain index of x's first lane
+    color: int = 0,             # the plan's index, for the span
 ) -> tuple[torch.Tensor, BNSweepStats]:
+    """Resample the plan's nodes in every chain of ``x`` (a new tensor).
+
+    Recorded through :func:`telemetry.current` when it is live: a
+    ``pgm.color_update`` span (``color``, ``lanes`` = B·G, ``L``, ``C``)
+    holding ``pgm.gather`` (the own-row and children gathers, their fold
+    and the β scaling) and ``pgm.sample`` (the fused launch, or the plain
+    weights and walk); the counters ``pgm_color_updates_total{L}`` and
+    ``pgm_bn_label_slots_total{kind}``: ``real``, the lanes' real label
+    slots ``sum card_v * (1 + children_v)``, and ``padded``, the slots
+    gathered, ``lanes * L * (1 + C)``.
+    """
     # the sampler's rows are (chain, node) pairs, chain-major: a lane
     # shard's rows start at global row lane0 * G of the unsharded update
     dev = x.device
     i64 = torch.int64
+    tel = telemetry.current()
+    on = tel.enabled
+    if on:
+        tid = tel.track(threading.current_thread().name)
+        n_b, (g, c_pad) = x.shape[0], plan.ch_off.shape
+        tel.count("pgm_color_updates_total", L=max_card)
+        tel.count("pgm_bn_label_slots_total", n_b * _real_slots(plan),
+                  kind="real")
+        tel.count("pgm_bn_label_slots_total",
+                  n_b * g * max_card * (1 + c_pad), kind="padded")
 
     def t(a):
         return torch.as_tensor(a, dtype=i64, device=dev)
 
-    ls = torch.arange(max_card, dtype=i64, device=dev)     # (L,)
-    nodes, card = t(plan.nodes), t(plan.card)               # (G,)
-    xl = x.to(i64)
+    with (tel.span("pgm.color_update", tid, color=color, lanes=n_b * g,
+                   L=max_card, C=c_pad) if on else NULL_SPAN):
+        ls = torch.arange(max_card, dtype=i64, device=dev)     # (L,)
+        nodes, card = t(plan.nodes), t(plan.card)               # (G,)
+        xl = x.to(i64)
 
-    # --- own CPT row: offset + Σ stride_j * x[pa_j] + l -------------------
-    pa_states = xl[:, t(plan.self_pa)]                      # (B, G, P)
-    base = t(plan.self_base_off)[None] + (
-        t(plan.self_pa_stride)[None] * pa_states).sum(dim=-1)   # (B, G)
-    logw = _take_clip(log_cpt, base[..., None] + ls)        # (B, G, L)
+        with tel.span("pgm.gather", tid) if on else NULL_SPAN:
+            # --- own CPT row: offset + Σ stride_j * x[pa_j] + l -----------
+            pa_states = xl[:, t(plan.self_pa)]                  # (B, G, P)
+            base = t(plan.self_base_off)[None] + (
+                t(plan.self_pa_stride)[None] * pa_states).sum(dim=-1)
+            logw = _take_clip(log_cpt, base[..., None] + ls)    # (B, G, L)
 
-    # --- children likelihood terms ---------------------------------------
-    ch_pa_states = xl[:, t(plan.ch_pa)]                     # (B, G, C, P)
-    ch_base = (
-        t(plan.ch_off)[None]
-        + (t(plan.ch_pa_stride)[None] * ch_pa_states).sum(dim=-1)
-        + t(plan.ch_self_stride)[None] * xl[:, t(plan.ch_self)]
-    )                                                       # (B, G, C)
-    ch_idx = ch_base[..., None] + t(plan.ch_vstride)[None, ..., None] * ls
-    terms = _take_clip(log_cpt, ch_idx)                     # (B, G, C, L)
-    # the reference's sum over C, as an explicit left fold (same floats)
-    ch_sum = terms[:, :, 0]
-    for c in range(1, terms.shape[2]):
-        ch_sum = ch_sum + terms[:, :, c]
-    logw = logw + ch_sum
+            # --- children likelihood terms -------------------------------
+            ch_pa_states = xl[:, t(plan.ch_pa)]                 # (B, G, C, P)
+            ch_base = (
+                t(plan.ch_off)[None]
+                + (t(plan.ch_pa_stride)[None] * ch_pa_states).sum(dim=-1)
+                + t(plan.ch_self_stride)[None] * xl[:, t(plan.ch_self)]
+            )                                                   # (B, G, C)
+            ch_idx = (ch_base[..., None]
+                      + t(plan.ch_vstride)[None, ..., None] * ls)
+            terms = _take_clip(log_cpt, ch_idx)                 # (B, G, C, L)
+            # the reference's sum over C, as an explicit left fold (same
+            # floats)
+            ch_sum = terms[:, :, 0]
+            for c in range(1, terms.shape[2]):
+                ch_sum = ch_sum + terms[:, :, c]
+            logw = logw + ch_sum
 
-    # --- annealing: scale log-weights by the inverse temperature ----------
-    # Applied before the sampler branch, so both samplers see the same
-    # floats.  The valid-label max is subtracted *before* scaling so the
-    # best label pins at 0 whatever β is.
-    if beta is not None:
-        b = torch.as_tensor(beta, dtype=logw.dtype, device=dev)
-        b = b[:, None, None] if b.ndim == 1 else b
-        valid = ls[None, None, :] < card[None, :, None]
-        m = torch.amax(torch.where(valid, logw, -torch.inf), dim=-1,
-                       keepdim=True)
-        logw = (logw - m) * b
+            # --- annealing: scale log-weights by the inverse temperature --
+            # Applied before the sampler branch, so both samplers see the
+            # same floats.  The valid-label max is subtracted *before*
+            # scaling so the best label pins at 0 whatever β is.
+            if beta is not None:
+                b = torch.as_tensor(beta, dtype=logw.dtype, device=dev)
+                b = b[:, None, None] if b.ndim == 1 else b
+                valid = ls[None, None, :] < card[None, :, None]
+                m = torch.amax(torch.where(valid, logw, -torch.inf), dim=-1,
+                               keepdim=True)
+                logw = (logw - m) * b
 
-    # --- IU-exp → fixed point → KY sample ---------------------------------
-    # sampler="cuda": mask → LUT-exp → floor → KY walk fused in one kernel
-    # (kernels/fused_sweep.py); bitwise-identical to the two-stage path.
-    if sampler == "cuda":
-        lane_card = card.to(torch.int32)[None].expand(
-            logw.shape[:-1]).reshape(-1)
-        res = fused_gibbs_sample(
-            key, logw.reshape((-1, max_card)), lane_card,
-            k=k, use_iu=use_iu, table=_exp_on(str(dev)),
-            lane0=lane0 * logw.shape[1])
-    else:
-        wts = ky_weights(logw, card, k, use_iu)
-        res = ky_sample(key, wts.reshape((-1, max_card)),
-                        lane0=lane0 * logw.shape[1])
-    new = res.sample.reshape(logw.shape[:-1]).to(x.dtype)  # (B, G)
-    x = x.clone()
-    x[:, nodes] = new
-    return x, BNSweepStats(res.bits_used.sum(), res.attempts.sum())
+        # --- IU-exp → fixed point → KY sample -----------------------------
+        # sampler="cuda": mask → LUT-exp → floor → KY walk fused in one
+        # kernel (kernels/fused_sweep.py); bitwise-identical to the
+        # two-stage path.
+        with (tel.span("pgm.sample", tid, sampler=sampler) if on
+              else NULL_SPAN):
+            if sampler == "cuda":
+                lane_card = card.to(torch.int32)[None].expand(
+                    logw.shape[:-1]).reshape(-1)
+                res = fused_gibbs_sample(
+                    key, logw.reshape((-1, max_card)), lane_card,
+                    k=k, use_iu=use_iu, table=_exp_on(str(dev)),
+                    lane0=lane0 * logw.shape[1])
+            else:
+                wts = ky_weights(logw, card, k, use_iu)
+                res = ky_sample(key, wts.reshape((-1, max_card)),
+                                lane0=lane0 * logw.shape[1])
+        new = res.sample.reshape(logw.shape[:-1]).to(x.dtype)  # (B, G)
+        x = x.clone()
+        x[:, nodes] = new
+        return x, BNSweepStats(res.bits_used.sum(), res.attempts.sum())
 
 
 def _check_sampler(sampler: str, device: torch.device) -> None:
@@ -391,6 +455,60 @@ def init_states(
     return x0
 
 
+# a program -> {device: (log-CPT bank, plans)} on that device
+_PLACED: "weakref.WeakKeyDictionary[CompiledBN, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _placed(prog: CompiledBN, device: torch.device):
+    """The program's bank and plans on ``device``, copied once a program
+    and device."""
+    on = _PLACED.setdefault(prog, {})
+    key = str(device)
+    if key not in on:
+        on[key] = (torch.as_tensor(prog.log_cpt, device=device),
+                   plans_on(prog.plans, device))
+    return on[key]
+
+
+def bn_gibbs(key, x: torch.Tensor, prog: CompiledBN, *, n_sweeps: int,
+             use_iu: bool = True, sampler: str = "cuda", device=None,
+             each_sweep=None):
+    """``n_sweeps`` sweeps over the program's colours from the (B, n)
+    int32 states ``x`` (not written); returns ``(x', bits, attempts)``,
+    the bits and attempts int64 totals left on the device.
+
+    Each sweep splits ``key`` into (next, sweep key) and the sweep key
+    once a colour, the colour update taking the second half.  Observed
+    columns of ``x`` keep their values.  ``each_sweep(i, x)``, where
+    given, sees the states after sweep ``i``.  A live
+    :func:`telemetry.current` records the call as a ``pgm.bn_gibbs`` span
+    (``n_sweeps``, ``lanes`` = B times the free nodes, ``colors``) around
+    the colour updates' spans.
+    """
+    device = torch.device(device or "cuda")
+    _check_sampler(sampler, device)
+    tel = telemetry.current()
+    with (tel.span("pgm.bn_gibbs", tel.track(threading.current_thread().name),
+                   n_sweeps=n_sweeps,
+                   lanes=x.shape[0] * len(prog.free_nodes),
+                   colors=prog.n_colors)
+          if tel.enabled else NULL_SPAN):
+        log_cpt, plans = _placed(prog, device)
+        bits = att = torch.zeros((), dtype=torch.int64, device=device)
+        for i in range(n_sweeps):
+            key, sub = rng_lib.split(key)
+            for color, plan in enumerate(plans):
+                sub, s2 = rng_lib.split(sub)
+                x, st = _color_update(
+                    s2, x, plan, log_cpt, prog.max_card, prog.k, use_iu,
+                    sampler, color=color)
+                bits, att = bits + st.bits_used, att + st.attempts
+            if each_sweep is not None:
+                each_sweep(i, x)
+    return x, bits, att
+
+
 def run_gibbs(
     key,
     prog: CompiledBN,
@@ -408,39 +526,30 @@ def run_gibbs(
     marginal_counts: (n_nodes, max_card) int32 accumulated after burn-in.
     ``stats``: int64 host scalars.  ``evidence``: values for
     ``prog.observed`` (same order); required iff the program was compiled
-    with an evidence pattern.  Runs on ``device`` (default ``cuda``).
+    with an evidence pattern.  Runs on ``device`` (default ``cuda``):
+    random states from the first half of ``key``, then :func:`bn_gibbs`
+    under the second.
     """
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
-    n = prog.bn.n_nodes
     key, init_key = rng_lib.split(key)
     x = init_states(
         init_key, prog, n_chains,
         None if evidence is None else torch.as_tensor(
             np.asarray(evidence), dtype=torch.int32, device=device),
         device=device)
-    log_cpt = torch.as_tensor(prog.log_cpt, device=device)
-    plans = plans_on(prog.plans, device)
     labels = torch.arange(prog.max_card, device=device)
-    counts = torch.zeros((n, prog.max_card), dtype=torch.int32, device=device)
-    bits_l, att_l = [], []
-    for i in range(n_sweeps):
-        key, sub = rng_lib.split(key)
-        bits = att = torch.zeros((), dtype=torch.int64, device=device)
-        for plan in plans:
-            sub, s2 = rng_lib.split(sub)
-            x, st = _color_update(
-                s2, x, plan, log_cpt, prog.max_card, prog.k, use_iu,
-                sampler)
-            bits, att = bits + st.bits_used, att + st.attempts
+    counts = torch.zeros((prog.bn.n_nodes, prog.max_card), dtype=torch.int32,
+                         device=device)
+
+    def tally(i: int, x: torch.Tensor) -> None:
         if i >= burn_in:
             onehot = (x[..., None] == labels).to(torch.int32)
-            counts += onehot.sum(dim=0, dtype=torch.int32)
-        bits_l.append(bits)
-        att_l.append(att)
-    per_sweep = BNSweepStats(np.array([int(b) for b in bits_l], np.int64),
-                             np.array([int(a) for a in att_l], np.int64))
-    return x, counts, sum_sweep_stats(per_sweep)
+            counts.add_(onehot.sum(dim=0, dtype=torch.int32))
+
+    x, bits, att = bn_gibbs(key, x, prog, n_sweeps=n_sweeps, use_iu=use_iu,
+                            sampler=sampler, device=device, each_sweep=tally)
+    return x, counts, sum_sweep_stats(BNSweepStats(bits, att))
 
 
 _EXP = exp_table()

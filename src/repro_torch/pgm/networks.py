@@ -8,6 +8,9 @@
   child-scale (20 nodes) and alarm-scale (37 nodes) to match the paper's
   Fig. 7 workload sizes (exact repository CPTs are not redistributable
   in-source; scale and topology statistics are matched instead).
+* :func:`munin_scale` — a DAG with Dirichlet CPTs matched to the
+  published counts of Munin, the bnlearn repository's largest classic
+  network (1,041 nodes, 1,397 arcs, up to 21 states).
 * :func:`penguin_task` / :func:`art_task` — the two MRF benchmarks of
   [MSSE, Tambe et al.]: binary image segmentation (Penguin, 500×333,
   L=2, Potts) and stereo matching (Art, 384×288, L=16, truncated
@@ -96,6 +99,105 @@ def alarm_scale(seed: int = 2) -> BayesNet:
 def hailfinder_scale(seed: int = 3) -> BayesNet:
     """56-node net — HAILFINDER-repository scale."""
     return random_bayesnet(56, max_parents=4, max_card=5, seed=seed)
+
+
+# Munin (Andreassen et al., 1989) as the bnlearn repository lists it:
+# nodes, arcs, most parents of a node, parameters
+MUNIN_NODES, MUNIN_ARCS, MUNIN_MAX_PARENTS, MUNIN_PARAMETERS = \
+    1041, 1397, 3, 80_592
+# states -> nodes of that cardinality (assumed: bnlearn gives the range,
+# 2 to 21 states, most nodes having a few; mean 4.06)
+MUNIN_CARDS = {2: 300, 3: 250, 4: 180, 5: 150, 6: 60, 7: 40, 8: 20, 10: 12,
+               12: 8, 15: 8, 21: 13}
+MUNIN_WINDOW = 64        # a node's parents lie among the 64 nodes before it
+MUNIN_MAX_CHILDREN = 8
+
+
+def munin_structure(rng: np.random.Generator, *, n_arcs: int,
+                    max_parents: int, cards: dict, cpt_entries: int,
+                    window: int, max_children: int
+                    ) -> tuple[list[int], list[tuple]]:
+    """Cardinalities and parents (topologically ordered ids) of a DAG with
+    ``sum(cards.values())`` nodes and exactly ``n_arcs`` arcs.
+
+    The cardinalities are the histogram ``cards`` shuffled; the arcs fall
+    on uniformly drawn parent slots (at most ``max_parents`` a node); a
+    node's parents are drawn among the ``window`` nodes before it that
+    have fewer than ``max_children`` children.  Then parents are swapped,
+    one at a time and within the same window, for ones of fewer states
+    (more, where the total is short) until the CPT entries,
+    ``sum_v card_v * prod card_pa(v)``, lie within 2 % of
+    ``cpt_entries``.
+    """
+    card = rng.permutation(np.repeat(list(cards), list(cards.values())))
+    n = card.size
+    slots = np.array([v for v in range(1, n)
+                      for _ in range(min(max_parents, v))])
+    n_pa = np.bincount(rng.choice(slots, n_arcs, replace=False), minlength=n)
+    n_ch = np.zeros(n, np.int64)
+    parents: list[list[int]] = []
+    for v in range(n):
+        pool = [u for u in range(max(0, v - window), v)
+                if n_ch[u] < max_children]
+        ps = sorted(rng.choice(pool, n_pa[v], replace=False).tolist())
+        n_ch[ps] += 1
+        parents.append(ps)
+
+    def size(v: int) -> int:
+        return int(card[v] * np.prod([card[p] for p in parents[v]]))
+
+    sizes = np.array([size(v) for v in range(n)])
+    with_pa = [v for v in range(n) if parents[v]]
+    for step in range(100_000):
+        total = int(sizes.sum())
+        if abs(total - cpt_entries) <= 0.02 * cpt_entries:
+            return [int(c) for c in card], [tuple(p) for p in parents]
+        over = total > cpt_entries
+        # over: every other step the largest table, else any node
+        v = (max(with_pa, key=lambda u: (sizes[u], u)) if over and step % 2
+             else with_pa[rng.integers(len(with_pa))])
+        ps = parents[v]
+        cards_pa = [card[p] for p in ps]
+        j = int(np.argmax(cards_pa) if over else np.argmin(cards_pa))
+        old = ps[j]
+        pool = [u for u in range(max(0, v - window), v)
+                if u not in ps and n_ch[u] < max_children
+                and (card[u] < card[old] if over else card[u] > card[old])]
+        if pool:
+            u = pool[rng.integers(len(pool))]
+            n_ch[old] -= 1
+            n_ch[u] += 1
+            parents[v] = sorted(ps[:j] + ps[j + 1:] + [u])
+            sizes[v] = size(v)
+    raise RuntimeError("CPT entries did not reach their target")
+
+
+def munin_scale(seed: int = 4) -> BayesNet:
+    """1,041-node net at the published counts of Munin, the EMG-diagnosis
+    network (Andreassen et al., 1989; bnlearn repository, "very large"
+    discrete networks): 1,397 arcs, at most 3 parents a node, 2 to 21
+    states.  ``munin.bif`` is not in the repository, so structure and
+    CPTs are synthesized from ``seed`` (:func:`munin_structure`, then
+    Dirichlet(1) rows):
+
+    * cardinality histogram (states: nodes) ``MUNIN_CARDS`` = 2: 300,
+      3: 250, 4: 180, 5: 150, 6: 60, 7: 40, 8: 20, 10: 12, 12: 8, 15: 8,
+      21: 13;
+    * parent locality: a node's parents lie among the 64 nodes before it
+      in topological order, and no node has more than 8 children;
+    * CPT entries within 2 % of 80,592 (bnlearn's parameter count).
+    """
+    rng = np.random.default_rng(seed)
+    card, parents = munin_structure(
+        rng, n_arcs=MUNIN_ARCS, max_parents=MUNIN_MAX_PARENTS,
+        cards=MUNIN_CARDS, cpt_entries=MUNIN_PARAMETERS, window=MUNIN_WINDOW,
+        max_children=MUNIN_MAX_CHILDREN)
+    cpts = []
+    for v in range(len(card)):
+        rows = tuple(card[p] for p in parents[v])
+        cpts.append(rng.dirichlet(np.ones(card[v]), size=rows)
+                    .reshape(rows + (card[v],)))
+    return BayesNet(card, parents, cpts)
 
 
 # ---------------------------------------------------------------------------

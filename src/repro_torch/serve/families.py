@@ -274,11 +274,11 @@ def _bn_runner(prog, *, sweeps_per_round: int, thin: int, use_iu: bool,
     def sweep(key, x, beta, lane0):
         key, sub = rng_lib.split(key)
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
-        for plan in plans:
+        for color, plan in enumerate(plans):
             sub, s2 = rng_lib.split(sub)
             x, st = _color_update(
                 s2, x, plan, log_cpt, L, prog.k, use_iu, sampler, beta,
-                lane0=lane0)
+                lane0=lane0, color=color)
             bits, att = bits + st.bits_used, att + st.attempts
         return key, x, BNSweepStats(bits, att)
 

@@ -340,6 +340,31 @@ def test_fused_halfstep_is_one_sample_span_and_one_launch(cuda_device):
     assert len(kernels) == 1
 
 
+def test_bn_gibbs_munin_scale_cuda_equals_torch(cuda_device):
+    """The full Munin-scale net (1,041 nodes, 2-21 states, so L 21 and the
+    kernel's 32-thread groups) with 64 observed leaves, 64 chains, 2
+    sweeps: states, bits and attempts."""
+    from repro_torch.pgm import compile as comp
+    from repro_torch.pgm import networks
+
+    bn = networks.munin_scale()
+    leaves = [v for v in range(bn.n_nodes) if not bn.children(v)]
+    observed = sorted(np.random.default_rng(5).choice(leaves, 64,
+                                                      replace=False))
+    prog = comp.compile_bayesnet(bn, observed=observed)
+    assert prog.max_card == 21
+    x = comp.init_states(rng.PRNGKey(2), prog, 64,
+                         np.array([v % bn.card[v] for v in observed]),
+                         device=cuda_device)
+    out = [comp.bn_gibbs(rng.PRNGKey(3), x, prog, n_sweeps=2,
+                         sampler=sampler, device=cuda_device)
+           for sampler in ("cuda", "torch")]
+    (xc, bc, ac), (xt, bt, at) = out
+    assert torch.equal(xc, xt) and not torch.equal(xc, x)
+    assert (int(bc), int(ac)) == (int(bt), int(at))
+    assert torch.equal(xc[:, observed], x[:, observed])
+
+
 def test_run_fg_gibbs_cuda_equals_torch(cuda_device):
     """A random sparse spin glass with a degree-16 bucket, and clamped
     spins: states, counts and stats."""
