@@ -596,6 +596,21 @@ def grid_bound_ms(B: int, H: int, W: int, L: int, kept: int,
     return roofline(nbytes, ops, FP32_OPS_PER_S)
 
 
+def plan_bound_ms(B: int, n: int, N: int, rec_words: int, bank_n: int,
+                  L: int, words_made: int, bits_total: int,
+                  lut_nodes: int) -> tuple[float, str]:
+    """Least time the card could take for one Bayes-net colour update on
+    the plan source (``fused_bn_launcher``), and what bounds it.  Bytes:
+    the (B, n) int32 states, the colour's records, the bank and the LUT
+    read once, the B * N new states written once.  Ops: ~10 float32 a
+    label for the weight tail, ~4 per label per DDG level walked, one
+    threefry per word reached (the gather's adds are fewer than the
+    tail's)."""
+    nbytes = 4 * (B * n + N * rec_words + bank_n + B * N + lut_nodes)
+    ops = B * N * L * 10 + bits_total * L * 4 + words_made * THREEFRY_OPS
+    return roofline(nbytes, ops, FP32_OPS_PER_S)
+
+
 def kernel_inputs(b: int, L: int, seed: int, device):
     import torch
 
@@ -710,11 +725,28 @@ class GridCall(NamedTuple):
     stats: object
 
 
+class PlanCall(NamedTuple):
+    """A recorded Bayes-net colour update on the plan source
+    (``fused_bn_launcher``): its key, the states it started from, the
+    bank and the colour's record, its other keywords (no accumulator),
+    the states it wrote and the stats it added."""
+    key: object
+    states: object
+    bank: object
+    record: object
+    kw: dict
+    out: object
+    stats: object
+
+
 def call_shape(call) -> tuple[int, int]:
-    """A recorded call's ``(b, L)``: the lanes a gathered launch walks, or
-    a grid's B·H·W sites, as the launch counter keys them."""
+    """A recorded call's ``(b, L)``: the lanes a gathered launch walks, a
+    grid's B·H·W sites or a Bayes-net colour's B·N lanes, as the launch
+    counter keys them."""
     if isinstance(call, GridCall):
         return call.labels.numel(), call.unary.shape[-1]
+    if isinstance(call, PlanCall):
+        return call.states.shape[0] * call.record.shape[0], call.kw["L"]
     return tuple(call[1].shape)
 
 
@@ -731,8 +763,9 @@ def record_main_path(keep_all: bool = True):
     ``rng.random_bit_words`` and ``rng.LaneWords.column`` (the kernel
     makes its own words, so the CUDA route should make none).  The fused
     sampler is read by name in the BN compile chain, the sparse colour
-    update and the mesh step's tiles, and the grid launcher in the MRF
-    half-step; all four are recorded."""
+    update and the mesh step's tiles, the grid launcher in the MRF
+    half-step and the plan launcher in the BN compile chain (a Bayes-net
+    colour update, kept as the grid's are); all five are recorded."""
     from repro_torch.core import rng
     from repro_torch.kernels import fused_sweep as fs
     from repro_torch.pgm import compile as compile_mod
@@ -744,6 +777,7 @@ def record_main_path(keep_all: bool = True):
     mods = (compile_mod, sparse_mod, mesh_mod)
     fused, step = fs.fused_gibbs_sample, GroupRun.step
     launcher = gibbs_mod.fused_mrf_launcher
+    bn_launcher = compile_mod.fused_bn_launcher
     bit_words, column = rng.random_bit_words, rng.LaneWords.column
     rec = {"calls": [], "per_round": Counter(), "word_calls": 0,
            "row_maps": Counter()}
@@ -785,6 +819,24 @@ def record_main_path(keep_all: bool = True):
                     labels.clone(), acc - acc0))
         return recording_launch
 
+    def recording_bn_launcher(states, bank, records, **kw):
+        launch = bn_launcher(states, bank, records, **kw)
+        acc = kw["acc"]
+
+        def recording_launch(key, color):
+            shape = (states.shape[0] * records[color].shape[0], kw["L"])
+            keep = keep_all or shape not in seen
+            if keep:
+                before, acc0 = states.clone(), acc.clone()
+            launch(key, color)
+            if keep:
+                seen.add(shape)
+                rec["calls"].append(PlanCall(
+                    key, before, bank, records[color],
+                    {k: v for k, v in kw.items() if k != "acc"},
+                    states.clone(), acc - acc0))
+        return recording_launch
+
     def recording_step(self):
         n0 = fs.fused_gibbs_sample.launches
         out = step(self)
@@ -794,6 +846,7 @@ def record_main_path(keep_all: bool = True):
     for m in mods:
         m.fused_gibbs_sample = recording_fused
     gibbs_mod.fused_mrf_launcher = recording_launcher
+    compile_mod.fused_bn_launcher = recording_bn_launcher
     GroupRun.step = recording_step
     rng.random_bit_words = counting_bit_words
     rng.LaneWords.column = counting_column
@@ -807,6 +860,7 @@ def record_main_path(keep_all: bool = True):
         for m in mods:
             m.fused_gibbs_sample = fused
         gibbs_mod.fused_mrf_launcher = launcher
+        compile_mod.fused_bn_launcher = bn_launcher
         GroupRun.step = step
         rng.random_bit_words = bit_words
         rng.LaneWords.column = column
@@ -833,7 +887,8 @@ def main_path_bound(rec) -> tuple[float, str]:
 
     calls = rec["calls"]
     per_call = torch.stack([torch.stack(
-        grid_words_bits(c) if isinstance(c, GridCall) else [
+        grid_words_bits(c) if isinstance(c, GridCall)
+        else plan_words_bits(c) if isinstance(c, PlanCall) else [
             ((c[-1].bits_used.to(torch.int64) + 31) // 32).sum(),
             c[-1].bits_used.to(torch.int64).sum()]) for c in calls])
     per_call = per_call.cpu().tolist()
@@ -843,9 +898,13 @@ def main_path_bound(rec) -> tuple[float, str]:
     for call, (words_made, bits) in zip(calls, per_call):
         b, L = call_shape(call)
         w = rec["shapes"][(b, L)] / kept[(b, L)]
-        kw = call.kw if isinstance(call, GridCall) else call[3]
+        kw = call.kw if isinstance(call, (GridCall, PlanCall)) else call[3]
         lut = kw["table"].table.numel() if kw.get("use_iu", True) else 0
-        if isinstance(call, GridCall):
+        if isinstance(call, PlanCall):
+            bound, by = plan_bound_ms(
+                *call.states.shape, *call.record.shape, call.bank.numel(),
+                L, words_made, bits, lut)
+        elif isinstance(call, GridCall):
             sites = grid_kept(call).expand(call.labels.shape)
             bound, by = grid_bound_ms(*call.labels.shape, L,
                                       int(sites.sum()), words_made, bits,
@@ -940,6 +999,66 @@ def grid_kernel_row(call: GridCall, n: int) -> tuple[dict, dict | None]:
     return row, bad
 
 
+def plan_plain(call: PlanCall):
+    """The plain twin on a recorded plan call's inputs: (states written,
+    stats added, the draw of every lane)."""
+    import torch
+
+    from repro_torch.kernels import fused_sweep as fs
+
+    states = call.states.clone()
+    acc = torch.zeros(2, dtype=torch.int64, device=states.device)
+    res = fs.fused_bn_update_ref(call.key, states, call.record, call.bank,
+                                 acc=acc, **call.kw)
+    return states, acc, res
+
+
+def plan_words_bits(call: PlanCall) -> list:
+    """[words the lanes' cursors reached, bits they read] of a recorded
+    plan call, from the plain twin's draw, as 0-d int64 tensors."""
+    _, acc, res = plan_plain(call)
+    return [((res.bits_used.long() + 31) // 32).sum(), acc[0]]
+
+
+def plan_kernel_row(call: PlanCall, n: int) -> tuple[dict, dict | None]:
+    """:func:`phase_main_path_kernel`'s row for a Bayes-net colour on the
+    plan source: the kernel launched again from the recorded states must
+    write the recorded states and stats and the plain twin's; then timed
+    as the gathered shapes are (the timed launches update a copy in
+    place, colour update after colour update)."""
+    import torch
+
+    from repro_torch.core import rng
+    from repro_torch.kernels import fused_sweep as fs
+
+    dev = call.states.device
+    b, L = call_shape(call)
+    states = call.states.clone()
+    acc = torch.zeros(2, dtype=torch.int64, device=dev)
+    fs.fused_bn_launcher(states, call.bank, [call.record], acc=acc,
+                         **call.kw)(call.key, 0)
+    p_states, p_acc, _ = plan_plain(call)
+    eq_rec = torch.equal(states, call.out) and torch.equal(acc, call.stats)
+    eq_plain = torch.equal(states, p_states) and torch.equal(acc, p_acc)
+    err = max(int((states.long() - x.long()).abs().max())
+              for x in (call.out, p_states))
+    bad = None if eq_rec and eq_plain else dict(
+        b=b, L=L, plan=True, equals_recorded=eq_rec, equals_plain=eq_plain)
+    launch = fs.fused_bn_launcher(call.states.clone(), call.bank,
+                                  [call.record], acc=acc, **call.kw)
+    with torch.cuda.device(dev):
+        row = dict(
+            n=n, b=b, L=L, max_abs_err=err,
+            ms=cold_device_ms(lambda: launch(call.key, 0), 3, dev,
+                              calls=100),
+            call_ms=time_ms(lambda: launch(call.key, 0), 200),
+            plain_ms=time_ms(lambda: plan_plain(call), 5, warmup=1),
+            words_ms=time_ms(lambda: rng.random_bit_words(
+                call.key, (b,), 31 * 32, device=dev,
+                lane0=call.kw.get("lane0", 0) * call.record.shape[0]), 20))
+    return row, bad
+
+
 def phase_main_path_kernel(rec) -> dict:
     """The kernel at the main path's own inputs: for each (b, L) the serve
     passes launched, its first recorded call is launched again through the wrapper and must equal
@@ -964,8 +1083,10 @@ def phase_main_path_kernel(rec) -> dict:
         first.setdefault(call_shape(call), call)
     rows, bad = [], []
     for (b, L), n in rec["shapes"].items():
-        if isinstance(first[(b, L)], GridCall):
-            row, fault = grid_kernel_row(first[(b, L)], n)
+        if isinstance(first[(b, L)], (GridCall, PlanCall)):
+            row_of = (grid_kernel_row if isinstance(first[(b, L)], GridCall)
+                      else plan_kernel_row)
+            row, fault = row_of(first[(b, L)], n)
             rows.append(row)
             bad += [fault] if fault else []
             continue

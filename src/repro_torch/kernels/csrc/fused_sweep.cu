@@ -1,8 +1,9 @@
 // Fused Gibbs sweep kernel for Hopper (sm_90a): label mask -> max-subtract
 // -> IU-exp LUT -> k-bit floor -> non-normalized Knuth-Yao DDG walk, on the
-// (b, L) log-weight tile of one colour or on the energies of one colour of
-// an MRF grid made in the kernel, with the random bit words made inside
-// the kernel.
+// (b, L) log-weight tile of one colour, on the energies of one colour of
+// an MRF grid made in the kernel, or on the log-CPT rows of one colour of
+// a Bayes net gathered in the kernel, with the random bit words made
+// inside the kernel.
 //
 // Replaces: src/repro/kernels/fused_sweep.py::_fused_kernel, the TPU Pallas
 // kernel launched by fused_gibbs_sample (pallas_call at fused_sweep.py:165).
@@ -25,9 +26,9 @@
 // update's bits.  Without one (colpos null) row r is lane0 + r, as before.
 // The map costs one int64 load a row, made only by rows that walk.
 //
-// Two sources of log-weights, chosen at compile time (the kernel's second
-// template parameter); both feed the same distribution generation and
-// walk (distribution(), walk()).
+// Three sources of log-weights, chosen at compile time (the kernel's second
+// template parameter); all feed the same distribution generation and walk
+// (distribution(), walk()).
 //
 // Gathered source: lane i's L log-weights are row i of a (b, L) tile that
 // the caller gathered (the Bayes-net, factor-graph and Ising colour
@@ -68,6 +69,31 @@
 // The walk's latency bounds it, as in the gathered source; the energies
 // cost a few loads and 5 adds a label.
 //
+// Plan source: one colour update of a Bayes net (pgm/compile.py::
+// _color_update's gather, fold and sample) in one launch.  Lane (b, i) is
+// node nodes[i] of the colour's N nodes in chain b; it reads the words of
+// global row (lane0 + b) * N + i, the row the gathered tile gives it.
+// Thread l < card of the group makes label l's log-weight from the node's
+// packed record (struct Plan): its own CPT row, bank[clip(offset + sum_j
+// stride_j x[pa_j] + l)], plus the fold over its child slots c of
+// bank[clip(offset_c + sum_j stride_cj x[pa_cj] + stride x[child_c] +
+// vstride_c l)], indices in 64 bits and clipped to the bank as the plain
+// path's, one rounded add a slot in the plain path's order; where beta is
+// given, minus the valid labels' max, times beta.  The new state is
+// written in place: a colour is independent in the moral graph, so no lane
+// of the launch reads a state another writes.  Bits and attempts are
+// summed a block and added atomically, as in the grid source; the groups
+// loop over the lanes, at most kPlanBlocks blocks, so the atomics stay few
+// at a million lanes.  Lanes run node-major (the lanes of a block share
+// one node's record and tables; 1.5 % faster than chain-major on the
+// Munin-scale cell).  Bytes an update: the class's Markov blankets'
+// states read and its states written, the records and the tables they
+// name (L2-resident: Munin-scale states 4.3 MB, bank 0.32 MB).  Latency
+// bounds it: at G 32 a warp walks one lane, and the gather adds two
+// dependent L2 reads (a state, then its row) to the walk's; two child
+// slots' loads in flight at once gained 3 %, a register bound 4 %, a
+// thread a child slot under 1 % (PERF.md).
+//
 // Design: a group of G = next_pow2(L) threads per lane (2 <= G <= 32,
 // 32 / G lanes a warp).  Thread l holds label l; the row max, the integer
 // total and the argmax (ties to the lowest label) are shuffles within the
@@ -77,8 +103,9 @@
 // and the current word are replicated in the group.  (One thread per
 // lane, the row in registers, measured slower at the serve path's shapes:
 // PERF.md.)
-// Later work: a CUDA graph over a served round, the gather of the
-// Bayes-net and factor-graph colour updates fused in as sources.
+// Later work: a CUDA graph over a served round, the factor graph's
+// gather fused in as a source, and a Bayes net's plan lanes bucketed by
+// cardinality so a group holds only its node's labels.
 //
 // Bit identity with the reference: every float stage is one separately
 // rounded float32 op (__fsub_rn/__fmul_rn/__fadd_rn, built with
@@ -397,15 +424,185 @@ __device__ __forceinline__ void gibbs_group(const Grid& p) {
   }
 }
 
+// ---- plan source: one colour of a Bayes net, gathered from the states ---
+// A node's record is 1 + C blocks of S = 4 + 2P int32 words: its own
+// block [node, card, CPT offset, real children, P parent ids, P strides],
+// then a block a child slot [CPT offset, stride of the node in the child's
+// table, child id, stride of the child's own axis, P other-parent ids, P
+// strides] (kernels/fused_sweep.py::pack_bn_plan).  A parent slot of
+// stride 0 is padding; the child slots past the real ones are padding
+// that reads the bank's sentinel, +0.0.
+struct Plan {
+  Walk c;
+  int* x;                    // (B, n) int32 states; the colour's written
+  long long n;               // states a chain
+  const float* bank;         // the flat log-CPT bank
+  long long bank_last;       // its last index: every gather is clipped to it
+  const int* rec;            // (N, S * (1 + C)) records of the colour's nodes
+  const float* beta;         // inverse temperature, null: none
+  long long beta_chain;      // beta's stride between chains (0: shared)
+  unsigned long long* acc;   // [bits, attempts] of the colour, added to
+  unsigned long long lane0;  // global chain index of x's first chain
+  long long lanes;           // B * N
+  int B, N, P, C;
+  float mask_value;
+};
+
+// blocks a plan launch takes at most: its groups walk lanes in a
+// grid-stride loop, so a colour of any size adds at most 2 * kPlanBlocks
+// atomics, and a block's sums stay under 2^32 (lanes < 2^31, 992 bits a
+// lane); threads a block at most, and blocks an SM is to hold (the
+// register bound this sets, 48 a thread, measured 4 % faster than the
+// compiler's own 54, and than 40 or 32, which spill: PERF.md)
+constexpr long long kPlanBlocks = 4096;
+constexpr int kPlanThreads = 256;
+constexpr int kPlanBlocksPerSM = 5;
+
+__device__ __forceinline__ long long clip(long long i, long long last) {
+  return i < 0 ? 0 : (i > last ? last : i);
+}
+
+// parent slots and child slots a group gathers at once: unrolled and
+// guarded, so their loads go out together (2 children at once measured
+// 3 % faster than one at a time or 4 or 8 at L 21: PERF.md)
+constexpr int kUnrollP = 4;
+constexpr int kChunkC = 2;
+
+// sum of stride_j * x[id_j] over a record block's P parent slots, in 64
+// bits as the plain path's int64 index tiles (a padded slot, id 0 and
+// stride 0, adds 0, as there)
+__device__ __forceinline__ long long parent_sum(const int* ids, int P,
+                                                const int* xs) {
+  long long s = 0;
+#pragma unroll
+  for (int j = 0; j < kUnrollP; ++j)
+    if (j < P) s += (long long)ids[P + j] * xs[ids[j]];
+  for (int j = kUnrollP; j < P; ++j) s += (long long)ids[P + j] * xs[ids[j]];
+  return s;
+}
+
+template <int G>
+__device__ __forceinline__ void gibbs_group(const Plan& p) {
+  __shared__ unsigned sums[2][32];  // a warp's bits and attempts
+  const int wl = threadIdx.x & 31;
+  const int l = wl & (G - 1);
+  const unsigned gmask = group_mask<G>(wl);
+  const bool real = l < p.c.L;
+  const int S = 4 + 2 * p.P;
+  const long long R = (long long)S * (1 + p.C);
+  const float ninf = __int_as_float((int)0xff800000);
+  // lanes < 2^31 and at most 2^19 groups: 32-bit lane indices
+  const unsigned groups = gridDim.x * (blockDim.x / G);
+  unsigned bits = 0, att = 0;
+  // the whole group takes each lane together: q is the group's
+  for (unsigned q = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+       q < (unsigned)p.lanes; q += groups) {
+    // lane q is node i of chain b, node-major
+    const unsigned i = q / (unsigned)p.B;
+    const unsigned b = q - i * (unsigned)p.B;
+    const int* r = p.rec + i * R;
+    int* xs = p.x + b * p.n;
+    const int card = r[1], n_ch = r[3];
+    // the own row's start, made by every thread so its loads go out with
+    // the record's
+    const long long own_row = r[2] + parent_sum(r + 4, p.P, xs);
+    const bool valid = real && l < card;
+    float lw = real ? p.mask_value : ninf;  // the label mask
+    if (valid) {
+      // own row, then the children's rows folded left to right as the
+      // plain path's sum over C: t_0, + t_1, ..., one rounded add a slot
+      const float own = p.bank[clip(own_row + l, p.bank_last)];
+      float s = 0.0f;
+      for (int c0 = 0; c0 < n_ch; c0 += kChunkC) {
+        float t[kChunkC];
+#pragma unroll
+        for (int u = 0; u < kChunkC; ++u) {
+          const int* cr = r + S * (1 + c0 + u);
+          if (c0 + u < n_ch)
+            t[u] = p.bank[clip(cr[0] + parent_sum(cr + 4, p.P, xs) +
+                                   (long long)cr[3] * xs[cr[2]] +
+                                   (long long)cr[1] * l,
+                               p.bank_last)];
+        }
+#pragma unroll
+        for (int u = 0; u < kChunkC; ++u)
+          if (c0 + u < n_ch) s = c0 + u == 0 ? t[u] : __fadd_rn(s, t[u]);
+      }
+      // the padded slots each add +0.0: once is all of them (x + 0.0 is
+      // x but for -0.0, which it makes +0.0); with none real s is +0.0
+      if (n_ch > 0 && n_ch < p.C) s = __fadd_rn(s, 0.0f);
+      lw = __fadd_rn(own, s);
+    }
+    if (p.beta != nullptr) {  // minus the max of the valid labels, times beta
+      float m = valid ? lw : ninf;
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(gmask, m, off, G));
+      if (valid) lw = __fmul_rn(__fsub_rn(lw, m), p.beta[b * p.beta_chain]);
+    }
+    const Dist dist = distribution<G>(p.c, lw, real, gmask, l);
+    Draw d = bypass(dist);
+    if (!dist.det)
+      d = walk<G>(p.c, dist, real, gmask, wl,
+                  (p.lane0 + b) * (unsigned long long)p.N + i);
+    if (l == 0) {  // in place: no lane of an independent colour reads it
+      xs[r[0]] = d.res;
+      bits += d.t;
+      att += d.att;
+    }
+  }
+  bits = __reduce_add_sync(0xffffffffu, bits);
+  att = __reduce_add_sync(0xffffffffu, att);
+  if (wl == 0) {
+    sums[0][threadIdx.x >> 5] = bits;
+    sums[1][threadIdx.x >> 5] = att;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const bool w_in = threadIdx.x < (blockDim.x >> 5);
+    bits = __reduce_add_sync(0xffffffffu, w_in ? sums[0][threadIdx.x] : 0u);
+    att = __reduce_add_sync(0xffffffffu, w_in ? sums[1][threadIdx.x] : 0u);
+    if (threadIdx.x == 0 && att) {  // att > 0 iff the block walked a lane
+      atomicAdd(p.acc, (unsigned long long)bits);
+      atomicAdd(p.acc + 1, (unsigned long long)att);
+    }
+  }
+}
+
 template <int G, class Source>
 __global__ void fused_gibbs_group_kernel(const Source p) {
   gibbs_group<G>(p);
 }
 
+// the plan source's instantiations, with their register bound
+#define PLAN_KERNEL(G)                                                   \
+  template <>                                                            \
+  __global__ void __launch_bounds__(kPlanThreads, kPlanBlocksPerSM)      \
+      fused_gibbs_group_kernel<G, Plan>(const Plan p) {                  \
+    gibbs_group<G>(p);                                                   \
+  }
+PLAN_KERNEL(2)
+PLAN_KERNEL(4)
+PLAN_KERNEL(8)
+PLAN_KERNEL(16)
+PLAN_KERNEL(32)
+#undef PLAN_KERNEL
+
+// blocks of a launch: one group a lane, or for the plan source at most
+// kPlanBlocks, its groups looping over the lanes
+template <class Source>
+long long blocks_of(const Source& p, int G, int block) {
+  return (p.lanes * G + block - 1) / block;
+}
+
+long long blocks_of(const Plan& p, int G, int block) {
+  const long long need = (p.lanes * G + block - 1) / block;
+  return need < kPlanBlocks ? need : kPlanBlocks;
+}
+
 template <int G, class Source>
 int launch_group(const Source& p, int block, cudaStream_t stream) {
-  const long long threads = p.lanes * G;
-  const long long grid = (threads + block - 1) / block;
+  const long long grid = blocks_of(p, G, block);
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   fused_gibbs_group_kernel<G, Source><<<(unsigned)grid, block, 0, stream>>>(p);
   return (int)cudaGetLastError();
@@ -499,6 +696,47 @@ extern "C" int fused_mrf_halfstep_launch(
                static_cast<const float*>(beta), beta_chain,
                static_cast<unsigned long long*>(acc), lane0, lanes, H, width,
                half, parity};
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = launch(p, block, stream);
+  if (prev != device) cudaSetDevice(prev);
+  return rc;
+}
+
+// One colour update of a Bayes net's (B, n) int32 states in place: the
+// colour's N nodes in every chain, each lane's log-weights gathered from
+// the flat float32 bank of bank_n entries by its record (rec, (N, (4 +
+// 2P)(1 + C)) int32), the new states written, the lanes' bits and attempts
+// added to acc (two int64).  beta (float32, null for none) with
+// beta_chain 0 for one value or 1 for one a chain; lane0 the global index
+// of the first chain: lane (b, i) reads the words of global row (lane0 +
+// b) * N + i.  B * N lanes of next_pow2(L) threads (at least 2), launched
+// on `stream` of card `device` (made current for the launch and restored
+// after).  The arguments that change from one colour to the next come
+// last.  kernels/fused_sweep.py::fused_bn_launcher checks what this
+// refuses.
+extern "C" int fused_bn_update_launch(
+    void* x, long long n, const void* bank, long long bank_n,
+    const void* beta, long long beta_chain, void* acc,
+    unsigned long long lane0, const void* table, int B, int P, int C, int L,
+    int W, float wscale, int use_iu, int n_seg, float lo, float scale,
+    float mask_value, int block, int device, void* stream,
+    const void* rec, int N, uint32_t k0, uint32_t k1) {
+  if (B <= 0 || N <= 0) return 0;
+  if (bad_shape(L, W, block) || block > kPlanThreads || P < 1 || C < 1 ||
+      n < 1 || bank_n < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long lanes = (long long)B * N;
+  if (lanes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const Walk c{static_cast<const float*>(table), k0, k1, L, W, wscale,
+               use_iu, n_seg, lo, scale};
+  const Plan p{c, static_cast<int*>(x), n, static_cast<const float*>(bank),
+               bank_n - 1, static_cast<const int*>(rec),
+               static_cast<const float*>(beta), beta_chain,
+               static_cast<unsigned long long*>(acc), lane0, lanes, B, N, P,
+               C, mask_value};
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);

@@ -40,11 +40,23 @@ labels, bits and attempts are those of the plain version,
 :func:`fused_mrf_halfstep_ref`: the energies of every site, the plain
 sampler over all of them and the parity selected.
 
-:func:`fused_gibbs_sample` and :func:`fused_mrf_halfstep` take the plain
-version only for tensors that lie on the CPU; on a CUDA tensor they
-launch the kernel or raise.  ``fused_gibbs_sample.launches`` counts the
-kernel's launches from both, and ``fused_gibbs_sample.shapes`` counts
-them by ``(b, L)`` (``b = B * H * W`` for a grid's colour update).
+:func:`fused_bn_launcher` launches it on a Bayes net: one colour update
+in one launch, each lane's own and child log-CPT rows gathered in the
+kernel from the states by the colour's packed plan records
+(:func:`pack_bn_plan`), the new states written in place and the stats
+summed on the card.  Lane ``(b, i)``, node ``i`` of the colour's ``N`` in
+chain ``b``, reads the words of global row ``(lane0 + b) * N + i``, the
+row the gathered tile of ``pgm.compile._color_update`` gives it, so the
+states, bits and attempts are those of the plain version,
+:func:`fused_bn_update_ref`: the padded gathers and their fold,
+:func:`fused_gibbs_sample_ref`, the write and the sums.
+
+:func:`fused_gibbs_sample`, :func:`fused_mrf_halfstep` and
+:func:`fused_bn_launcher` take the plain version only for tensors that
+lie on the CPU; on a CUDA tensor they launch the kernel or raise.
+``fused_gibbs_sample.launches`` counts the kernel's launches from all
+three, and ``fused_gibbs_sample.shapes`` counts them by ``(b, L)`` (``b =
+B * H * W`` for a grid's colour update, ``B * N`` for a Bayes net's).
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.core import interp as interp_lib
@@ -77,7 +90,7 @@ MAX_FUSED_LANES = (1 << 31) - 1
 # words of bit budget a lane: 31 bits an attempt, 32 attempts
 _WORDS = rng_lib.bit_budget_words(31 * 32)
 
-# threads a block of a grid colour update's launch
+# threads a block of a grid or a Bayes-net colour update's launch
 GRID_BLOCK = 256
 
 _COUNT_LOCK = threading.Lock()
@@ -516,3 +529,243 @@ def fused_mrf_halfstep_ref(
     return _plain_mrf(key, labels, unary, pairwise, parity, acc, clamp, beta,
                       k=k, use_iu=use_iu,
                       table=table or interp_lib._EXP_DEFAULT, lane0=lane0)
+
+
+def pack_bn_plan(plan, bank, n_states: int) -> np.ndarray:
+    """One colour's plan as the kernel reads it: an ``(N, (4 + 2P)(1 +
+    C))`` int32 array, a row a node, of 1 + C blocks of 4 + 2P words: its
+    own ``[node, card, CPT offset, real children, P parent ids, P
+    strides]``, then one a child slot ``[CPT offset, stride of the node
+    in the child's table, child id, stride of the child's own axis, P
+    other-parent ids, P strides]``.  ``plan`` has the fields of
+    ``pgm.compile.ColorPlan`` (arrays); ``bank`` is the flat log-CPT bank
+    it indexes and ``n_states`` the states a chain.  A node's real
+    children are its slots before the trailing ones that read the
+    bank's last entry with every stride 0, where that entry is +0.0 (the
+    compile chain's sentinel): the kernel adds +0.0 for those without a
+    load, as the plain path adds the sentinel it reads."""
+    f = {k: np.asarray(torch.as_tensor(getattr(plan, k)).cpu(), np.int64)
+         for k in ("nodes", "card", "self_base_off", "self_pa",
+                   "self_pa_stride", "ch_off", "ch_vstride", "ch_self",
+                   "ch_self_stride", "ch_pa", "ch_pa_stride")}
+    bank = np.asarray(torch.as_tensor(bank).cpu(), np.float32).reshape(-1)
+    last = bank.size - 1
+    n, c = f["ch_off"].shape
+    sentinel = bank.size > 0 and bank[last] == 0 and not np.signbit(
+        bank[last])
+    pad = (sentinel & (f["ch_off"] == last) & (f["ch_vstride"] == 0)
+           & (f["ch_self_stride"] == 0) & (f["ch_pa_stride"] == 0).all(-1))
+    n_ch = c - np.cumprod(pad[:, ::-1], axis=1).sum(1)
+    own = np.concatenate([np.stack([f["nodes"], f["card"],
+                                    f["self_base_off"], n_ch], 1),
+                          f["self_pa"], f["self_pa_stride"]], 1)
+    ch = np.concatenate([np.stack([f["ch_off"], f["ch_vstride"],
+                                   f["ch_self"], f["ch_self_stride"]], 2),
+                         f["ch_pa"], f["ch_pa_stride"]], 2)
+    ids = np.concatenate([f["nodes"], f["self_pa"].ravel(), f["ch_self"].ravel(),
+                          f["ch_pa"].ravel()])
+    if ids.size and not (0 <= ids.min() and ids.max() < n_states):
+        raise ValueError(f"plan names a state outside [0, {n_states})")
+    if not ((1 <= f["card"]) & (f["card"] <= MAX_FUSED_L)).all():
+        raise ValueError(f"plan cards must lie in [1, {MAX_FUSED_L}]")
+    rec = np.concatenate([own[:, None], ch], 1).reshape(n, -1)
+    if np.abs(rec).max(initial=0) >= 1 << 31:
+        raise ValueError("plan record words must fit int32")
+    return rec.astype(np.int32)
+
+
+@functools.cache
+def _bn_entry():
+    """The Bayes-net colour update's C entry point, as :func:`_entry`."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fused_sweep").fused_bn_update_launch
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+    q = ctypes.c_longlong
+    fn.argtypes = ([p, q, p, q, p, q, p, ctypes.c_uint64, p]
+                   + [i] * 5 + [f, i, i, f, f, f, i, i, p, p, i, u, u])
+    fn.restype = i
+    return fn
+
+
+def _bn_operands(states, bank, records, acc, beta, *, P: int, L: int,
+                 lane0: int):
+    """Check a Bayes net's colour update operands as the kernel reads
+    them, with no card needed, and return ``(records, C, beta,
+    beta_chain)``: the records as a tuple, their child slots, and β
+    (scalar, ``(1,)`` or ``(B,)``) flattened on the states' device, None
+    where not given, with its stride between chains."""
+    name = "fused BN colour update"
+    if not (isinstance(states, torch.Tensor) and states.ndim == 2):
+        raise ValueError(f"{name}: states must be a (B, n) tensor")
+    B, n = states.shape
+    dev = states.device
+    _common.check_device(dev, name)
+    _common.check_input(states, torch.int32, (B, n), dev, name)
+    if not (isinstance(bank, torch.Tensor) and bank.ndim == 1
+            and bank.numel() > 0):
+        raise ValueError(f"{name}: bank must be a non-empty 1-D tensor")
+    _common.check_input(bank, torch.float32, (bank.numel(),), dev, name)
+    _common.check_input(acc, torch.int64, (2,), dev, name)
+    records = tuple(records)
+    width = 4 + 2 * P
+    if P < 1 or not records:
+        raise ValueError(f"{name}: needs P >= 1 and at least one record")
+    C = records[0].shape[-1] // width - 1 if records[0].ndim == 2 else 0
+    _check_lane0(lane0)
+    for r in records:
+        if not (isinstance(r, torch.Tensor) and r.ndim == 2 and r.shape[0]
+                and C >= 1):
+            raise ValueError(f"{name}: records must be non-empty (N, (4 + "
+                             f"2P)(1 + C)) tensors, C >= 1")
+        _common.check_input(r, torch.int32, (r.shape[0], width * (1 + C)),
+                            dev, name)
+        launch_geometry(B * r.shape[0], L, GRID_BLOCK)
+        _check_lane0((int(lane0) + B) * r.shape[0] - 1)
+    beta_chain = 0
+    if beta is not None:
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=dev)
+        if beta.ndim > 1 or beta.numel() not in (1, B):
+            raise ValueError(f"{name}: beta must be a scalar or (B,) = "
+                             f"({B},) (got {tuple(beta.shape)})")
+        beta = beta.reshape(-1).contiguous()
+        beta_chain = int(beta.numel() > 1)
+    return records, C, beta, beta_chain
+
+
+def fused_bn_launcher(
+    states: torch.Tensor,      # (B, n) int32, updated in place
+    bank: torch.Tensor,        # flat float32 log-CPT bank
+    records,                   # a colour's (N, (4 + 2P)(1 + C)) int32 each
+    *,
+    P: int,                    # parent slots of a record block
+    L: int,                    # label slots of a lane (the widest card)
+    acc: torch.Tensor,         # (2,) int64: bits, attempts added to
+    beta=None,                 # inverse temperature, scalar or (B,)
+    k: int,
+    use_iu: bool = True,
+    table: interp_lib.InterpTable | None = None,
+    lane0: int = 0,
+):
+    """Check a Bayes net's operands once and return ``launch(key,
+    color)``: one colour update of ``records[color]`` (from
+    :func:`pack_bn_plan`, for states of ``n`` columns) in one launch.
+    Lane ``(b, i)`` resamples node ``i`` of the colour in chain ``b`` from
+    its own CPT row and its children's, gathered from the current states
+    (``L`` labels, those past the node's card masked), times β where
+    given (after the valid labels' max is subtracted), writes the new
+    state into ``states`` and adds its random bits and attempts to
+    ``acc``; it reads the words of global row ``(lane0 + b) * N + i``,
+    ``lane0`` being the first chain's global index.  Equal bit for bit to
+    :func:`fused_bn_update_ref`, and so to ``_color_update``'s plain
+    path, under the same key.  The tensors are held, not copied; every
+    launch goes to the card's current stream as it was when the launcher
+    was made.  CPU tensors run the plain version.  Refuses what the
+    kernel does not take before anything runs."""
+    _check_k(k)
+    records, C, beta, beta_chain = _bn_operands(
+        states, bank, records, acc, beta, P=P, L=L, lane0=lane0)
+    table = table or interp_lib._EXP_DEFAULT
+    dev = states.device
+    if dev.type == "cpu":
+        def launch(key, color) -> None:
+            _plain_bn(key, states, records[color], bank, acc, beta, P=P,
+                      L=L, k=k, use_iu=use_iu, table=table, lane0=lane0)
+        return launch
+    B, n = states.shape
+    tab = table.table.to(device=dev, dtype=torch.float32).contiguous()
+    if tab.numel() != (1 << table.m) + 1:
+        raise ValueError("LUT must hold 2**m + 1 nodes")
+    entry = _bn_entry()
+    fixed = (states.data_ptr(), n, bank.data_ptr(), bank.numel(),
+             None if beta is None else beta.data_ptr(), beta_chain,
+             acc.data_ptr(), int(lane0), tab.data_ptr(), B, P, C, L, _WORDS,
+             float(2 ** k - 1), int(bool(use_iu)), 1 << table.m,
+             float(table.lo), float(table.scale), MASK_NEG, GRID_BLOCK,
+             dev.index, _common.stream(dev))
+    colours = [(r.data_ptr(), r.shape[0]) for r in records]
+
+    def launch(key, color) -> None:
+        k0, k1 = rng_lib._key_words(key)
+        ptr, N = colours[color]
+        _common.raise_on(entry(*fixed, ptr, N, k0, k1), "fused_bn_update")
+        _count_launch(B * N, L)
+    launch.held = (states, bank, records, acc, beta, tab)
+    return launch
+
+
+def _plain_bn(key, states, record, bank, acc, beta, *, P: int, L: int,
+              k: int, use_iu: bool, table: interp_lib.InterpTable,
+              lane0: int) -> KYResult:
+    """The Bayes-net colour update's plain version on checked operands:
+    the padded (B, N, L) and (B, N, C, L) gathers of the bank by the
+    record, the child slots past the real ones taken as +0.0, the left
+    fold over C, β, :func:`fused_gibbs_sample_ref` and the write."""
+    dev = states.device
+    B = states.shape[0]
+    N, width = record.shape
+    S = 4 + 2 * P
+    rec = record.to(torch.int64).reshape(N, width // S, S)
+    own, ch = rec[:, 0], rec[:, 1:]                      # (N, S), (N, C, S)
+    nodes, card, n_ch = own[:, 0], own[:, 1], own[:, 3]
+    xl = states.to(torch.int64)
+    ls = torch.arange(L, device=dev)
+    last = bank.numel() - 1
+
+    def parents(blk):   # sum_j stride_j * x[:, id_j] over a block's slots
+        return (blk[..., 4 + P:][None] * xl[:, blk[..., 4:4 + P]]).sum(-1)
+
+    base = own[:, 2][None] + parents(own)                          # (B, N)
+    logw = bank[torch.clamp(base[..., None] + ls, 0, last)]        # (B, N, L)
+    ch_base = ch[..., 0][None] + parents(ch) + ch[..., 3][None] * xl[
+        :, ch[..., 2]]                                             # (B, N, C)
+    terms = bank[torch.clamp(ch_base[..., None]
+                             + ch[..., 1][None, ..., None] * ls, 0, last)]
+    real = torch.arange(ch.shape[1], device=dev) < n_ch[:, None]   # (N, C)
+    terms = torch.where(real[None, ..., None], terms, 0.0)
+    ch_sum = terms[:, :, 0]
+    for c in range(1, terms.shape[2]):
+        ch_sum = ch_sum + terms[:, :, c]
+    logw = logw + ch_sum
+    if beta is not None:
+        valid = ls[None, None, :] < card[None, :, None]
+        m = torch.amax(torch.where(valid, logw, -torch.inf), dim=-1,
+                       keepdim=True)
+        logw = (logw - m) * (beta[:, None, None] if beta.numel() > 1
+                             else beta)
+    res = fused_gibbs_sample_ref(
+        key, logw.reshape(-1, L), card.to(torch.int32)[None].expand(
+            B, N).reshape(-1), k=k, use_iu=use_iu, table=table,
+        lane0=int(lane0) * N)
+    states[:, nodes] = res.sample.reshape(B, N).to(states.dtype)
+    acc += torch.stack([res.bits_used.sum(dtype=torch.int64),
+                        res.attempts.sum(dtype=torch.int64)])
+    return res
+
+
+def fused_bn_update_ref(
+    key,
+    states: torch.Tensor,
+    record: torch.Tensor,
+    bank: torch.Tensor,
+    *,
+    P: int,
+    L: int,
+    acc: torch.Tensor,
+    beta=None,
+    k: int,
+    use_iu: bool = True,
+    table: interp_lib.InterpTable | None = None,
+    lane0: int = 0,
+) -> KYResult:
+    """Plain PyTorch twin of one launch of :func:`fused_bn_launcher` on
+    any device: the record's padded gathers of the bank and their fold,
+    β, :func:`fused_gibbs_sample_ref` over all ``B * N`` lanes, the
+    states written and the stats added to ``acc``, in place as the kernel
+    updates them.  Returns the draw of every lane."""
+    _check_k(k)
+    (record,), _, beta, _ = _bn_operands(states, bank, [record], acc, beta,
+                                         P=P, L=L, lane0=lane0)
+    return _plain_bn(key, states, record, bank, acc, beta, P=P, L=L, k=k,
+                     use_iu=use_iu, table=table or interp_lib._EXP_DEFAULT,
+                     lane0=lane0)

@@ -20,11 +20,22 @@ any device, with ``sampler="cuda"`` (the fused kernel) or ``"torch"``
 (sweeps from given states, stats left on the device); :func:`run_gibbs`
 runs it from random states and tallies the marginals.
 
+With ``sampler="cuda"`` and the bank whole on the card, a colour update
+is one launch of the fused kernel's plan source
+(:func:`_plan_updates`): the kernel gathers each lane's own and child
+log-CPT rows from the states by the colour's packed plan records, writes
+the new states in place and sums the stats on the card, bit for bit the
+gathered path's results.  ``sampler="torch"``, and a bank held in blocks
+(the serve mesh's "model" axis), take :func:`_color_update`'s gathered
+tiles.
+
 A live :func:`repro_torch.serve.telemetry.current` records a call of
 :func:`bn_gibbs` as a ``pgm.bn_gibbs`` span, and each colour update as a
-``pgm.color_update`` span holding ``pgm.gather`` and ``pgm.sample``, with
-the counters ``pgm_color_updates_total{L}`` and
-``pgm_bn_label_slots_total{kind}`` (see :func:`_color_update`).
+``pgm.color_update`` span holding ``pgm.gather`` and ``pgm.sample`` (on
+the plan source ``pgm.sample`` only), with the counters
+``pgm_color_updates_total{L}``, ``pgm_bn_label_slots_total{kind}`` (see
+:func:`_color_update`) and, on the plan source,
+``pgm_bn_fused_updates_total{L}``.
 """
 from __future__ import annotations
 
@@ -41,7 +52,8 @@ from repro_torch.core import rng as rng_lib
 from repro_torch.core.fixedpoint import DEFAULT_K
 from repro_torch.core.interp import InterpTable, exp_table, masked_exp_weights
 from repro_torch.core.ky import ky_sample
-from repro_torch.kernels.fused_sweep import fused_gibbs_sample
+from repro_torch.kernels.fused_sweep import (
+    fused_bn_launcher, fused_gibbs_sample, pack_bn_plan)
 from repro_torch.pgm.coloring import color_bayesnet
 from repro_torch.pgm.graph import BayesNet
 from repro_torch.serve import telemetry
@@ -289,6 +301,19 @@ def blocked_lookup_bytes(plan: ColorPlan, n_lanes: int, max_card: int,
     return 8 * (n_blocks - 1) * n_lanes * g * max_card * (1 + c)
 
 
+def _count_update(tel, plan: ColorPlan, n_b: int, max_card: int) -> None:
+    """A colour update of ``n_b`` chains on the live recorder ``tel``:
+    ``pgm_color_updates_total{L}`` and ``pgm_bn_label_slots_total{kind}``
+    (``real``: the lanes' ``sum card_v * (1 + children_v)``; ``padded``:
+    the slots the gathered tiles hold, ``lanes * L * (1 + C)``)."""
+    g, c_pad = plan.ch_off.shape
+    tel.count("pgm_color_updates_total", L=max_card)
+    tel.count("pgm_bn_label_slots_total", n_b * _real_slots(plan),
+              kind="real")
+    tel.count("pgm_bn_label_slots_total", n_b * g * max_card * (1 + c_pad),
+              kind="padded")
+
+
 def _color_update(
     key,
     x: torch.Tensor,            # (B, n) int32 current states
@@ -322,11 +347,7 @@ def _color_update(
     if on:
         tid = tel.track(threading.current_thread().name)
         n_b, (g, c_pad) = x.shape[0], plan.ch_off.shape
-        tel.count("pgm_color_updates_total", L=max_card)
-        tel.count("pgm_bn_label_slots_total", n_b * _real_slots(plan),
-                  kind="real")
-        tel.count("pgm_bn_label_slots_total",
-                  n_b * g * max_card * (1 + c_pad), kind="padded")
+        _count_update(tel, plan, n_b, max_card)
 
     def t(a):
         return torch.as_tensor(a, dtype=i64, device=dev)
@@ -407,13 +428,19 @@ def _check_sampler(sampler: str, device: torch.device) -> None:
 
 def make_sweep(prog: CompiledBN, *, use_iu: bool = True,
                sampler: str = "cuda", device=None):
-    """Build the one-sweep function: (key, x) -> (x', stats)."""
+    """Build the one-sweep function: (key, x) -> (x', stats); with
+    ``sampler="cuda"`` one launch a colour (:func:`_plan_updates`)."""
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
-    log_cpt = torch.as_tensor(prog.log_cpt, device=device)
-    plans = plans_on(prog.plans, device)
+    log_cpt, plans, _ = _placed(prog, device)
 
     def sweep(key, x: torch.Tensor):
+        if sampler == "cuda":
+            x, acc, update = _plan_updates(x, prog, device, use_iu=use_iu)
+            for color in range(len(plans)):
+                key, sub = rng_lib.split(key)
+                update(sub, color)
+            return x, BNSweepStats(acc[0], acc[1])
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
         for plan in plans:
             key, sub = rng_lib.split(key)
@@ -455,20 +482,71 @@ def init_states(
     return x0
 
 
-# a program -> {device: (log-CPT bank, plans)} on that device
+# a program -> {device: (log-CPT bank, plans, plan records)} there
 _PLACED: "weakref.WeakKeyDictionary[CompiledBN, dict]" = \
     weakref.WeakKeyDictionary()
 
 
 def _placed(prog: CompiledBN, device: torch.device):
-    """The program's bank and plans on ``device``, copied once a program
-    and device."""
+    """The program's bank, plans and the plan source's packed records
+    (:func:`repro_torch.kernels.fused_sweep.pack_bn_plan`, one int32
+    tensor a colour) on ``device``, made once a program and device."""
     on = _PLACED.setdefault(prog, {})
     key = str(device)
     if key not in on:
         on[key] = (torch.as_tensor(prog.log_cpt, device=device),
-                   plans_on(prog.plans, device))
+                   plans_on(prog.plans, device),
+                   tuple(torch.as_tensor(pack_bn_plan(
+                       p, prog.log_cpt, prog.bn.n_nodes), device=device)
+                       for p in prog.plans))
     return on[key]
+
+
+def _plan_source(sampler: str, log_cpt) -> bool:
+    """Whether a colour update takes the fused kernel's plan source: the
+    kernel samples and the bank is one tensor (a bank held in blocks
+    keeps the gathered tiles)."""
+    return sampler == "cuda" and isinstance(log_cpt, torch.Tensor)
+
+
+def _plan_updates(x: torch.Tensor, prog: CompiledBN, device, *,
+                  use_iu: bool, beta=None, lane0: int = 0):
+    """The fused kernel's plan source over a copy of ``x``: returns
+    ``(states, acc, update)``, the copy (int32, contiguous; ``x`` is not
+    written), a zeroed (2,) int64 accumulator of bits and attempts, and
+    ``update(key, color)``: the colour's update in one launch, writing
+    ``states`` in place and adding to ``acc``.  ``beta`` (scalar or
+    (B,)) and ``lane0`` (the global index of ``x``'s first chain) as
+    :func:`_color_update` takes them.  Recorded through
+    :func:`telemetry.current` when it is live: a ``pgm.color_update``
+    span holding one ``pgm.sample`` (the launch), the counters of
+    :func:`_count_update` and ``pgm_bn_fused_updates_total{L}``."""
+    log_cpt, plans, records = _placed(prog, device)
+    states = x.to(torch.int32, memory_format=torch.contiguous_format,
+                  copy=True)
+    acc = torch.zeros(2, dtype=torch.int64, device=device)
+    L = prog.max_card
+    launch = fused_bn_launcher(
+        states, log_cpt, records, P=prog.plans[0].self_pa.shape[1], L=L,
+        acc=acc, beta=beta, k=prog.k, use_iu=use_iu,
+        table=_exp_on(str(device)), lane0=lane0)
+    n_b = x.shape[0]
+
+    def update(key, color: int) -> None:
+        tel = telemetry.current()
+        if not tel.enabled:
+            launch(key, color)
+            return
+        tid = tel.track(threading.current_thread().name)
+        plan = plans[color]
+        g, c_pad = plan.ch_off.shape
+        _count_update(tel, plan, n_b, L)
+        tel.count("pgm_bn_fused_updates_total", L=L)
+        with tel.span("pgm.color_update", tid, color=color, lanes=n_b * g,
+                      L=L, C=c_pad):
+            with tel.span("pgm.sample", tid, sampler="cuda"):
+                launch(key, color)
+    return states, acc, update
 
 
 def bn_gibbs(key, x: torch.Tensor, prog: CompiledBN, *, n_sweeps: int,
@@ -481,10 +559,13 @@ def bn_gibbs(key, x: torch.Tensor, prog: CompiledBN, *, n_sweeps: int,
     Each sweep splits ``key`` into (next, sweep key) and the sweep key
     once a colour, the colour update taking the second half.  Observed
     columns of ``x`` keep their values.  ``each_sweep(i, x)``, where
-    given, sees the states after sweep ``i``.  A live
-    :func:`telemetry.current` records the call as a ``pgm.bn_gibbs`` span
-    (``n_sweeps``, ``lanes`` = B times the free nodes, ``colors``) around
-    the colour updates' spans.
+    given, sees the states after sweep ``i`` (with ``sampler="cuda"`` the
+    buffer the later sweeps write in place).  With ``sampler="cuda"`` the
+    states are copied once, the stats accumulator zeroed once, and each
+    colour update is one launch of the plan source
+    (:func:`_plan_updates`).  A live :func:`telemetry.current` records
+    the call as a ``pgm.bn_gibbs`` span (``n_sweeps``, ``lanes`` = B
+    times the free nodes, ``colors``) around the colour updates' spans.
     """
     device = torch.device(device or "cuda")
     _check_sampler(sampler, device)
@@ -494,7 +575,18 @@ def bn_gibbs(key, x: torch.Tensor, prog: CompiledBN, *, n_sweeps: int,
                    lanes=x.shape[0] * len(prog.free_nodes),
                    colors=prog.n_colors)
           if tel.enabled else NULL_SPAN):
-        log_cpt, plans = _placed(prog, device)
+        if sampler == "cuda":
+            states, acc, update = _plan_updates(x, prog, device,
+                                                use_iu=use_iu)
+            for i in range(n_sweeps):
+                key, sub = rng_lib.split(key)
+                for color in range(prog.n_colors):
+                    sub, s2 = rng_lib.split(sub)
+                    update(s2, color)
+                if each_sweep is not None:
+                    each_sweep(i, states)
+            return states.to(x.dtype), acc[0], acc[1]
+        log_cpt, plans, _ = _placed(prog, device)
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
         for i in range(n_sweeps):
             key, sub = rng_lib.split(key)

@@ -32,8 +32,8 @@ import torch
 
 from repro_torch.core import rng as rng_lib
 from repro_torch.pgm.compile import (
-    BNSweepStats, _check_sampler, _color_update, compile_bayesnet,
-    init_states, plans_on)
+    BNSweepStats, _check_sampler, _color_update, _placed, _plan_source,
+    _plan_updates, compile_bayesnet, init_states, plans_on)
 from repro_torch.pgm.gibbs import SweepStats, checkerboard_halfstep
 from repro_torch.pgm.graph import BayesNet, FactorGraph, IsingModel, MRFGrid
 from repro_torch.pgm.mrf_compile import (
@@ -257,7 +257,10 @@ def _bn_runner(prog, *, sweeps_per_round: int, thin: int, use_iu: bool,
                sampler: str, devices, positions):
     """One shard's BN runner on ``devices[0]``, its bank whole there, or
     as one block a device of ``devices`` (each made from the host's
-    bank, so no device ever holds the whole of it)."""
+    bank, so no device ever holds the whole of it).  With
+    ``sampler="cuda"`` a whole bank takes the fused kernel's plan source,
+    one launch a colour update on a copy of the sweep's states; a bank in
+    blocks keeps the gathered tiles."""
     device = torch.device(devices[0])
     _check_sampler(sampler, device)
     if len(devices) > 1:
@@ -266,13 +269,24 @@ def _bn_runner(prog, *, sweeps_per_round: int, thin: int, use_iu: bool,
         log_cpt = ModelBlocks([torch.as_tensor(bank[lo:hi], device=d)
                                for (lo, hi), d in zip(bounds, devices)],
                               bounds, positions)
+        plans = plans_on(prog.plans, device)
+    elif sampler == "cuda":     # shared with the plan source's records
+        log_cpt, plans, _ = _placed(prog, device)
     else:
         log_cpt = torch.as_tensor(prog.log_cpt, device=device)
-    plans = plans_on(prog.plans, device)
+        plans = plans_on(prog.plans, device)
+    fused = _plan_source(sampler, log_cpt)
     L = prog.max_card
 
     def sweep(key, x, beta, lane0):
         key, sub = rng_lib.split(key)
+        if fused:
+            x, acc, update = _plan_updates(x, prog, device, use_iu=use_iu,
+                                           beta=beta, lane0=lane0)
+            for color in range(len(plans)):
+                sub, s2 = rng_lib.split(sub)
+                update(s2, color)
+            return key, x, BNSweepStats(acc[0], acc[1])
         bits = att = torch.zeros((), dtype=torch.int64, device=device)
         for color, plan in enumerate(plans):
             sub, s2 = rng_lib.split(sub)

@@ -340,10 +340,7 @@ def test_fused_halfstep_is_one_sample_span_and_one_launch(cuda_device):
     assert len(kernels) == 1
 
 
-def test_bn_gibbs_munin_scale_cuda_equals_torch(cuda_device):
-    """The full Munin-scale net (1,041 nodes, 2-21 states, so L 21 and the
-    kernel's 32-thread groups) with 64 observed leaves, 64 chains, 2
-    sweeps: states, bits and attempts."""
+def _munin_program(n_chains, device):
     from repro_torch.pgm import compile as comp
     from repro_torch.pgm import networks
 
@@ -352,17 +349,92 @@ def test_bn_gibbs_munin_scale_cuda_equals_torch(cuda_device):
     observed = sorted(np.random.default_rng(5).choice(leaves, 64,
                                                       replace=False))
     prog = comp.compile_bayesnet(bn, observed=observed)
-    assert prog.max_card == 21
-    x = comp.init_states(rng.PRNGKey(2), prog, 64,
+    x = comp.init_states(rng.PRNGKey(2), prog, n_chains,
                          np.array([v % bn.card[v] for v in observed]),
-                         device=cuda_device)
-    out = [comp.bn_gibbs(rng.PRNGKey(3), x, prog, n_sweeps=2,
-                         sampler=sampler, device=cuda_device)
-           for sampler in ("cuda", "torch")]
-    (xc, bc, ac), (xt, bt, at) = out
+                         device=device)
+    return prog, x, observed
+
+
+def _kernel_launches(prof) -> int:
+    return sum("fused_gibbs_group_kernel" in e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_bn_gibbs_munin_scale_cuda_equals_torch(cuda_device):
+    """The full Munin-scale net (1,041 nodes, 2-21 states, so L 21 and the
+    kernel's 32-thread groups) with 64 observed leaves, 1,024 chains, 4
+    sweeps: states, bits and attempts; the input not written, and one
+    launch of the fused kernel a colour update."""
+    from repro_torch.pgm import compile as comp
+
+    prog, x, observed = _munin_program(1024, cuda_device)
+    assert prog.max_card == 21
+    before = x.clone()
+    comp.bn_gibbs(rng.PRNGKey(1), x, prog, n_sweeps=1, device=cuda_device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        xc, bc, ac = comp.bn_gibbs(rng.PRNGKey(3), x, prog, n_sweeps=4,
+                                   sampler="cuda", device=cuda_device)
+        torch.cuda.synchronize()
+    assert _kernel_launches(prof) == 4 * prog.n_colors
+    xt, bt, at = comp.bn_gibbs(rng.PRNGKey(3), x, prog, n_sweeps=4,
+                               sampler="torch", device=cuda_device)
+    assert torch.equal(x, before)
     assert torch.equal(xc, xt) and not torch.equal(xc, x)
     assert (int(bc), int(ac)) == (int(bt), int(at))
     assert torch.equal(xc[:, observed], x[:, observed])
+
+
+def test_bn_plan_update_is_one_sample_span_and_counted_fused(cuda_device):
+    """Under a live recorder each colour update of ``bn_gibbs`` on the
+    kernel is one ``pgm.color_update`` span holding one ``pgm.sample``
+    and no ``pgm.gather``; ``pgm_bn_fused_updates_total`` equals
+    ``pgm_color_updates_total``."""
+    from repro_torch.pgm import compile as comp
+    from repro_torch.serve import telemetry
+
+    prog, x, _ = _munin_program(32, cuda_device)
+    tel = telemetry.Telemetry()
+    telemetry.install(tel)
+    try:
+        comp.bn_gibbs(rng.PRNGKey(3), x, prog, n_sweeps=2,
+                      device=cuda_device)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.install(None)
+    spans = [e["name"] for e in tel.events() if e["ph"] == "X"]
+    n = 2 * prog.n_colors
+    assert sorted(set(spans)) == ["pgm.bn_gibbs", "pgm.color_update",
+                                  "pgm.sample"]
+    assert spans.count("pgm.color_update") == spans.count("pgm.sample") == n
+    snap = tel.metrics_snapshot()
+    assert snap["pgm_bn_fused_updates_total{L=21}"] == n
+    assert snap["pgm_color_updates_total{L=21}"] == n
+
+
+@pytest.mark.parametrize("beta", [None, 0.4, "chain"])
+def test_served_bn_round_cuda_equals_torch(cuda_device, beta):
+    """The one-card served BN round (``make_round_runner``) on the plan
+    source against the plain path: states, counts, moments and per-sweep
+    stats, with no β, a scalar β and one a chain, at a lane shard's
+    ``lane0``."""
+    from repro_torch.serve import families
+
+    prog, x, _ = _munin_program(48, cuda_device)
+    if beta == "chain":
+        beta = torch.linspace(0.3, 1.5, 48, device=cuda_device)
+    outs = []
+    for sampler in ("cuda", "torch"):
+        run = families.make_round_runner(prog, sweeps_per_round=3, thin=2,
+                                         use_iu=True, sampler=sampler,
+                                         device=cuda_device)
+        outs.append(run(rng.PRNGKey(4), x, 1, beta, lane0=5))
+    for got, want in zip(*outs):
+        if isinstance(got, tuple):
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            assert torch.equal(got, want)
 
 
 def test_run_fg_gibbs_cuda_equals_torch(cuda_device):
